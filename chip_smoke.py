@@ -13,8 +13,8 @@ exits non-zero without the final ``ok`` line:
 3. kernels: each CUDA kernel against its plain torch version on the card
    at the main path's shapes — ``seg_topk`` bit-equal, ``l2_dist`` and
    ``pq_adc`` inside the scan's ``rescore_eps`` band — with CUDA-event
-   times, a roofline bound from the shapes and one library call's time
-   as a yardstick;
+   times, a roofline bound from this run's inputs and one library call's
+   time as a yardstick;
 4. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
    built on the card from 1M ``sift-like`` vectors and served through
    ``AnnService`` (4-query requests, ``max_batch=64``, ``nprobe=16``,
@@ -135,6 +135,16 @@ def check_pq_adc(dev, gen):
     if not bool((err <= rescore_band(d, ref, 0.0)).all()):
         raise AssertionError(f"pq_adc outside rescore_eps: max err "
                              f"{float(err.max())}")
+    # library yardstick: one embedding_bag sums rows lut[:, j, code[r, j]]
+    # of an (m*256, qb) table, giving out.T (n, qb)
+    bags = codes.long() + 256 * torch.arange(m, device=dev)
+    table = luts.permute(1, 2, 0).reshape(m * 256, qb).contiguous()
+    lib = torch.nn.functional.embedding_bag(bags, table, mode="sum")
+    torch.cuda.synchronize()
+    lib_err = (lib.T.double() - ref.double()).abs()
+    if not bool((lib_err <= rescore_band(d, ref, 0.0)).all()):
+        raise AssertionError(f"embedding_bag yardstick outside rescore_eps: "
+                             f"max err {float(lib_err.max())}")
     b, by = bound_ms(4 * qb * m * 256 + n * m + 4 * qb * n, qb * n * m)
     return dict(
         name="pq_adc", route="cuda", source="src/repro_torch/csrc/pq_adc.cu",
@@ -143,7 +153,9 @@ def check_pq_adc(dev, gen):
         max_abs_err=float(err.max()),
         ms=cuda_ms(lambda: pq_adc(luts, codes)),
         plain_ms=cuda_ms(lambda: pq_adc_ref(luts, codes), reps=3, warmup=1),
-        bound_ms=b, bound_by=by, library_ms=None)
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            bags, table, mode="sum")))
 
 
 def seg_topk_inputs(dev, gen, qb=64, n=16384):
@@ -172,6 +184,8 @@ def check_seg_topk(dev, gen):
 
     qb, n = 64, 16384
     d, lens = seg_topk_inputs(dev, gen, qb, n)
+    # the function reads only each row's first min(lens, n) columns
+    live = int(lens.clamp(max=n).sum())
     rows = []
     for k in (16, 64):
         v, i = seg_topk(d, lens, k)
@@ -182,15 +196,17 @@ def check_seg_topk(dev, gen):
             bad = (i != ir).any(1).nonzero().flatten().tolist()
             raise AssertionError(f"seg_topk k={k} differs from the stable "
                                  f"sort in rows {bad[:8]}")
+        both = torch.isfinite(v) & torch.isfinite(vr)
+        err = float(torch.where(both, (v - vr).abs(), 0.0).max())
         masked = torch.where(
             torch.arange(n, device=dev)[None] < lens[:, None].clamp(max=n),
             d, torch.full((), float("inf"), device=dev))
-        b, by = bound_ms(4 * qb * n + 4 * qb + 8 * qb * k, qb * n)
+        b, by = bound_ms(4 * live + 4 * qb + 8 * qb * k, live)
         rows.append(dict(
             name="seg_topk" if k == 16 else f"seg_topk(k={k})",
             route="cuda", source="src/repro_torch/csrc/seg_topk.cu",
             replaces="src/repro/kernels/seg_topk/kernel.py:71",
-            shape=f"{qb}x{n} f32, k={k}", max_abs_err=0.0,
+            shape=f"{qb}x{n} f32, k={k}", max_abs_err=err,
             ms=cuda_ms(lambda: seg_topk(d, lens, k)),
             plain_ms=cuda_ms(lambda: seg_topk_ref(d, lens, k)),
             bound_ms=b, bound_by=by,
