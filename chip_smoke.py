@@ -9,18 +9,31 @@ exits non-zero without the final ``ok`` line:
 
 1. environment: card name and power limit (``nvidia-smi``), torch/CUDA;
 2. build: every kernel of ``src/repro_torch/csrc`` compiled by ``nvcc``
-   (all sources in parallel) into the git-ignored ``build/``;
-3. kernels: each CUDA kernel against its plain torch version on the card
-   at the main path's shapes — ``seg_topk`` bit-equal, ``l2_dist`` and
-   ``pq_adc`` inside the scan's ``rescore_eps`` band — with CUDA-event
-   times, a roofline bound from this run's inputs and one library call's
-   time as a yardstick;
-4. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
-   built on the card from 1M ``sift-like`` vectors and served through
-   ``AnnService`` (4-query requests, ``max_batch=64``, ``nprobe=16``,
-   top-10) twice, with the decoded-id cache cold and then warm; every
-   kernel's launch count is read around the serve runs, and results must
-   equal ``search_ref`` exactly on the first 64 queries.
+   (all sources in parallel) into the git-ignored ``build/``, with each
+   kernel's registers and spills;
+3. kernels vs plain: each CUDA kernel against its plain torch version on
+   the card at the main path's shapes — ``seg_topk`` bit-equal;
+   ``l2_dist``, ``pq_adc`` and ``l2_top1`` inside the scan's
+   ``rescore_eps`` band (``l2_top1`` at the IVF1024 and PQ8x8 k-means
+   shapes); ``rans_decode`` bit-equal on ``gap_ans``'s quotient model —
+   with CUDA-event times, a roofline bound from this run's inputs and one
+   library call's time as a yardstick where there is one;
+4. determinism: k-means (1024 centroids, 8 iterations) twice on the base
+   vectors; the centroids must be bitwise equal;
+5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
+   built on the card from 1M ``sift-like`` vectors (k-means assignment and
+   PQ encoding through ``l2_top1``) and served through ``AnnService``
+   (4-query requests, ``max_batch=64``, ``nprobe=16``, top-10) twice,
+   with the decoded-id cache cold and then warm; then an ingest pass: five
+   ``add`` calls of 10,000 new vectors each (five epochs), and the queries
+   served again.  Every kernel's launch count is set to 0 before the build
+   and read after the last pass; results must equal ``search_ref`` exactly
+   on the first 64 queries, before and after ingest;
+6. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
+   index's assignment (2^20 positions, bit-equal to ``BitVector`` and the
+   plain version) and ``rans_decode`` on gap_ans-model streams (bit-equal
+   to the encoded symbols and the plain version).  No engine calls these
+   two, so their launches are counted here.
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi`` gives them), the ``kernels`` JSON and
@@ -48,6 +61,14 @@ PEAK_F32_S = 67e12
 
 SPECS = ("IVF1024,ids=roc", "IVF1024,PQ8x8,ids=roc,codes=polya")
 NPROBE, TOPK, REQUEST, MAX_BATCH = 16, 10, 4, 64
+NLIST = 1024
+# l2_top1 at the k-means shapes of the main path: IVF1024 over ~1M
+# 128-d rows, and one PQ8x8 subspace (256 centroids of 16 dims)
+TOP1_SHAPES = ((1 << 20, NLIST, 128), (1 << 20, 256, 16))
+INGEST_ADDS, INGEST_ROWS = 5, 10_000
+# rans_decode at (lanes, rows): 2^20 symbols, and one IVF1024 cluster at 1M
+RANS_SHAPES = ((128, 8192), (16, 64))
+WT_QUERIES = 1 << 20
 
 
 @contextlib.contextmanager
@@ -225,6 +246,158 @@ def check_seg_topk(dev, gen):
     return rows
 
 
+def check_l2_top1(dev, gen, nq, k, d):
+    """l2_top1 against its plain version: every row's index must be a
+    nearest centroid inside ``rescore_eps`` of the plain minimum."""
+    import torch
+    from repro_torch.kernels.l2_topk import l2_dist_ref, l2_top1, l2_top1_ref
+    from repro_torch.kernels.l2_topk.ref import TOP1_CHUNK
+
+    q = torch.randn(nq, d, device=dev, generator=gen)
+    c = torch.randn(k, d, device=dev, generator=gen)
+    idx, val = l2_top1(q, c)
+    ridx, rval = l2_top1_ref(q, c)
+    torch.cuda.synchronize()
+    band = rescore_band(d, rval, (q.double() ** 2).sum(1))
+    at = torch.cat([
+        l2_dist_ref(q[i:i + TOP1_CHUNK], c).gather(
+            1, idx[i:i + TOP1_CHUNK].long()[:, None])[:, 0]
+        for i in range(0, nq, TOP1_CHUNK)])
+    if not bool(((at.double() - rval.double()).abs() <= band).all()):
+        raise AssertionError(f"l2_top1 ({nq}, {k}, {d}): an index is not a "
+                             "nearest centroid inside rescore_eps")
+    err = (val.double() - rval.double()).abs()
+    if not bool((err <= band).all()):
+        raise AssertionError(f"l2_top1 ({nq}, {k}, {d}) values outside "
+                             f"rescore_eps: max err {float(err.max())}")
+    cn = (c * c).sum(1)[None]
+
+    def chunked_addmm_min():
+        # the yardstick: assign's chunked addmm + min before the kernel
+        for i in range(0, nq, TOP1_CHUNK):
+            sl = q[i:i + TOP1_CHUNK]
+            torch.addmm(cn, sl, c.T, alpha=-2.0).add_(
+                (sl * sl).sum(1, keepdim=True)).min(1)
+
+    b, by = bound_ms(4 * (nq * d + k * d + 2 * nq),
+                     2 * nq * k * d + 2 * (nq + k) * d + 3 * nq * k)
+    return dict(
+        name="l2_top1" if (k, d) == (NLIST, 128) else f"l2_top1(K={k},d={d})",
+        route="cuda", source="src/repro_torch/csrc/l2_top1.cu",
+        replaces="src/repro/kernels/l2_topk/kernel.py:39",
+        shape=f"rows {nq}x{d}, centroids {k}x{d} f32",
+        max_abs_err=float(err.max()), idx_differ=int((idx != ridx).sum()),
+        ms=cuda_ms(lambda: l2_top1(q, c), reps=10),
+        plain_ms=cuda_ms(lambda: l2_top1_ref(q, c), reps=5, warmup=1),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(chunked_addmm_min, reps=5, warmup=1))
+
+
+def rans_stream(lanes, rows, seed):
+    """(symbols (rows, lanes), heads, words, tables, r) on gap_ans's own
+    quotient model, encoded by the port's 32/16 coder."""
+    import numpy as np
+    from repro_torch.core import gap_ans
+    from repro_torch.core.vrans import VRans16Encoder
+    from repro_torch.kernels.rans_decode import make_tables
+
+    r, freqs, starts = gap_ans._Q_PRECISION, gap_ans._QF, gap_ans._QC
+    rng = np.random.default_rng(seed)
+    data = rng.choice(gap_ans._Q_SYMBOLS, size=(rows, lanes),
+                      p=freqs / freqs.sum())
+    enc = VRans16Encoder(lanes)
+    for t in range(rows - 1, -1, -1):
+        enc.push(starts[data[t]], freqs[data[t]], r)
+    heads, words = enc.finalize()
+    return data, heads, words, make_tables(freqs, r), r
+
+
+def rans_args(dev, heads, words, tables):
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(heads.view(np.int32)).to(dev),
+            torch.from_numpy(words.astype(np.int32)).to(dev),
+            *(torch.from_numpy(t).to(dev) for t in tables)]
+
+
+def check_rans_decode(dev, lanes, rows):
+    """rans_decode bit-equal to the plain step loop and to the symbols."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rans_decode import rans_decode, rans_decode_ref
+
+    data, heads, words, tables, r = rans_stream(lanes, rows, seed=lanes)
+    args = rans_args(dev, heads, words, tables)
+    out = rans_decode(*args, rows=rows, r=r)
+    ref = rans_decode_ref(*args, rows=rows, r=r)
+    if not (torch.equal(out, ref)
+            and np.array_equal(out.cpu().numpy(), data)):
+        raise AssertionError(f"rans_decode L={lanes} rows={rows} differs "
+                             "from the symbols or the plain version")
+    # bytes: heads, words (int32 here), three tables, the symbols; the
+    # integer operations (~12 a symbol) never decide the bound
+    b, by = bound_ms(4 * (lanes + len(words) + 3 * (1 << r) + rows * lanes),
+                     12 * rows * lanes)
+    return dict(
+        name="rans_decode" if rows >= 1024 else
+        f"rans_decode(L={lanes},rows={rows})",
+        route="cuda", source="src/repro_torch/csrc/rans_decode.cu",
+        replaces="src/repro/kernels/rans_decode/kernel.py:62",
+        shape=f"L={lanes} rows={rows} r={r} words={len(words)}",
+        max_abs_err=0.0,
+        ms=cuda_ms(lambda: rans_decode(*args, rows=rows, r=r), reps=5),
+        plain_ms=cuda_ms(lambda: rans_decode_ref(*args, rows=rows, r=r),
+                         reps=1, warmup=1),
+        bound_ms=b, bound_by=by, library_ms=None)
+
+
+def wavelet_level0(cluster_of):
+    """Level 0 of the port's wavelet tree over an IVF assignment."""
+    from repro_torch.core.wavelet_tree import WaveletTree
+
+    return WaveletTree.build(cluster_of, NLIST).levels[0]
+
+
+def wt_rank_args(dev, gen, level0):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.wt_rank import pack_bits_u32
+
+    words, sup = pack_bits_u32(level0.bits())
+    q = torch.randint(0, level0.nbits + 1, (WT_QUERIES,), device=dev,
+                      generator=gen, dtype=torch.int32)
+    return [torch.from_numpy(words.view(np.int32)).to(dev),
+            torch.from_numpy(sup).to(dev), q]
+
+
+def check_wt_rank(args, level0):
+    """wt_rank bit-equal to the plain version and to ``BitVector``."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.wt_rank import wt_rank, wt_rank_ref
+
+    words, sup, q = args
+    out = wt_rank(*args)
+    if not (torch.equal(out, wt_rank_ref(*args)) and np.array_equal(
+            out.cpu().numpy(), level0.rank1_batch(q.cpu().numpy()))):
+        raise AssertionError("wt_rank differs from the plain version or "
+                             "BitVector.rank1_batch")
+    # bytes: words, superblock counts, queries and ranks once each; ops:
+    # a popcount and an add per word each query needs (never decides)
+    qs = q.long()
+    ops = 2 * int((((qs >> 5) & 15) + ((qs & 31) > 0).long() + 1).sum())
+    b, by = bound_ms(4 * (words.numel() + sup.numel() + 2 * q.numel()), ops)
+    return dict(
+        name="wt_rank", route="cuda", source="src/repro_torch/csrc/wt_rank.cu",
+        replaces="src/repro/kernels/wt_rank/kernel.py:54",
+        shape=f"{level0.nbits} bits (level 0 of the IVF{NLIST} wavelet "
+              f"tree), {q.numel()} queries",
+        max_abs_err=0.0, ms=cuda_ms(lambda: wt_rank(*args)),
+        plain_ms=cuda_ms(lambda: wt_rank_ref(*args), reps=5),
+        bound_ms=b, bound_by=by, library_ms=None)
+
+
 def exact_topk(base_dev, q_dev, k):
     """Ground-truth neighbours for recall (the harness's own yardstick)."""
     import torch
@@ -260,44 +433,75 @@ def serve_pass(svc, queries):
         host_block_bytes=st["host_block_bytes"])
 
 
-def serve(spec, base, queries, gt, device):
+def check_parity(spec, idx, tickets, queries):
+    """Served results of the right shape, finite, and equal to
+    ``search_ref`` on the first 64 queries."""
+    import numpy as np
+
+    ids = np.concatenate([tk.ids for tk in tickets])
+    dists = np.concatenate([tk.dists for tk in tickets])
+    if ids.shape != (len(queries), TOPK) or not np.isfinite(dists).all():
+        raise AssertionError(f"{spec}: bad result shape or non-finite dists")
+    ids_r, d_r, _ = idx.ivf.search_ref(queries[:64], nprobe=NPROBE, topk=TOPK)
+    if not (np.array_equal(ids[:64], ids_r)
+            and np.array_equal(dists[:64], d_r)):
+        raise AssertionError(f"{spec}: served results differ from "
+                             "search_ref")
+    return ids
+
+
+def serve(spec, base, queries, gt, adds, device):
     """Build ``spec`` on ``device`` and serve ``queries`` through AnnService
-    twice: with the decoded-id cache cold, then warm.  Returns (report,
-    launch counts of the two serve passes)."""
+    twice (decoded-id cache cold, then warm); then ingest ``adds`` one
+    ``add`` call each and serve the queries again.  The launch counts are
+    set to 0 before the build and read after the last pass.  Returns
+    (report, launch counts, the built index's assignment)."""
     import numpy as np
     import torch
     from repro_torch.api import index_factory
     from repro_torch.kernels import launch_counts, reset_launches
     from repro_torch.serve import AnnService, BatchPolicy
 
+    reset_launches()
     t = time.perf_counter()
     idx = index_factory(spec, device=device).build(base, seed=1)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t
+    build_top1 = launch_counts()["l2_top1"]
+    cluster_of = np.array(idx.ivf.cluster_of, np.int64)
     svc = AnnService(idx, topk=TOPK, policy=BatchPolicy(max_batch=MAX_BATCH),
                      device=device, nprobe=NPROBE)
-    reset_launches()
     cold_t, cold = serve_pass(svc, queries)
     warm_t, warm = serve_pass(svc, queries)
-    counts = launch_counts()
-    ids_r, d_r, _ = idx.ivf.search_ref(queries[:64], nprobe=NPROBE, topk=TOPK)
     for tickets in (cold_t, warm_t):
-        ids = np.concatenate([tk.ids for tk in tickets])
-        dists = np.concatenate([tk.dists for tk in tickets])
-        if ids.shape != (len(queries), TOPK) or not np.isfinite(dists).all():
-            raise AssertionError(f"{spec}: bad result shape or non-finite "
-                                 "dists")
-        if not (np.array_equal(ids[:64], ids_r)
-                and np.array_equal(dists[:64], d_r)):
-            raise AssertionError(f"{spec}: served results differ from "
-                                 "search_ref")
+        ids = check_parity(spec, idx, tickets, queries)
     recall = float(np.mean([len(set(a) & set(b)) / TOPK
                             for a, b in zip(ids, gt)]))
+    bits_built = idx.ivf.bits_per_id()
+
+    top1 = launch_counts()["l2_top1"]
+    t = time.perf_counter()
+    for x in adds:
+        svc.add(x)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t
+    ingest_top1 = launch_counts()["l2_top1"] - top1
+    if idx.ivf.n != base.shape[0] + sum(len(x) for x in adds):
+        raise AssertionError(f"{spec}: {idx.ivf.n} ids after ingest")
+    grown_t, grown = serve_pass(svc, queries)
+    counts = launch_counts()
+    check_parity(spec, idx, grown_t, queries)
     return dict(
         spec=spec, n=int(base.shape[0]), build_s=build_s,
-        recall_at_10=recall, bits_per_id=idx.ivf.bits_per_id(),
-        cold=cold, warm=warm, launches=counts,
-        parity_vs_search_ref=True), counts
+        recall_at_10=recall, bits_per_id=bits_built,
+        cold=cold, warm=warm, parity_vs_search_ref=True,
+        ingest=dict(adds=len(adds), rows=int(sum(len(x) for x in adds)),
+                    add_s=add_s, epochs=idx.ivf.n_epochs, n=int(idx.ivf.n),
+                    bits_per_id=idx.ivf.bits_per_id(),
+                    l2_top1_launches_build=build_top1,
+                    l2_top1_launches_ingest=ingest_top1,
+                    served=grown, parity_vs_search_ref=True),
+        launches=counts), counts, cluster_of
 
 
 def main(argv=None) -> int:
@@ -333,7 +537,7 @@ def main(argv=None) -> int:
               f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         print(f"card: {smi}")
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, launch_counts, reset_launches
 
     with phase("build"):
         _build.build_all()
@@ -350,32 +554,88 @@ def main(argv=None) -> int:
         results.append(check_l2_dist(dev, gen))
         results.append(check_pq_adc(dev, gen))
         results.extend(check_seg_topk(dev, gen))
+        for nq, k, d in TOP1_SHAPES:
+            results.append(check_l2_top1(dev, gen, nq, k, d))
+        for lanes, rows in RANS_SHAPES:
+            results.append(check_rans_decode(dev, lanes, rows))
         for r in results:
             print("  " + json.dumps(r))
 
+    import numpy as np
     from repro_torch.data import make_dataset
 
     with phase(f"data sift-like n={args.n}"):
         base, queries = make_dataset("sift-like", args.n, args.queries, seed=0)
         gt = exact_topk(torch.from_numpy(base).to(dev),
                         torch.from_numpy(queries).to(dev), TOPK)
+        new, _ = make_dataset("sift-like", INGEST_ADDS * INGEST_ROWS, 0,
+                              seed=1)
+        adds = np.split(new, INGEST_ADDS)
 
-    totals = {"l2_dist": 0, "pq_adc": 0, "seg_topk": 0}
+    from repro_torch.ann.kmeans import kmeans
+
+    with phase("determinism: k-means twice on the card"):
+        runs = []
+        for _ in range(2):
+            t = time.perf_counter()
+            runs.append(kmeans(base, NLIST, iters=8, seed=1, device=dev))
+            print(f"  kmeans({args.n}, {NLIST}, iters=8): "
+                  f"{time.perf_counter() - t:.3f} s")
+        a, b = (torch.from_numpy(c).view(torch.int32) for c in runs)
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"k-means centroids differ between two runs on the card in "
+                f"{int((a != b).any(1).sum())} of {NLIST} rows")
+        print("  centroids bitwise equal")
+
+    main_path = {}
+    cluster_of = None
     for spec in SPECS:
         with phase(f"main path {spec}"):
-            report, counts = serve(spec, base, queries, gt, dev)
+            report, counts, assignment = serve(spec, base, queries, gt, adds,
+                                               dev)
             print("  " + json.dumps(report))
             for k, v in counts.items():
-                totals[k] += v
+                main_path[k] = main_path.get(k, 0) + v
+            cluster_of = assignment if cluster_of is None else cluster_of
+
+    with phase("kernel API path: wt_rank, rans_decode"):
+        level0 = wavelet_level0(cluster_of)
+        wt_args = wt_rank_args(dev, gen, level0)
+        streams = [rans_stream(lanes, rows, seed=lanes)
+                   for lanes, rows in RANS_SHAPES]
+        from repro_torch.kernels.rans_decode import rans_decode
+        from repro_torch.kernels.wt_rank import wt_rank
+
+        reset_launches()
+        ranks = wt_rank(*wt_args)
+        decoded = [rans_decode(*rans_args(dev, h, w, tabs), rows=len(data),
+                               r=r) for data, h, w, tabs, r in streams]
+        api_path = launch_counts()
+        if not np.array_equal(ranks.cpu().numpy(),
+                              level0.rank1_batch(wt_args[2].cpu().numpy())):
+            raise AssertionError("wt_rank differs from BitVector.rank1_batch")
+        for out, (data, *_rest) in zip(decoded, streams):
+            if not np.array_equal(out.cpu().numpy(), data):
+                raise AssertionError("rans_decode differs from the encoded "
+                                     "symbols")
+        results.append(check_wt_rank(wt_args, level0))
+        print("  " + json.dumps(results[-1]))
+        print(f"  launches: {json.dumps(api_path)}")
+
+    on_api = ("wt_rank", "rans_decode")
+    totals = {k: api_path[k] if k in on_api else v
+              for k, v in main_path.items()}
     if min(totals.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: "
-                             f"{totals}")
+        raise AssertionError(f"a kernel of the port never launched on its "
+                             f"path: {totals}")
 
     kernels = []
     for r in results:
         if r["name"] in totals:
             kernels.append({key: r[key] for key in (
                 "name", "route", "source", "replaces")} | {
+                "path": "kernel API" if r["name"] in on_api else "main path",
                 "launches": totals[r["name"]]} | {key: r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")})

@@ -1,11 +1,18 @@
 """Lloyd k-means on the index's device (IVF coarse quantizers, PQ codebooks).
 
-``assign`` is a chunked ``x @ c.T`` plus ``argmin`` — a plain matrix
-product, which the reference leaves to XLA (``repro.ann.kmeans``) and
-the port to ``torch.matmul`` in full f32 (no TF32).  The centroid update
-sums with ``index_add_`` in place of ``np.add.at``.  Initial and re-seed
-picks draw from the same numpy generator as the reference, so the two
-packages start from the same centroids for the same seed.
+``assign`` is the nearest-centroid kernel ``l2_top1``: one launch over
+all rows on a CUDA tensor, with no distance block in memory; on a CPU
+tensor its plain version, the chunked ``x @ c.T`` plus ``min`` the
+reference leaves to XLA (``repro.ann.kmeans``), in full f32 (no TF32).
+
+The centroid update sums each cluster's rows in a fixed order: rows are
+sorted stably by cluster and each cluster's contiguous segment is summed
+in row order (``segment_reduce``), the order of the reference's
+``np.add.at``.  No float atomics are involved, so the same ``x``, ``k``,
+``seed`` and ``iters`` give bitwise-equal centroids from run to run on
+the card.  Initial and re-seed picks draw from the same numpy generator
+as the reference, so the two packages start from the same centroids for
+the same seed.
 """
 
 from __future__ import annotations
@@ -14,23 +21,15 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.l2_topk import l2_top1
 
 __all__ = ["kmeans", "assign", "assign_t"]
 
-ASSIGN_CHUNK = 32768
 
-
-def assign_t(x: torch.Tensor, centroids: torch.Tensor,
-             chunk: int = ASSIGN_CHUNK) -> torch.Tensor:
+def assign_t(x: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
     """Nearest centroid of each row, (n,) int64 on ``x``'s device; ties go
     to the lowest centroid index."""
-    cn = (centroids * centroids).sum(1)[None]
-    out = torch.empty(x.shape[0], dtype=torch.int64, device=x.device)
-    for i in range(0, x.shape[0], chunk):
-        sl = x[i:i + chunk]
-        d = (sl * sl).sum(1, keepdim=True) - 2.0 * (sl @ centroids.T) + cn
-        out[i:i + chunk] = d.argmin(1)
-    return out
+    return l2_top1(x, centroids)[0].to(torch.int64)
 
 
 def _on(a, device: torch.device) -> torch.Tensor:
@@ -44,6 +43,14 @@ def assign(x: np.ndarray, centroids: np.ndarray,
     return assign_t(_on(x, dev), _on(centroids, dev)).cpu().numpy()
 
 
+def _cluster_sums(x: torch.Tensor, a: torch.Tensor,
+                  counts: torch.Tensor) -> torch.Tensor:
+    """(k, d) per-cluster row sums, each summed in ascending row order."""
+    order = torch.argsort(a, stable=True)
+    return torch.segment_reduce(x[order], "sum", lengths=counts, axis=0,
+                                unsafe=True)
+
+
 def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
            device="cuda") -> np.ndarray:
     """Returns (k, d) f32 centroids trained on ``x`` (numpy in/out)."""
@@ -55,8 +62,9 @@ def kmeans(x: np.ndarray, k: int, iters: int = 10, seed: int = 0,
     ct = _on(centroids, dev)
     for _ in range(iters):
         a = assign_t(xt, ct)
-        sums = torch.zeros_like(ct).index_add_(0, a, xt)
-        counts = torch.bincount(a, minlength=k).to(torch.float32)
+        counts = torch.bincount(a, minlength=k)
+        sums = _cluster_sums(xt, a, counts)
+        counts = counts.to(torch.float32)
         empty = counts == 0
         counts[empty] = 1.0
         ct = sums / counts[:, None]

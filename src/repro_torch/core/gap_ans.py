@@ -13,8 +13,8 @@ model:
     rem = g_i & (2^k - 1)  coded uniform (k bits, split into <=12-bit pushes)
 
 Decode is fully parallel: lanes decode round-robin symbols in lockstep and a
-prefix sum over gaps reconstructs the ids (``repro.kernels.rans_decode`` is
-the Pallas realization — the same 32/16 coder).
+prefix sum over gaps reconstructs the ids (``repro_torch.kernels.rans_decode``
+is the CUDA realization — the same 32/16 coder).
 
 Perf-iteration note (EXPERIMENTS.md §Perf): v1 used the 64/32 coder with a
 fixed 64 lanes; the 64-bit lane heads cost ``64*64/n`` bits/id — 4.2 bpe at

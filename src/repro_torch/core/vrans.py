@@ -8,8 +8,8 @@ words into a single flat stack; each op emits *at most one* word per lane
 (64/32 scheme with power-of-two totals, exact by b-uniqueness — see
 ``repro.core.ans.StreamANS``), and the decoder's consume mask provably
 mirrors the encoder's emit mask, so the words of one op are contiguous and
-lane-ordered: a dense layout that maps onto TPU vector loads with a
-prefix-sum word distribution (see ``repro.kernels.rans_decode``).
+lane-ordered: a dense layout that maps onto vector loads with a
+prefix-sum word distribution (see ``repro_torch.kernels.rans_decode``).
 
 Precision ``r`` (``total = 2^r``, ``r <= 32``) may vary per op; per-lane
 ``(start, freq)`` pairs are supported, as are lane masks for ragged data.
@@ -156,7 +156,7 @@ def vrans_size_bits(heads: np.ndarray, words: np.ndarray) -> int:
 # 32/16 variant: uint32 heads, 16-bit words — the TPU-kernel coder.
 # TPUs have no native 64-bit integer path; with head in [2^16, 2^32) and
 # r <= 16, every operation (including freq * (head >> r)) fits uint32
-# exactly, so the Pallas decoder (repro.kernels.rans_decode) runs on pure
+# exactly, so the CUDA decoder (repro_torch.kernels.rans_decode) runs on pure
 # 32-bit vector arithmetic.  Same single-renorm mirror proof as 64/32.
 # ---------------------------------------------------------------------------
 
@@ -208,7 +208,8 @@ class VRans16Encoder:
 
 @dataclasses.dataclass
 class VRans16Decoder:
-    """Numpy mirror of the Pallas decoder (for tests / CPU fallback)."""
+    """Numpy mirror of the CUDA decoder ``repro_torch.kernels.rans_decode``
+    (for tests)."""
 
     heads: np.ndarray
     words: np.ndarray

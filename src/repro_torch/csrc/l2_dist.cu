@@ -17,10 +17,8 @@
 //
 // * one block owns a 64 x 128 output tile and reads its arena rows once,
 //   staging d in 32-wide chunks through shared memory (the query tile is
-//   tiny and stays in L2);
-// * each of the 256 threads keeps an 8 x 4 register micro-tile and
-//   accumulates with fmaf; arena columns are strided by 32 so shared reads
-//   and the output stores are conflict-free and coalesced;
+//   tiny and stays in L2), with an 8 x 4 register micro-tile per thread
+//   (l2_tile.cuh, shared with l2_top1.cu);
 // * row norms are a prologue of the same kernel (one warp per row, shuffle
 //   reduce), so there is one launch and no norm buffer.
 //
@@ -28,94 +26,31 @@
 // the f32 contraction error band (`rescore_eps`, about 2.4e-4 relative at
 // d = 128), and TF32 inputs alone carry about 5e-4.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "l2_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // query rows per block
-constexpr int BN = 128;       // arena rows per block
-constexpr int BK = 32;        // depth staged per step
-constexpr int TM = 8;         // query rows per thread
-constexpr int TN = 4;         // arena rows per thread, strided by 32
-constexpr int THREADS = 256;  // (BM / TM) * 32
+using namespace l2tile;
 
 __global__ void __launch_bounds__(THREADS)
 l2_dist_kernel(const float* __restrict__ q, const float* __restrict__ a,
                float* __restrict__ out, int nq, int n, int d) {
-  __shared__ float qs[BK][BM + 1];
-  __shared__ float as[BK][BN + 1];
+  __shared__ Stage st;
   __shared__ float qn_s[BM];
   __shared__ float an_s[BN];
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int tx = threadIdx.x & 31;   // arena rows tx + 32 * j
+  const int ty = threadIdx.x >> 5;   // query rows ty * TM + i
   const int q0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
 
   // prologue: squared norms of this tile's query and arena rows
-  for (int r = warp; r < BM + BN; r += THREADS / 32) {
-    const float* row;
-    bool ok;
-    if (r < BM) {
-      ok = q0 + r < nq;
-      row = q + (size_t)(q0 + r) * d;
-    } else {
-      ok = n0 + (r - BM) < n;
-      row = a + (size_t)(n0 + (r - BM)) * d;
-    }
-    float s = 0.f;
-    if (ok) {
-      for (int c = lane; c < d; c += 32) {
-        const float v = row[c];
-        s = fmaf(v, v, s);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (lane == 0) {
-      if (r < BM) qn_s[r] = s;
-      else an_s[r - BM] = s;
-    }
-  }
+  row_norms(q, nq, d, q0, BM, qn_s);
+  row_norms(a, n, d, n0, BN, an_s);
   __syncthreads();
 
-  const int tx = lane;   // arena rows tx + 32 * j
-  const int ty = warp;   // query rows ty * TM + i
   float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += THREADS) {
-      const int r = e / BK, c = e % BK;
-      const int gi = q0 + r, gc = k0 + c;
-      qs[c][r] = (gi < nq && gc < d) ? q[(size_t)gi * d + gc] : 0.f;
-    }
-    for (int e = tid; e < BN * BK; e += THREADS) {
-      const int r = e / BK, c = e % BK;
-      const int gj = n0 + r, gc = k0 + c;
-      as[c][r] = (gj < n && gc < d) ? a[(size_t)gj * d + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int c = 0; c < BK; ++c) {
-      float qv[TM], av[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) qv[i] = qs[c][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) av[j] = as[c][tx + 32 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(qv[i], av[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  tile_dots(q, a, nq, n, d, q0, n0, st, acc);
 
 #pragma unroll
   for (int i = 0; i < TM; ++i) {

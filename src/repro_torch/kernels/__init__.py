@@ -1,4 +1,4 @@
-"""repro_torch.kernels — the scan engine's kernels, by hand for Hopper.
+"""repro_torch.kernels — the port's kernels, by hand for Hopper.
 
 Each kernel package pairs a wrapper (``ops.py``) with a plain torch
 version (``ref.py``).  The CUDA C++ sources live in ``repro_torch/csrc``
@@ -9,20 +9,33 @@ for CUDA tensors it launches the kernel or raises — there is no
 fallback.  Each wrapper counts its launches in ``<wrapper>.launches``
 (a plain integer), so a run can show which kernels its path went through:
 
-* ``l2_topk.l2_dist``  — squared-L2 block for flat vectors.
+* ``l2_topk.l2_dist``  — squared-L2 block for flat vectors (the scan).
+* ``l2_topk.l2_top1``  — nearest centroid per row (k-means assignment in
+  build and ingest).
 * ``pq_adc.pq_adc``    — batched PQ ADC scoring against an arena of codes.
 * ``seg_topk.seg_topk`` — segmented top-k select, bit-exact
   ``(value, column)`` order.
+* ``wt_rank.wt_rank``  — batched ``rank1`` over a bit-packed vector.
+* ``rans_decode.rans_decode`` — interleaved-lane 32/16 rANS decode.
+
+``wt_rank`` and ``rans_decode`` lie on no engine path, in the reference or
+here: their entry point is this package.
 """
 
-from .l2_topk import l2_dist, l2_dist_ref
+from .l2_topk import l2_dist, l2_dist_ref, l2_top1, l2_top1_ref
 from .pq_adc import pq_adc, pq_adc_ref
+from .rans_decode import make_tables, rans_decode, rans_decode_ref
 from .seg_topk import seg_topk, seg_topk_ref
+from .wt_rank import pack_bits_u32, wt_rank, wt_rank_ref
 
-__all__ = ["l2_dist", "l2_dist_ref", "pq_adc", "pq_adc_ref", "seg_topk",
-           "seg_topk_ref", "reset_launches", "launch_counts"]
+__all__ = ["l2_dist", "l2_dist_ref", "l2_top1", "l2_top1_ref", "pq_adc",
+           "pq_adc_ref", "seg_topk", "seg_topk_ref", "wt_rank", "wt_rank_ref",
+           "pack_bits_u32", "rans_decode", "rans_decode_ref", "make_tables",
+           "reset_launches", "launch_counts"]
 
-_WRAPPERS = {"l2_dist": l2_dist, "pq_adc": pq_adc, "seg_topk": seg_topk}
+_WRAPPERS = {"l2_dist": l2_dist, "l2_top1": l2_top1, "pq_adc": pq_adc,
+             "seg_topk": seg_topk, "wt_rank": wt_rank,
+             "rans_decode": rans_decode}
 
 
 def reset_launches() -> None:

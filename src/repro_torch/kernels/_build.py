@@ -5,8 +5,9 @@ with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
 so a build takes seconds, not minutes.  All sources are compiled
 together, one ``nvcc`` process each, the first time any kernel is asked
 for.  Libraries land in ``<repo>/build/repro_torch/`` (git-ignored),
-named by a hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as is.
+named by a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt and an unchanged one
+is loaded as is.
 
 There is no prebuilt binary and no fallback: a missing ``nvcc`` or a
 failed build raises.  Every C entry point returns ``cudaGetLastError()``
@@ -32,7 +33,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("l2_dist", "pq_adc", "seg_topk")
+KERNELS = ("l2_dist", "l2_top1", "pq_adc", "seg_topk", "wt_rank",
+           "rans_decode")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -51,8 +53,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
+    # every header counts: a source may include any of them
     h = hashlib.sha256()
-    h.update((CSRC / f"{name}.cu").read_bytes())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,9 +1,10 @@
-"""Squared-L2 distance block: the IVF arena scan's flat-vector scorer.
+"""The L2 kernels: the scan's distance block and k-means' nearest centroid.
 
-Counterpart of the reference wrapper ``repro.kernels.l2_topk.l2_dist``
-(``src/repro/kernels/l2_topk/ops.py``).  Empty inputs short-circuit; the
-kernel takes any ``d`` (it masks the ragged depth tile, which is the same
-as zero-padding ``d`` — distance-preserving) and any row counts.
+Counterparts of the reference wrappers ``repro.kernels.l2_topk.l2_dist``
+and ``l2_top1`` (``src/repro/kernels/l2_topk/ops.py``).  Empty inputs
+short-circuit; the kernels take any ``d`` (they mask the ragged depth
+tile, which is the same as zero-padding ``d`` — distance-preserving) and
+any row counts, so nothing is padded.
 """
 
 from __future__ import annotations
@@ -14,9 +15,9 @@ import torch
 
 from .. import _build
 from .._check import cuda_args, ptr, stream_of
-from .ref import l2_dist_ref
+from .ref import l2_dist_ref, l2_top1_ref
 
-__all__ = ["l2_dist"]
+__all__ = ["l2_dist", "l2_top1"]
 
 
 def l2_dist(queries: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
@@ -50,3 +51,44 @@ def l2_dist(queries: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
 
 
 l2_dist.launches = 0
+
+
+def l2_top1(queries: torch.Tensor, centroids: torch.Tensor):
+    """queries (NQ, d), centroids (K, d) -> (idx (NQ,) i32, val (NQ,) f32).
+
+    The nearest centroid of each row by squared L2 and that distance;
+    ties go to the lowest index.  Float inputs of another dtype are cast
+    to f32; ``NQ == 0`` or ``K == 0`` gives ``(zeros, +inf)``.  CPU
+    tensors take the plain torch version; CUDA tensors launch
+    ``csrc/l2_top1.cu`` once on the current stream, which writes no
+    distance block.
+    """
+    if queries.dim() != 2 or centroids.dim() != 2 or \
+            queries.shape[1] != centroids.shape[1]:
+        raise ValueError(f"l2_top1: shapes {tuple(queries.shape)} and "
+                         f"{tuple(centroids.shape)} do not match as (NQ, d), "
+                         "(K, d)")
+    nq, d = queries.shape
+    k = centroids.shape[0]
+    if nq == 0 or k == 0:
+        return (torch.zeros(nq, dtype=torch.int32, device=queries.device),
+                torch.full((nq,), float("inf"), dtype=torch.float32,
+                           device=queries.device))
+    if queries.device.type == "cpu" and centroids.device.type == "cpu":
+        return l2_top1_ref(queries, centroids)
+    q = queries.to(torch.float32).contiguous()
+    c = centroids.to(torch.float32).contiguous()
+    cuda_args("l2_top1", q, c)
+    idx = torch.empty(nq, dtype=torch.int32, device=q.device)
+    val = torch.empty(nq, dtype=torch.float32, device=q.device)
+    lib = _build.library("l2_top1")
+    fn = lib.l2_top1_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    rc = fn(ptr(q), ptr(c), ptr(idx), ptr(val), nq, k, d, stream_of(idx))
+    _build.check(lib, rc, "l2_top1")
+    l2_top1.launches += 1
+    return idx, val
+
+
+l2_top1.launches = 0

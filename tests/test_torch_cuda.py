@@ -7,9 +7,12 @@ Run on a machine with a CUDA card:
 Each kernel is held against its plain torch version on the same CUDA
 tensors at the edge shapes the CPU tests use for the plain versions
 (ragged tiles, ``k > n``, ``lens = 0``, ties, ``+inf``, signed zeros,
-every ``m`` of the grammar's common PQ shapes); a CUDA index is held
-bit-exact against its own ``search_ref`` and against a CPU index carried
-from the same arrays.  Whether a card is present is decided inside the
+every ``m`` of the grammar's common PQ shapes, ragged ``K`` and ``d`` and
+tied centroids for ``l2_top1``, rank at 0 and at n, rANS tables in global
+memory and 1 to 1024 lanes); a CUDA index is held bit-exact against its
+own ``search_ref`` and against a CPU index carried from the same arrays,
+also after ingest.  k-means on the card must give bitwise-equal centroids
+from run to run.  Whether a card is present is decided inside the
 fixture, so every worker collects the same tests.
 """
 
@@ -19,9 +22,11 @@ import torch
 
 from repro_torch.ann.ivf import IVFIndex
 from repro_torch.ann.scan import rescore_eps
-from repro_torch.kernels import (l2_dist, l2_dist_ref, launch_counts, pq_adc,
-                                 pq_adc_ref, reset_launches, seg_topk,
-                                 seg_topk_ref)
+from repro_torch.kernels import (l2_dist, l2_dist_ref, l2_top1, l2_top1_ref,
+                                 launch_counts, make_tables, pack_bits_u32,
+                                 pq_adc, pq_adc_ref, rans_decode,
+                                 rans_decode_ref, reset_launches, seg_topk,
+                                 seg_topk_ref, wt_rank, wt_rank_ref)
 
 pytestmark = pytest.mark.cuda
 
@@ -101,6 +106,133 @@ def test_seg_topk_kernel(dev, nq, n, k):
     v, i = seg_topk(d, lens, k)
     vr, ir = seg_topk_ref(d, lens.clamp(max=n), k)
     assert _bits_equal(v, vr) and torch.equal(i, ir)
+
+
+@pytest.mark.parametrize("nq,k,d", [(1, 1, 16), (1, 1024, 128), (63, 1, 130),
+                                    (65, 129, 130), (200, 256, 16),
+                                    (300, 1000, 128), (4097, 77, 33)])
+def test_l2_top1_kernel(dev, nq, k, d):
+    g = torch.Generator(device=dev).manual_seed(nq + k + d)
+    q = torch.randn(nq, d, device=dev, generator=g)
+    c = torch.randn(k, d, device=dev, generator=g)
+    if k > 8:
+        c[5] = c[2]                          # tied centroids: lowest index
+        c[k - 1] = c[2]
+        q[0] = c[2]
+    reset_launches()
+    idx, val = l2_top1(q, c)
+    assert launch_counts()["l2_top1"] == 1
+    ridx, rval = l2_top1_ref(q, c)
+    full = l2_dist_ref(q, c)
+    qn = (q.double() ** 2).sum(1).cpu().numpy()
+    at = full.gather(1, idx.long()[:, None])[:, 0]
+    _in_band(at, rval, d, qn)                # a nearest centroid, in band
+    _in_band(val, rval, d, qn)
+    if k > 8:
+        assert int(idx[0]) == 2
+
+
+@pytest.mark.parametrize("nq", [0, 1, 255])
+def test_l2_top1_kernel_empty_and_dtypes(dev, nq):
+    q = torch.randn(nq, 24, device=dev, dtype=torch.float64)
+    c = torch.randn(77, 24, device=dev, dtype=torch.bfloat16)
+    idx, val = l2_top1(q, c)
+    assert idx.shape == val.shape == (nq,) and idx.dtype == torch.int32
+    i0, v0 = l2_top1(q, c[:0])
+    assert torch.equal(i0, torch.zeros_like(i0)) and bool(v0.isinf().all())
+
+
+@pytest.mark.parametrize("n", [1, 64, 1000, 100_000])
+@pytest.mark.parametrize("p", [0.05, 0.5, 0.95])
+def test_wt_rank_kernel(dev, n, p):
+    rng = np.random.default_rng(n)
+    bits = (rng.random(n) < p).astype(np.uint8)
+    words, sup = pack_bits_u32(bits)
+    q = np.concatenate([[0, n, n // 2, 32 * len(words), -1,
+                         32 * len(words) + 1],
+                        rng.integers(0, n + 1, 5000)]).astype(np.int32)
+    args = (torch.from_numpy(words.view(np.int32)).to(dev),
+            torch.from_numpy(sup).to(dev), torch.from_numpy(q).to(dev))
+    got = wt_rank(*args)
+    assert torch.equal(got, wt_rank_ref(*args))
+    want = np.concatenate([[0], np.cumsum(bits)])
+    np.testing.assert_array_equal(got.cpu().numpy()[:4],
+                                  [0, want[n], want[n // 2], want[n]])
+    np.testing.assert_array_equal(got.cpu().numpy()[4:6], [-1, -1])
+
+
+def _geom_freqs(alpha, r):
+    f = np.maximum(1, (1 << r) >> (np.arange(alpha) + 1)).astype(np.int64)
+    f[0] += (1 << r) - f.sum()
+    return f
+
+
+@pytest.mark.parametrize("lanes", [1, 33, 128, 1024])
+@pytest.mark.parametrize("r,alpha,rows", [(8, 16, 7), (12, 24, 64),
+                                          (14, 40, 33), (16, 64, 50)])
+def test_rans_decode_kernel(dev, r, alpha, rows, lanes):
+    from repro_torch.core.vrans import VRans16Encoder
+
+    rng = np.random.default_rng(r * lanes)
+    freqs = _geom_freqs(alpha, r)
+    starts = np.cumsum(freqs) - freqs
+    data = rng.choice(alpha, size=(rows, lanes), p=freqs / freqs.sum())
+    enc = VRans16Encoder(lanes)
+    for t in range(rows - 1, -1, -1):
+        enc.push(starts[data[t]], freqs[data[t]], r)
+    heads, words = enc.finalize()
+    args = [torch.from_numpy(heads.view(np.int32)).to(dev),
+            torch.from_numpy(words.astype(np.int32)).to(dev)]
+    args += [torch.from_numpy(t).to(dev) for t in make_tables(freqs, r)]
+    reset_launches()
+    out = rans_decode(*args, rows=rows, r=r)
+    assert launch_counts()["rans_decode"] == 1
+    np.testing.assert_array_equal(out.cpu().numpy(), data)
+    assert torch.equal(out, rans_decode_ref(*args, rows=rows, r=r))
+    # past the stream's end the kernel reads 0, as the plain version does
+    more = rans_decode(*args, rows=rows + 5, r=r)
+    assert torch.equal(more, rans_decode_ref(*args, rows=rows + 5, r=r))
+
+
+def test_kmeans_on_the_card_is_deterministic(dev):
+    from repro_torch.ann.kmeans import kmeans
+
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((50_000, 32)).astype(np.float32)
+    reset_launches()
+    a = kmeans(x, 256, iters=5, seed=1, device=dev)
+    assert launch_counts()["l2_top1"] == 5
+    b = kmeans(x, 256, iters=5, seed=1, device=dev)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("payload", ["flat", "pq8"])
+def test_cuda_build_and_ingest_through_the_service(dev, payload):
+    from repro_torch.api import index_factory
+    from repro_torch.serve import AnnService
+
+    rng = np.random.default_rng(1)
+    base = rng.standard_normal((4000, 32)).astype(np.float32)
+    extra = rng.standard_normal((300, 32)).astype(np.float32)
+    queries = np.concatenate([rng.standard_normal((20, 32)), extra[:5]]
+                             ).astype(np.float32)
+    spec = ("IVF16,ids=roc" if payload == "flat"
+            else "IVF16,PQ8x8,ids=roc,codes=polya")
+    reset_launches()
+    idx = index_factory(spec, device=dev).build(base, seed=1)
+    built = launch_counts()["l2_top1"]
+    assert built > 0
+    svc = AnnService(idx, topk=10, device=dev, nprobe=4)
+    for i in range(0, 300, 100):
+        svc.add(extra[i:i + 100])
+    assert launch_counts()["l2_top1"] > built
+    assert idx.ivf.n_epochs == 4 and idx.ivf.n == 4300
+    ids, dists = svc.search(queries)
+    want_ids, want_d, _ = idx.ivf.search_ref(queries, nprobe=4, topk=10)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(dists, want_d)
+    if payload == "flat":                    # the added rows are found
+        np.testing.assert_array_equal(ids[20:, 0], 4000 + np.arange(5))
 
 
 @pytest.mark.parametrize("payload", ["flat", "pq8"])

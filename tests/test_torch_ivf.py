@@ -225,6 +225,33 @@ def test_factory_build_from_scratch_matches(spec):
     assert port.memory_ledger() == ref.memory_ledger()
 
 
+@pytest.mark.parametrize("n,k,d", [(2000, 24, 32), (3000, 256, 4),
+                                   (500, 64, 8)])
+def test_kmeans_matches_reference(n, k, d):
+    """The port's k-means on the CPU against the reference's, and its
+    fixed-order centroid sums against ``np.add.at`` (bitwise), empty
+    clusters included."""
+    from repro.ann.kmeans import kmeans as ref_kmeans
+    from repro_torch.ann.kmeans import _cluster_sums, kmeans
+
+    rng = np.random.default_rng(n + k)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    x[n // 2:] = x[: n - n // 2]             # duplicates: clusters go empty
+    got = kmeans(x, k, iters=6, seed=3, device="cpu")
+    np.testing.assert_allclose(got, ref_kmeans(x, k, iters=6, seed=3),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got, kmeans(x, k, iters=6, seed=3,
+                                              device="cpu"))
+    a = rng.integers(0, k, n)
+    a[a == 1] = 0                            # cluster 1 is empty
+    want = np.zeros((k, d), np.float32)
+    np.add.at(want, a, x)
+    at = torch.from_numpy(a)
+    sums = _cluster_sums(torch.from_numpy(x), at,
+                         torch.bincount(at, minlength=k))
+    np.testing.assert_array_equal(sums.numpy(), want)
+
+
 @pytest.mark.parametrize("payload", PAYLOADS)
 @pytest.mark.parametrize("ids", ["roc", "wt"])
 def test_add_and_compact_match_reference(ids, payload):
@@ -391,14 +418,27 @@ import repro_torch
 import repro_torch.ann.ivf, repro_torch.ann.scan, repro_torch.ann.kmeans
 import repro_torch.api, repro_torch.serve, repro_torch.core, repro_torch.data
 import repro_torch.kernels, repro_torch.kernels._build
+import repro_torch.kernels.l2_topk, repro_torch.kernels.wt_rank
+import repro_torch.kernels.rans_decode
+import torch
 from repro_torch.api import index_factory
+from repro_torch.kernels import (l2_top1, make_tables, pack_bits_u32,
+                                 rans_decode, wt_rank)
 from repro_torch.serve import AnnService
 rng = np.random.default_rng(0)
 x = rng.standard_normal((300, 16)).astype(np.float32)
 idx = index_factory("IVF4,PQ4x8,ids=roc,codes=polya", device="cpu").build(x)
 svc = AnnService(idx, topk=3, device="cpu", nprobe=2)
+svc.add(x[:5])
 ids, dists = svc.search(x[:2])
 assert ids.shape == (2, 3) and ids[0, 0] == 0, ids
+assert l2_top1(torch.from_numpy(x), torch.from_numpy(x[:3]))[0][2] == 2
+words, sup = pack_bits_u32(np.ones(40, np.uint8))
+assert wt_rank(torch.from_numpy(words.view(np.int32)), torch.from_numpy(sup),
+               torch.tensor([40], dtype=torch.int32)).item() == 40
+tabs = [torch.from_numpy(t) for t in make_tables(np.array([2, 2]), 2)]
+assert rans_decode(torch.full((3,), 1 << 16, dtype=torch.int32),
+                   torch.zeros(0, dtype=torch.int32), *tabs, 2, 2).shape == (2, 3)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
