@@ -10,14 +10,19 @@ exits non-zero without the final ``ok`` line:
 1. environment: card name and power limit (``nvidia-smi``), torch/CUDA;
 2. build: every kernel of ``src/repro_torch/csrc`` compiled by ``nvcc``
    (all sources in parallel) into the git-ignored ``build/``, with each
-   kernel's registers and spills;
+   kernel's registers and spills and its count of tensor-core MMA
+   instructions in the SASS (``cuobjdump -sass``); ``l2_dist`` and
+   ``l2_top1`` must have some;
 3. kernels vs plain: each CUDA kernel against its plain torch version on
    the card at the main path's shapes — ``seg_topk`` bit-equal;
    ``l2_dist``, ``pq_adc`` and ``l2_top1`` inside the scan's
    ``rescore_eps`` band (``l2_top1`` at the IVF1024 and PQ8x8 k-means
-   shapes); ``rans_decode`` bit-equal on ``gap_ans``'s quotient model —
-   with CUDA-event times, a roofline bound from this run's inputs and one
-   library call's time as a yardstick where there is one;
+   shapes; ``band_use`` is the largest error over the band); ``rans_decode``
+   bit-equal on ``gap_ans``'s quotient model — with CUDA-event times, a
+   roofline bound from this run's inputs (``l2_dist`` and ``l2_top1`` at
+   the TF32 tensor-core rate, with the old SIMT f32 bound beside it as
+   ``bound_f32_ms``) and one library call's time as a yardstick where there
+   is one;
 4. determinism: k-means (1024 centroids, 8 iterations) twice on the base
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
@@ -46,6 +51,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -54,10 +60,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 rate and the
-# non-tensor f32 rate every kernel here runs at
+# H100 SXM peaks (NVIDIA data sheet, dense, 700 W): the HBM3 rate; the
+# non-tensor f32 rate of the SIMT kernels (pq_adc, seg_topk, wt_rank,
+# rans_decode); and the dense TF32 tensor-core rate, at which l2_dist and
+# l2_top1 run their dot products as three TF32 products (csrc/l2_mma.cuh)
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_TF32_S = 494.7e12
+TF32_PRODUCTS = 3
+# SASS mnemonics of the tensor-core MMA instructions (wgmma, mma.sync)
+TENSOR_CORE_SASS = ("HGMMA", "HMMA")
 
 SPECS = ("IVF1024,ids=roc", "IVF1024,PQ8x8,ids=roc,codes=polya")
 NPROBE, TOPK, REQUEST, MAX_BATCH = 16, 10, 4, 64
@@ -97,10 +109,33 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes, nflops):
-    """(least time in ms, "bytes" | "operations") on the card's peaks."""
-    tb, tf = nbytes / PEAK_BYTES_S * 1e3, nflops / PEAK_F32_S * 1e3
+def bound_ms(nbytes, nflops, peak=PEAK_F32_S):
+    """(least time in ms, "bytes" | "operations") on the card's peaks, the
+    operations at ``peak`` per second."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, nflops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def l2_bounds(nbytes, m, n, d):
+    """Bounds of an (m, d) x (n, d) squared-L2 kernel: (ms, by) of the
+    split-TF32 tensor-core design (three TF32 products of 2 m n d each),
+    and the ms of the SIMT f32 design it replaced (the dot products, the
+    norms and the 3-operation epilogue at the f32 rate)."""
+    b, by = bound_ms(nbytes, TF32_PRODUCTS * 2 * m * n * d, PEAK_TF32_S)
+    f32, _ = bound_ms(nbytes, 2 * m * n * d + 2 * (m + n) * d + 3 * m * n)
+    return b, by, f32
+
+
+def sass_tensor_core_count(lib_path):
+    """Tensor-core MMA instructions in a built library's SASS, by
+    ``cuobjdump -sass``: {mnemonic: count}."""
+    from repro_torch.kernels import _build
+
+    sass = subprocess.run([_build.cuda_tool("cuobjdump"), "-sass",
+                           str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    ops = re.findall(r"\b(" + "|".join(TENSOR_CORE_SASS) + r")\.", sass)
+    return {m: ops.count(m) for m in TENSOR_CORE_SASS}
 
 
 def rescore_band(d, ref, qn):
@@ -123,20 +158,20 @@ def check_l2_dist(dev, gen):
     torch.cuda.synchronize()
     qn = (q.double() ** 2).sum(1, keepdim=True)
     err = (out.double() - ref.double()).abs()
-    if not bool((err <= rescore_band(d, ref, qn)).all()):
+    band_use = float((err / rescore_band(d, ref, qn)).max())
+    if not band_use <= 1.0:
         raise AssertionError(f"l2_dist outside rescore_eps: max err "
-                             f"{float(err.max())}")
+                             f"{float(err.max())}, {band_use} of the band")
     qn32, an32 = (q * q).sum(1, keepdim=True), (a * a).sum(1)
-    b, by = bound_ms(4 * (qb * d + n * d + qb * n),
-                     2 * qb * n * d + 2 * (qb + n) * d + 3 * qb * n)
+    b, by, b32 = l2_bounds(4 * (qb * d + n * d + qb * n), qb, n, d)
     return dict(
         name="l2_dist", route="cuda", source="src/repro_torch/csrc/l2_dist.cu",
         replaces="src/repro/kernels/l2_topk/kernel.py:76",
         shape=f"q {qb}x{d}, arena {n}x{d} f32",
-        max_abs_err=float(err.max()),
+        max_abs_err=float(err.max()), band_use=band_use,
         ms=cuda_ms(lambda: l2_dist(q, a)),
         plain_ms=cuda_ms(lambda: l2_dist_ref(q, a)),
-        bound_ms=b, bound_by=by,
+        bound_ms=b, bound_by=by, bound_f32_ms=b32,
         library_ms=cuda_ms(lambda: torch.addmm(an32[None], q, a.T,
                                                alpha=-2.0).add_(qn32)))
 
@@ -267,9 +302,11 @@ def check_l2_top1(dev, gen, nq, k, d):
         raise AssertionError(f"l2_top1 ({nq}, {k}, {d}): an index is not a "
                              "nearest centroid inside rescore_eps")
     err = (val.double() - rval.double()).abs()
-    if not bool((err <= band).all()):
+    band_use = float((err / band).max())
+    if not band_use <= 1.0:
         raise AssertionError(f"l2_top1 ({nq}, {k}, {d}) values outside "
-                             f"rescore_eps: max err {float(err.max())}")
+                             f"rescore_eps: max err {float(err.max())}, "
+                             f"{band_use} of the band")
     cn = (c * c).sum(1)[None]
 
     def chunked_addmm_min():
@@ -279,17 +316,17 @@ def check_l2_top1(dev, gen, nq, k, d):
             torch.addmm(cn, sl, c.T, alpha=-2.0).add_(
                 (sl * sl).sum(1, keepdim=True)).min(1)
 
-    b, by = bound_ms(4 * (nq * d + k * d + 2 * nq),
-                     2 * nq * k * d + 2 * (nq + k) * d + 3 * nq * k)
+    b, by, b32 = l2_bounds(4 * (nq * d + k * d + 2 * nq), nq, k, d)
     return dict(
         name="l2_top1" if (k, d) == (NLIST, 128) else f"l2_top1(K={k},d={d})",
         route="cuda", source="src/repro_torch/csrc/l2_top1.cu",
         replaces="src/repro/kernels/l2_topk/kernel.py:39",
         shape=f"rows {nq}x{d}, centroids {k}x{d} f32",
-        max_abs_err=float(err.max()), idx_differ=int((idx != ridx).sum()),
+        max_abs_err=float(err.max()), band_use=band_use,
+        idx_differ=int((idx != ridx).sum()),
         ms=cuda_ms(lambda: l2_top1(q, c), reps=10),
         plain_ms=cuda_ms(lambda: l2_top1_ref(q, c), reps=5, warmup=1),
-        bound_ms=b, bound_by=by,
+        bound_ms=b, bound_by=by, bound_f32_ms=b32,
         library_ms=cuda_ms(chunked_addmm_min, reps=5, warmup=1))
 
 
@@ -540,12 +577,18 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build, launch_counts, reset_launches
 
     with phase("build"):
-        _build.build_all()
+        libs = _build.build_all()
         for name in _build.KERNELS:
             log = _build.build_log(name) or "(prebuilt)"
             info = [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "spill" in ln]
             print(f"{name}: " + " | ".join(info))
+            mma = sass_tensor_core_count(libs[name])
+            print(f"{name}: tensor-core instructions in SASS "
+                  f"{json.dumps(mma)}")
+            if name in ("l2_dist", "l2_top1") and not sum(mma.values()):
+                raise AssertionError(f"{name}: no tensor-core MMA in its "
+                                     "SASS")
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -638,7 +681,7 @@ def main(argv=None) -> int:
                 "path": "kernel API" if r["name"] in on_api else "main path",
                 "launches": totals[r["name"]]} | {key: r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")})
+                    "library_ms", "bound_f32_ms", "band_use") if key in r})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

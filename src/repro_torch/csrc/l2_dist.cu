@@ -10,73 +10,118 @@
 // in that order, the reference's expanded form.
 //
 // What bounds it on an H100: at the main path's shape (64 queries against
-// about 2^20 arena rows, d = 128) it does 2 * 64 * 2^20 * 128 = 17.2 GFLOP
-// and moves about 0.8 GB (the arena read once, the block written once), so
-// it sits near the ridge of the card's 67 TFLOP/s non-tensor f32 rate and
-// its 3.35 TB/s memory rate.  The design keeps both costs to one pass:
+// about 2^20 arena rows, d = 128) it moves about 0.8 GB (the arena read
+// once, the block written once: 0.24 ms at 3.35 TB/s), while its dot
+// products, as three TF32 tensor-core products (l2_mma.cuh: the split that
+// keeps them inside `rescore_eps`), take 0.10 ms at 495 TFLOP/s.  So it is
+// bound by bytes, and the design spends them once:
 //
-// * one block owns a 64 x 128 output tile and reads its arena rows once,
-//   staging d in 32-wide chunks through shared memory (the query tile is
-//   tiny and stays in L2), with an 8 x 4 register micro-tile per thread
-//   (l2_tile.cuh, shared with l2_top1.cu);
-// * row norms are a prologue of the same kernel (one warp per row, shuffle
-//   reduce), so there is one launch and no norm buffer.
-//
-// No TF32 and no tensor cores: the scan's exact re-score only tolerates
-// the f32 contraction error band (`rescore_eps`, about 2.4e-4 relative at
-// d = 128), and TF32 inputs alone carry about 5e-4.
+// * one block of one warpgroup owns a 64 x 128 output tile and streams its
+//   arena rows once through the split-TF32 wgmma tile loop of l2_mma.cuh:
+//   TMA copies of 8-deep chunks, 7 chunks (42 KB) in flight a block, two
+//   blocks an SM (87 KB of shared memory each); the query tile is small
+//   and stays in L2;
+// * row norms come from the f32 rows as they pass through shared memory,
+//   so there is one launch, no norm buffer and no second read;
+// * the output tile (a third of the bytes) is staged through shared memory
+//   (the raw stages, idle by then) and written as coalesced 16-byte
+//   streaming stores, a warp per row.
 
-#include "l2_tile.cuh"
+#include "l2_mma.cuh"
 
 namespace {
 
-using namespace l2tile;
+using namespace l2mma;
+using T = Tile<1, 8>;
 
-__global__ void __launch_bounds__(THREADS)
-l2_dist_kernel(const float* __restrict__ q, const float* __restrict__ a,
+constexpr int OS = BN + 8;  // staged output row stride: conflict-free float2
+static_assert(T::BM * OS <= T::NP * T::RAW,
+              "the output tile fits in the raw stages");
+
+template <bool VEC>
+__global__ void __launch_bounds__(T::THREADS, 2)
+l2_dist_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap a_map,
+               const float* __restrict__ q, const float* __restrict__ a,
                float* __restrict__ out, int nq, int n, int d) {
-  __shared__ Stage st;
-  __shared__ float qn_s[BM];
-  __shared__ float an_s[BN];
-
-  const int tx = threadIdx.x & 31;   // arena rows tx + 32 * j
-  const int ty = threadIdx.x >> 5;   // query rows ty * TM + i
-  const int q0 = blockIdx.y * BM;
+  extern __shared__ char smem[];
+  const int q0 = blockIdx.y * T::BM;
   const int n0 = blockIdx.x * BN;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int quad = lane & 3;
+  float* stage = reinterpret_cast<float*>(
+      (reinterpret_cast<uintptr_t>(smem) + 1023) & ~uintptr_t(1023));
 
-  // prologue: squared norms of this tile's query and arena rows
-  row_norms(q, nq, d, q0, BM, qn_s);
-  row_norms(a, n, d, n0, BN, an_s);
-  __syncthreads();
-
-  float acc[TM][TN];
-  tile_dots(q, a, nq, n, d, q0, n0, st, acc);
-
+  run<T, VEC>(&q_map, &a_map, q, a, nq, n, d, q0, n0, min(n0 + BN, n), smem,
+              [&](float (&acc)[64], int, const float* norms) {
+    // every copy has landed and every MMA is complete: reuse the raw
+    // stages (the norms live in a split stage past them)
+    __syncthreads();
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int gi = q0 + ty * TM + i;
-    if (gi >= nq) continue;
-    const float qn = qn_s[ty * TM + i];
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const float qn = norms[r];
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int gj = n0 + tx + 32 * j;
-      if (gj < n) {
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * quad;
         // (qn - 2 dot) + an, rounded step by step as the reference does
-        out[(size_t)gi * n + gj] =
-            __fadd_rn(__fsub_rn(qn, 2.0f * acc[i][j]), an_s[tx + 32 * j]);
+        float2 v;
+        v.x = __fadd_rn(__fsub_rn(qn, 2.0f * acc[4 * j + 2 * h]),
+                        norms[T::BM + col]);
+        v.y = __fadd_rn(__fsub_rn(qn, 2.0f * acc[4 * j + 2 * h + 1]),
+                        norms[T::BM + col + 1]);
+        *reinterpret_cast<float2*>(stage + r * OS + col) = v;
       }
     }
+    __syncthreads();
+  });
+
+  // write the staged tile: a warp per row, 16 bytes a lane where rows of
+  // out are 16-byte aligned and the tile is whole, else 4 bytes a lane
+  const bool vec_out = n % 4 == 0 && (uintptr_t)out % 16 == 0;
+  const int warp = threadIdx.x >> 5;
+  for (int r = warp; r < T::BM && q0 + r < nq; r += T::THREADS / 32) {
+    float* dst = out + (size_t)(q0 + r) * n + n0;
+    const float* src = stage + r * OS;
+    if (vec_out && n0 + BN <= n) {
+      __stcs(reinterpret_cast<float4*>(dst) + lane,
+             *reinterpret_cast<const float4*>(src + 4 * lane));
+    } else {
+      for (int c = lane; c < BN && n0 + c < n; c += 32) __stcs(dst + c, src[c]);
+    }
   }
+}
+
+template <bool VEC>
+cudaError_t launch(const float* q, const float* a, float* out, int nq, int n,
+                   int d, cudaStream_t stream) {
+  CUtensorMap q_map = {}, a_map = {};
+  cudaError_t err = cudaSuccess;
+  if (VEC) {
+    err = make_map(&q_map, q, nq, d, T::BM);
+    if (err == cudaSuccess) err = make_map(&a_map, a, n, d, BN);
+  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(l2_dist_kernel<VEC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)T::SMEM);
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + BN - 1) / BN, (nq + T::BM - 1) / T::BM);
+  l2_dist_kernel<VEC><<<grid, T::THREADS, T::SMEM, stream>>>(
+      q_map, a_map, q, a, out, nq, n, d);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int l2_dist_launch(const void* q, const void* a, void* out,
                               int nq, int n, int d, void* stream) {
-  dim3 grid((n + BN - 1) / BN, (nq + BM - 1) / BM);
-  l2_dist_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)a, (float*)out, nq, n, d);
-  return (int)cudaGetLastError();
+  // TMA needs 16-byte aligned rows
+  const bool vec = d % 4 == 0 && ((uintptr_t)q | (uintptr_t)a) % 16 == 0;
+  return (int)(vec ? launch<true> : launch<false>)(
+      (const float*)q, (const float*)a, (float*)out, nq, n, d,
+      (cudaStream_t)stream);
 }
 
 extern "C" const char* error_string(int code) {

@@ -27,7 +27,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 __all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "library",
-           "build_all", "check", "build_log"]
+           "build_all", "check", "build_log", "cuda_tool"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -41,14 +41,16 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``); raises if
+    it is not found."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [str(Path(home) / "bin" / "nvcc")] if home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    cands = [str(Path(home) / "bin" / name)] if home else []
+    cands += [shutil.which(name) or "", f"/usr/local/cuda/bin/{name}"]
     for c in cands:
         if c and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
+    raise RuntimeError(f"{name} not found (set CUDA_HOME); the port's CUDA "
                        "kernels are built from source at first use")
 
 
@@ -69,7 +71,7 @@ def build_all() -> Dict[str, Path]:
     if not todo:
         return targets
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     procs = {}
     for name, target in todo.items():
         # build to a private name, then rename: a concurrent process never

@@ -8,8 +8,11 @@ Each kernel is held against its plain torch version on the same CUDA
 tensors at the edge shapes the CPU tests use for the plain versions
 (ragged tiles, ``k > n``, ``lens = 0``, ties, ``+inf``, signed zeros,
 every ``m`` of the grammar's common PQ shapes, ragged ``K`` and ``d`` and
-tied centroids for ``l2_top1``, rank at 0 and at n, rANS tables in global
-memory and 1 to 1024 lanes); a CUDA index is held bit-exact against its
+tied centroids for ``l2_top1``, integer-valued near duplicates, depths
+under one k8 step and an input that one pass of TF32 rounds the same way
+everywhere for the split-TF32 L2 kernels, rank at 0 and at n, rANS
+tables in global memory and 1 to 1024 lanes); ``l2_top1`` run twice must
+give bitwise-equal results; a CUDA index is held bit-exact against its
 own ``search_ref`` and against a CPU index carried from the same arrays,
 also after ingest.  k-means on the card must give bitwise-equal centroids
 from run to run.  Whether a card is present is decided inside the
@@ -47,13 +50,35 @@ def _in_band(got, want, d, qn):
     assert np.all(np.abs(got - want) <= _eps(d, want, qn))
 
 
-@pytest.mark.parametrize("nq,n,d", [(1, 1, 8), (3, 7, 32), (17, 513, 32),
-                                    (64, 1000, 128), (9, 300, 33),
-                                    (65, 129, 96), (200, 4099, 128)])
-def test_l2_dist_kernel(dev, nq, n, d):
+def _l2_inputs(kind, nq, n, d, dev, g):
+    """(q, a) of one kind: ``randn``; ``sift-int``, integer-valued rows in
+    [0, 128) as in SIFT with near duplicates of the queries (one coordinate
+    off by one); ``aligned``, every coordinate 1 + 2^-11 - 2^-23, which one
+    pass of TF32 rounds the same way everywhere."""
+    if kind == "aligned":
+        v = 1.0 + 2.0 ** -11 - 2.0 ** -23
+        return (torch.full((nq, d), v, device=dev),
+                torch.full((n, d), v, device=dev))
+    if kind == "randn":
+        return (torch.randn(nq, d, device=dev, generator=g),
+                torch.randn(n, d, device=dev, generator=g))
+    q = torch.randint(0, 128, (nq, d), device=dev, generator=g).float()
+    a = torch.randint(0, 128, (n, d), device=dev, generator=g).float()
+    near = torch.arange(0, n, 7, device=dev)
+    a[near] = q[near % nq]
+    a[near, near % d] += 1.0
+    return q, a
+
+
+@pytest.mark.parametrize("nq,n,d,kind", [
+    (1, 1, 8, "randn"), (3, 7, 32, "randn"), (17, 513, 32, "randn"),
+    (64, 1000, 128, "randn"), (9, 300, 33, "randn"), (65, 129, 96, "randn"),
+    (200, 4099, 128, "randn"), (64, 4096, 128, "sift-int"),
+    (64, 2000, 128, "aligned"), (5, 300, 4, "randn"), (17, 513, 8, "randn"),
+    (33, 1000, 20, "randn")])
+def test_l2_dist_kernel(dev, nq, n, d, kind):
     g = torch.Generator(device=dev).manual_seed(nq + n)
-    q = torch.randn(nq, d, device=dev, generator=g)
-    a = torch.randn(n, d, device=dev, generator=g)
+    q, a = _l2_inputs(kind, nq, n, d, dev, g)
     a[n // 2] = q[0]
     reset_launches()
     out = l2_dist(q, a)
@@ -108,13 +133,15 @@ def test_seg_topk_kernel(dev, nq, n, k):
     assert _bits_equal(v, vr) and torch.equal(i, ir)
 
 
-@pytest.mark.parametrize("nq,k,d", [(1, 1, 16), (1, 1024, 128), (63, 1, 130),
-                                    (65, 129, 130), (200, 256, 16),
-                                    (300, 1000, 128), (4097, 77, 33)])
-def test_l2_top1_kernel(dev, nq, k, d):
+@pytest.mark.parametrize("nq,k,d,kind", [
+    (1, 1, 16, "randn"), (1, 1024, 128, "randn"), (63, 1, 130, "randn"),
+    (65, 129, 130, "randn"), (200, 256, 16, "randn"),
+    (300, 1000, 128, "randn"), (4097, 77, 33, "randn"),
+    (20000, 4096, 128, "randn"), (1 << 16, 256, 16, "randn"),
+    (300, 1000, 128, "aligned")])
+def test_l2_top1_kernel(dev, nq, k, d, kind):
     g = torch.Generator(device=dev).manual_seed(nq + k + d)
-    q = torch.randn(nq, d, device=dev, generator=g)
-    c = torch.randn(k, d, device=dev, generator=g)
+    q, c = _l2_inputs(kind, nq, k, d, dev, g)
     if k > 8:
         c[5] = c[2]                          # tied centroids: lowest index
         c[k - 1] = c[2]
@@ -128,8 +155,19 @@ def test_l2_top1_kernel(dev, nq, k, d):
     at = full.gather(1, idx.long()[:, None])[:, 0]
     _in_band(at, rval, d, qn)                # a nearest centroid, in band
     _in_band(val, rval, d, qn)
-    if k > 8:
+    if kind == "aligned":                    # every centroid ties: index 0
+        assert not bool(idx.any())
+    elif k > 8:
         assert int(idx[0]) == 2
+
+
+def test_l2_top1_kernel_is_deterministic(dev):
+    g = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn(1 << 16, 128, device=dev, generator=g)
+    c = torch.randn(1024, 128, device=dev, generator=g)
+    idx, val = l2_top1(q, c)
+    idx2, val2 = l2_top1(q, c)
+    assert torch.equal(idx, idx2) and _bits_equal(val, val2)
 
 
 @pytest.mark.parametrize("nq", [0, 1, 255])
