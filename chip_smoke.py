@@ -7,22 +7,27 @@
 Phases, each printed with its seconds; any failure raises and the script
 exits non-zero without the final ``ok`` line:
 
-1. environment: card name and power limit (``nvidia-smi``), torch/CUDA;
+1. environment: card name, power limit and top SM clock (``nvidia-smi``),
+   torch/CUDA;
 2. build: every kernel of ``src/repro_torch/csrc`` compiled by ``nvcc``
    (all sources in parallel) into the git-ignored ``build/``, with each
    kernel's registers and spills and its count of tensor-core MMA
    instructions in the SASS (``cuobjdump -sass``); ``l2_dist`` and
    ``l2_top1`` must have some;
 3. kernels vs plain: each CUDA kernel against its plain torch version on
-   the card at the main path's shapes — ``seg_topk`` bit-equal;
+   the card — ``seg_topk`` bit-equal to the plain version run on a CPU copy
+   (rows with ties, +inf, signed zeros and NaN of both signs) at n = 16384
+   and 32768 and every k the scan's retry reaches, plus k = n; ``pq_adc``
+   bitwise equal to the j-ordered f32 sum, with its lookup count;
    ``l2_dist``, ``pq_adc`` and ``l2_top1`` inside the scan's
    ``rescore_eps`` band (``l2_top1`` at the IVF1024 and PQ8x8 k-means
    shapes; ``band_use`` is the largest error over the band); ``rans_decode``
-   bit-equal on ``gap_ans``'s quotient model — with CUDA-event times, a
-   roofline bound from this run's inputs (``l2_dist`` and ``l2_top1`` at
-   the TF32 tensor-core rate, with the old SIMT f32 bound beside it as
-   ``bound_f32_ms``) and one library call's time as a yardstick where there
-   is one;
+   bit-equal on ``gap_ans``'s quotient model — with CUDA-event times (short
+   kernels from a CUDA graph's replay, so the host's cost of each call is
+   not counted), a roofline bound from this run's inputs (``l2_dist`` and
+   ``l2_top1`` at the TF32 tensor-core rate, with the old SIMT f32 bound
+   beside it as ``bound_f32_ms``) and one library call's time as a
+   yardstick where there is one;
 4. determinism: k-means (1024 centroids, 8 iterations) twice on the base
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
@@ -31,17 +36,23 @@ exits non-zero without the final ``ok`` line:
    (4-query requests, ``max_batch=64``, ``nprobe=16``, top-10) twice,
    with the decoded-id cache cold and then warm; then an ingest pass: five
    ``add`` calls of 10,000 new vectors each (five epochs), and the queries
-   served again.  Every kernel's launch count is set to 0 before the build
-   and read after the last pass; results must equal ``search_ref`` exactly
-   on the first 64 queries, before and after ingest;
-6. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
+   served again.  Every kernel's launch count (and the launch shapes:
+   ``seg_topk`` by ``(n, k)``, ``l2_top1`` by ``(K, d, rows)``, the rows
+   of ``pq_adc`` and ``l2_dist``) is set to 0 before the build and read
+   after the last pass; results must equal ``search_ref`` exactly on the
+   first 64 queries, before and after ingest;
+6. main-path shapes: ``seg_topk`` at every ``(n, k)`` and ``l2_top1`` at
+   every ``(K, d, rows)`` the main path launched (each checked as in
+   phase 3), ``pq_adc`` and ``l2_dist`` at its mean arena rows; each
+   kernel's ``main_path_ms`` is launches x time at the shape launched;
+7. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
    index's assignment (2^20 positions, bit-equal to ``BitVector`` and the
    plain version) and ``rans_decode`` on gap_ans-model streams (bit-equal
    to the encoded symbols and the plain version).  No engine calls these
    two, so their launches are counted here.
 
 The last three lines are the card's name and power limit (as
-``nvidia-smi`` gives them), the ``kernels`` JSON and
+``nvidia-smi`` gives them), the ``kernels`` JSON (one entry a kernel) and
 ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports nothing
 of JAX or of the JAX package.
 """
@@ -78,6 +89,14 @@ NLIST = 1024
 # 128-d rows, and one PQ8x8 subspace (256 centroids of 16 dims)
 TOP1_SHAPES = ((1 << 20, NLIST, 128), (1 << 20, 256, 16))
 INGEST_ADDS, INGEST_ROWS = 5, 10_000
+# seg_topk at two row widths and every k the scan's K-doubling retry
+# reaches up to 2048 (and k = 16, the earlier kernel's shape), plus the
+# retry's worst case k = n; the (n, k) the main path launched (at 1M
+# sift-like rows, nprobe=16: n = 131072 and 262144) are added after it
+SEG_NS = (16384, 32768)
+SEG_KS = (16, 32, 64, 128, 256, 512, 1024, 2048)
+# shared memory serves 32 four-byte words a clock on each SM
+SMEM_WORDS_PER_CLOCK = 32
 # rans_decode at (lanes, rows): 2^20 symbols, and one IVF1024 cluster at 1M
 RANS_SHAPES = ((128, 8192), (16, 64))
 WT_QUERIES = 1 << 20
@@ -92,8 +111,12 @@ def phase(name):
     print(f"[phase] {name} ok in {time.perf_counter() - t:.3f} s", flush=True)
 
 
-def cuda_ms(fn, reps=20, warmup=3):
-    """Mean milliseconds per call of ``fn`` by CUDA events, after warm-up."""
+def cuda_ms(fn, reps=20, warmup=3, graph=False):
+    """Mean milliseconds per call of ``fn`` by CUDA events, after warm-up.
+
+    ``graph=True`` captures the ``reps`` calls in one CUDA graph and times
+    its replay, so a short kernel is timed without the host's cost of each
+    call (the wrapper's checks, allocations and launch)."""
     import torch
 
     for _ in range(warmup):
@@ -101,10 +124,21 @@ def cuda_ms(fn, reps=20, warmup=3):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        torch.cuda.synchronize()
+        start.record()
+        g.replay()
+        end.record()
+    else:
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -146,11 +180,11 @@ def rescore_band(d, ref, qn):
     return 16.0 * d * eps32 * (1.0 + ref.abs().double() + qn)
 
 
-def check_l2_dist(dev, gen):
+def check_l2_dist(dev, gen, n=1 << 20):
     import torch
     from repro_torch.kernels.l2_topk import l2_dist, l2_dist_ref
 
-    qb, n, d = 64, 1 << 20, 128
+    qb, d = 64, 128
     q = torch.randn(qb, d, device=dev, generator=gen)
     a = torch.randn(n, d, device=dev, generator=gen)
     out = l2_dist(q, a)
@@ -165,7 +199,8 @@ def check_l2_dist(dev, gen):
     qn32, an32 = (q * q).sum(1, keepdim=True), (a * a).sum(1)
     b, by, b32 = l2_bounds(4 * (qb * d + n * d + qb * n), qb, n, d)
     return dict(
-        name="l2_dist", route="cuda", source="src/repro_torch/csrc/l2_dist.cu",
+        name="l2_dist" if n == 1 << 20 else f"l2_dist(n={n})", route="cuda",
+        source="src/repro_torch/csrc/l2_dist.cu",
         replaces="src/repro/kernels/l2_topk/kernel.py:76",
         shape=f"q {qb}x{d}, arena {n}x{d} f32",
         max_abs_err=float(err.max()), band_use=band_use,
@@ -176,21 +211,31 @@ def check_l2_dist(dev, gen):
                                                alpha=-2.0).add_(qn32)))
 
 
-def check_pq_adc(dev, gen):
+def check_pq_adc(dev, gen, sm_hz, n=1 << 20):
+    """pq_adc bitwise equal to a sequential j-ordered f32 sum (a loop over
+    j on the card) and inside rescore_eps of the plain version; with the
+    lookup count (qb * n * m shared-memory words) and its time at 32
+    words a clock on every SM, beside the byte bound."""
     import torch
     from repro_torch.kernels.pq_adc import pq_adc, pq_adc_ref
 
-    qb, n, m, d = 64, 1 << 20, 8, 128
+    qb, m, d = 64, 8, 128
     luts = torch.rand(qb, m, 256, device=dev, generator=gen) * 40.0
     codes = torch.randint(0, 256, (n, m), device=dev, generator=gen,
                           dtype=torch.int32).to(torch.uint8)
     out = pq_adc(luts, codes)
     ref = pq_adc_ref(luts, codes)
+    seq = torch.zeros(qb, n, device=dev)
+    for j in range(m):
+        seq += luts[:, j, codes[:, j].long()]
     torch.cuda.synchronize()
+    if not torch.equal(out.view(torch.int32), seq.view(torch.int32)):
+        raise AssertionError("pq_adc differs from the j-ordered f32 sum")
     err = (out.double() - ref.double()).abs()
     if not bool((err <= rescore_band(d, ref, 0.0)).all()):
         raise AssertionError(f"pq_adc outside rescore_eps: max err "
                              f"{float(err.max())}")
+    del seq
     # library yardstick: one embedding_bag sums rows lut[:, j, code[r, j]]
     # of an (m*256, qb) table, giving out.T (n, qb)
     bags = codes.long() + 256 * torch.arange(m, device=dev)
@@ -202,21 +247,25 @@ def check_pq_adc(dev, gen):
         raise AssertionError(f"embedding_bag yardstick outside rescore_eps: "
                              f"max err {float(lib_err.max())}")
     b, by = bound_ms(4 * qb * m * 256 + n * m + 4 * qb * n, qb * n * m)
+    lookups = qb * n * m
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(
-        name="pq_adc", route="cuda", source="src/repro_torch/csrc/pq_adc.cu",
+        name="pq_adc" if n == 1 << 20 else f"pq_adc(n={n})", route="cuda",
+        source="src/repro_torch/csrc/pq_adc.cu",
         replaces="src/repro/kernels/pq_adc/kernel.py:37",
         shape=f"luts {qb}x{m}x256 f32, codes {n}x{m} u8",
-        max_abs_err=float(err.max()),
-        ms=cuda_ms(lambda: pq_adc(luts, codes)),
+        max_abs_err=float(err.max()), bitwise_j_ordered=True,
+        ms=cuda_ms(lambda: pq_adc(luts, codes), graph=True),
         plain_ms=cuda_ms(lambda: pq_adc_ref(luts, codes), reps=3, warmup=1),
-        bound_ms=b, bound_by=by,
+        bound_ms=b, bound_by=by, lookups=lookups,
+        lookup_ms=lookups / (SMEM_WORDS_PER_CLOCK * sms * sm_hz) * 1e3,
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
-            bags, table, mode="sum")))
+            bags, table, mode="sum"), graph=True))
 
 
 def seg_topk_inputs(dev, gen, qb=64, n=16384):
     """Random rows plus the edge rows: ties, +inf, -0.0/+0.0, lens < k,
-    lens = 0, lens past n."""
+    lens = 0, lens past n, and NaN of both signs and two payloads."""
     import torch
 
     d = torch.randn(qb, n, device=dev, generator=gen)
@@ -231,53 +280,62 @@ def seg_topk_inputs(dev, gen, qb=64, n=16384):
     lens[6] = 0                                  # empty row
     lens[7] = n + 100                            # clamped to n
     d[8, 100:] = float("inf")                    # genuine +inf past a few hits
+    bits = d[9].view(torch.int32)                # NaN: both signs, 2 payloads
+    bits[1::7] = 0x7FC00000
+    bits[2::7] = 0xFFC00000 - (1 << 32)
+    bits[3::11] = 0x7FA00001
+    lens[9] = n
     return d.contiguous(), lens.contiguous()
 
 
-def check_seg_topk(dev, gen):
+def check_seg_topk(dev, gen, shapes):
+    """seg_topk at each (n, k) of ``shapes``, bit-equal to the plain
+    version run on a CPU copy of the same inputs (the card's stable sort
+    orders NaN otherwise; whether it agrees is reported); with a bound and
+    a ``torch.topk`` yardstick at each shape.  Returns {(n, k): record}."""
     import torch
     from repro_torch.kernels.seg_topk import seg_topk, seg_topk_ref
 
-    qb, n = 64, 16384
-    d, lens = seg_topk_inputs(dev, gen, qb, n)
-    # the function reads only each row's first min(lens, n) columns
-    live = int(lens.clamp(max=n).sum())
-    rows = []
-    for k in (16, 64):
-        v, i = seg_topk(d, lens, k)
-        vr, ir = seg_topk_ref(d, lens.clamp(max=n), k)
-        torch.cuda.synchronize()
-        if not (torch.equal(v.view(torch.int32), vr.view(torch.int32))
-                and torch.equal(i, ir)):
-            bad = (i != ir).any(1).nonzero().flatten().tolist()
-            raise AssertionError(f"seg_topk k={k} differs from the stable "
-                                 f"sort in rows {bad[:8]}")
-        both = torch.isfinite(v) & torch.isfinite(vr)
-        err = float(torch.where(both, (v - vr).abs(), 0.0).max())
+    qb, rows = 64, {}
+    for n in sorted({n for n, _ in shapes}):
+        d, lens = seg_topk_inputs(dev, gen, qb, n)
+        # the first k of one full stable sort are the plain version at k
+        full_v, full_i = seg_topk_ref(d.cpu(), lens.cpu().clamp(max=n), n)
+        live = int(lens.clamp(max=n).sum())
         masked = torch.where(
             torch.arange(n, device=dev)[None] < lens[:, None].clamp(max=n),
             d, torch.full((), float("inf"), device=dev))
-        b, by = bound_ms(4 * live + 4 * qb + 8 * qb * k, live)
-        rows.append(dict(
-            name="seg_topk" if k == 16 else f"seg_topk(k={k})",
-            route="cuda", source="src/repro_torch/csrc/seg_topk.cu",
-            replaces="src/repro/kernels/seg_topk/kernel.py:71",
-            shape=f"{qb}x{n} f32, k={k}", max_abs_err=err,
-            ms=cuda_ms(lambda: seg_topk(d, lens, k)),
-            plain_ms=cuda_ms(lambda: seg_topk_ref(d, lens, k)),
-            bound_ms=b, bound_by=by,
-            library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1,
-                                                  largest=False))))
-    # worst case of the scan's retry path: k doubled up to the padded width
-    k = n
-    v, i = seg_topk(d, lens, k)
-    vr, ir = seg_topk_ref(d, lens.clamp(max=n), k)
-    torch.cuda.synchronize()
-    if not (torch.equal(v.view(torch.int32), vr.view(torch.int32))
-            and torch.equal(i, ir)):
-        raise AssertionError("seg_topk k=n differs from the stable sort")
-    rows.append(dict(name="seg_topk(k=n)", worst_case_ms=cuda_ms(
-        lambda: seg_topk(d, lens, k), reps=1, warmup=0)))
+        for k in sorted(k for m, k in shapes if m == n):
+            v, i = seg_topk(d, lens, k)
+            vr, ir = full_v[:, :k], full_i[:, :k]
+            if not (torch.equal(v.cpu().view(torch.int32),
+                                vr.view(torch.int32))
+                    and torch.equal(i.cpu(), ir)):
+                bad = (i.cpu() != ir).any(1).nonzero().flatten().tolist()
+                raise AssertionError(f"seg_topk n={n} k={k} differs from "
+                                     f"the stable sort in rows {bad[:8]}")
+            vc, ic = seg_topk_ref(d, lens.clamp(max=n), k)
+            agrees = bool(torch.equal(vc.cpu().view(torch.int32),
+                                      vr.view(torch.int32))
+                          and torch.equal(ic.cpu(), ir))
+            both = torch.isfinite(v) & torch.isfinite(vr.to(dev))
+            err = float(torch.where(both, (v - vr.to(dev)).abs(), 0.0).max())
+            b, by = bound_ms(4 * live + 4 * qb + 8 * qb * k, live)
+            reps = 5 if k > 4096 else 20
+            rows[(n, k)] = dict(
+                name=f"seg_topk(n={n},k={k})", route="cuda",
+                source="src/repro_torch/csrc/seg_topk.cu",
+                replaces="src/repro/kernels/seg_topk/kernel.py:71",
+                shape=f"{qb}x{n} f32, k={k}", max_abs_err=err,
+                plain_on_card_agrees=agrees,
+                ms=cuda_ms(lambda: seg_topk(d, lens, k), reps=reps,
+                           graph=True),
+                plain_ms=cuda_ms(lambda: seg_topk_ref(d, lens, k),
+                                 reps=reps),
+                bound_ms=b, bound_by=by,
+                library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1,
+                                                      largest=False),
+                                   reps=reps, graph=True))
     return rows
 
 
@@ -383,7 +441,8 @@ def check_rans_decode(dev, lanes, rows):
         replaces="src/repro/kernels/rans_decode/kernel.py:62",
         shape=f"L={lanes} rows={rows} r={r} words={len(words)}",
         max_abs_err=0.0,
-        ms=cuda_ms(lambda: rans_decode(*args, rows=rows, r=r), reps=5),
+        ms=cuda_ms(lambda: rans_decode(*args, rows=rows, r=r), reps=5,
+                   graph=True),
         plain_ms=cuda_ms(lambda: rans_decode_ref(*args, rows=rows, r=r),
                          reps=1, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None)
@@ -430,7 +489,7 @@ def check_wt_rank(args, level0):
         replaces="src/repro/kernels/wt_rank/kernel.py:54",
         shape=f"{level0.nbits} bits (level 0 of the IVF{NLIST} wavelet "
               f"tree), {q.numel()} queries",
-        max_abs_err=0.0, ms=cuda_ms(lambda: wt_rank(*args)),
+        max_abs_err=0.0, ms=cuda_ms(lambda: wt_rank(*args), graph=True),
         plain_ms=cuda_ms(lambda: wt_rank_ref(*args), reps=5),
         bound_ms=b, bound_by=by, library_ms=None)
 
@@ -492,11 +551,12 @@ def serve(spec, base, queries, gt, adds, device):
     twice (decoded-id cache cold, then warm); then ingest ``adds`` one
     ``add`` call each and serve the queries again.  The launch counts are
     set to 0 before the build and read after the last pass.  Returns
-    (report, launch counts, the built index's assignment)."""
+    (report, launch counts, launch shapes, the built index's assignment)."""
     import numpy as np
     import torch
     from repro_torch.api import index_factory
-    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
     from repro_torch.serve import AnnService, BatchPolicy
 
     reset_launches()
@@ -526,7 +586,7 @@ def serve(spec, base, queries, gt, adds, device):
     if idx.ivf.n != base.shape[0] + sum(len(x) for x in adds):
         raise AssertionError(f"{spec}: {idx.ivf.n} ids after ingest")
     grown_t, grown = serve_pass(svc, queries)
-    counts = launch_counts()
+    counts, shapes = launch_counts(), launch_shapes()
     check_parity(spec, idx, grown_t, queries)
     return dict(
         spec=spec, n=int(base.shape[0]), build_s=build_s,
@@ -538,7 +598,19 @@ def serve(spec, base, queries, gt, adds, device):
                     l2_top1_launches_build=build_top1,
                     l2_top1_launches_ingest=ingest_top1,
                     served=grown, parity_vs_search_ref=True),
-        launches=counts), counts, cluster_of
+        launches=counts, shapes=shape_report(counts, shapes)), counts, shapes, \
+        cluster_of
+
+
+def shape_report(counts, shapes):
+    """The launch shapes of a main-path run, JSON-ready."""
+    return dict(
+        seg_topk={f"n={n},k={k}": c for (n, k), c in
+                  sorted(shapes["seg_topk"].items())},
+        pq_adc=dict(launches=counts["pq_adc"], rows=shapes["pq_adc"]),
+        l2_dist=dict(launches=counts["l2_dist"], rows=shapes["l2_dist"]),
+        l2_top1={f"K={k},d={d},rows={r}": c for (k, d, r), c
+                 in sorted(shapes["l2_top1"].items())})
 
 
 def main(argv=None) -> int:
@@ -569,10 +641,15 @@ def main(argv=None) -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True, timeout=60).stdout.strip().splitlines()[0]
+        # the SM clock the lookup time of pq_adc is counted at
+        sm_hz = 1e6 * float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60).stdout.split()[0])
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]} device "
               f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
-        print(f"card: {smi}")
+        print(f"card: {smi}, max SM clock {sm_hz / 1e6:.0f} MHz")
 
     from repro_torch.kernels import _build, launch_counts, reset_launches
 
@@ -595,13 +672,14 @@ def main(argv=None) -> int:
     results = []
     with phase("kernels vs plain"):
         results.append(check_l2_dist(dev, gen))
-        results.append(check_pq_adc(dev, gen))
-        results.extend(check_seg_topk(dev, gen))
+        results.append(check_pq_adc(dev, gen, sm_hz))
+        seg = check_seg_topk(dev, gen, [(n, k) for n in SEG_NS
+                                        for k in SEG_KS + (n,)])
         for nq, k, d in TOP1_SHAPES:
             results.append(check_l2_top1(dev, gen, nq, k, d))
         for lanes, rows in RANS_SHAPES:
             results.append(check_rans_decode(dev, lanes, rows))
-        for r in results:
+        for r in results + list(seg.values()):
             print("  " + json.dumps(r))
 
     import numpy as np
@@ -631,16 +709,44 @@ def main(argv=None) -> int:
                 f"{int((a != b).any(1).sum())} of {NLIST} rows")
         print("  centroids bitwise equal")
 
-    main_path = {}
+    main_path, shapes = {}, []
     cluster_of = None
     for spec in SPECS:
         with phase(f"main path {spec}"):
-            report, counts, assignment = serve(spec, base, queries, gt, adds,
-                                               dev)
+            report, counts, spec_shapes, assignment = serve(
+                spec, base, queries, gt, adds, dev)
             print("  " + json.dumps(report))
             for k, v in counts.items():
                 main_path[k] = main_path.get(k, 0) + v
+            shapes.append(spec_shapes)
             cluster_of = assignment if cluster_of is None else cluster_of
+
+    # the main path's own shapes: seg_topk at every (n, k) and l2_top1 at
+    # every (K, d, rows) it launched, pq_adc and l2_dist at its mean arena
+    # rows
+    seg_launches, top1 = {}, {}
+    for sh in shapes:
+        for key, c in sh["seg_topk"].items():
+            seg_launches[key] = seg_launches.get(key, 0) + c
+        for key, c in sh["l2_top1"].items():
+            top1[key] = top1.get(key, 0) + c
+    mean_rows = {name: round(sum(sh[name] for sh in shapes) / main_path[name])
+                 for name in ("pq_adc", "l2_dist")}
+    with phase("main-path shapes"):
+        more = check_seg_topk(dev, gen, [s for s in seg_launches
+                                         if s not in seg])
+        seg.update(more)
+        pq_mean = check_pq_adc(dev, gen, sm_hz, n=mean_rows["pq_adc"])
+        l2_mean = check_l2_dist(dev, gen, n=mean_rows["l2_dist"])
+        top1_at = {}
+        for k, d, rows in sorted(top1):
+            r = check_l2_top1(dev, gen, rows, k, d)
+            top1_at[(k, d, rows)] = dict(r, name=f"l2_top1(K={k},d={d},"
+                                               f"rows={rows})")
+        for r in (*more.values(), pq_mean, l2_mean, *top1_at.values()):
+            print("  " + json.dumps(r))
+        print("  seg_topk launches by (n, k): " + json.dumps(
+            {f"n={n},k={k}": c for (n, k), c in sorted(seg_launches.items())}))
 
     with phase("kernel API path: wt_rank, rans_decode"):
         level0 = wavelet_level0(cluster_of)
@@ -673,15 +779,44 @@ def main(argv=None) -> int:
         raise AssertionError(f"a kernel of the port never launched on its "
                              f"path: {totals}")
 
+    # each kernel's time a run on its path: launches x time at the shape
+    # launched
+    by_name = {r["name"]: r for r in results}
+    run_ms = dict(
+        l2_dist=main_path["l2_dist"] * l2_mean["ms"],
+        pq_adc=main_path["pq_adc"] * pq_mean["ms"],
+        seg_topk=sum(c * seg[s]["ms"] for s, c in seg_launches.items()),
+        l2_top1=sum(c * top1_at[s]["ms"] for s, c in top1.items()),
+        wt_rank=api_path["wt_rank"] * by_name["wt_rank"]["ms"],
+        rans_decode=sum(r["ms"] for r in results
+                        if r["name"].startswith("rans_decode")))
+    top_seg = max(seg_launches, key=seg_launches.get)
+    shown = dict(by_name, seg_topk=seg[top_seg])
+    extra = dict(
+        l2_dist=dict(mean_rows=mean_rows["l2_dist"],
+                     mean_rows_ms=l2_mean["ms"]),
+        pq_adc=dict(lookups=by_name["pq_adc"]["lookups"],
+                    lookup_ms=by_name["pq_adc"]["lookup_ms"],
+                    mean_rows=mean_rows["pq_adc"], mean_rows_ms=pq_mean["ms"],
+                    mean_rows_lookup_ms=pq_mean["lookup_ms"]),
+        seg_topk=dict(shape=f"n={top_seg[0]},k={top_seg[1]}",
+                      launches_by_shape={
+                          f"n={n},k={k}": [c, seg[(n, k)]["ms"]]
+                          for (n, k), c in sorted(seg_launches.items())}),
+        l2_top1=dict(launches_by_shape={
+            f"K={k},d={d},rows={rows}": [c, top1_at[(k, d, rows)]["ms"]]
+            for (k, d, rows), c in sorted(top1.items())}))
     kernels = []
-    for r in results:
-        if r["name"] in totals:
-            kernels.append({key: r[key] for key in (
-                "name", "route", "source", "replaces")} | {
-                "path": "kernel API" if r["name"] in on_api else "main path",
-                "launches": totals[r["name"]]} | {key: r[key] for key in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "bound_f32_ms", "band_use") if key in r})
+    for name in _build.KERNELS:
+        r = shown[name]
+        kernels.append({key: r[key] for key in (
+            "route", "source", "replaces")} | {
+            "name": name,
+            "path": "kernel API" if name in on_api else "main path",
+            "launches": totals[name]} | {key: r[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "bound_f32_ms", "band_use") if key in r} | {
+            "main_path_ms": run_ms[name]} | extra.get(name, {}))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,10 @@ and are built by :mod:`repro_torch.kernels._build` at first use.
 A wrapper runs the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises — there is no
 fallback.  Each wrapper counts its launches in ``<wrapper>.launches``
-(a plain integer), so a run can show which kernels its path went through:
+(a plain integer), so a run can show which kernels its path went through;
+``seg_topk`` also counts its launches by ``(n, k)``, ``l2_top1`` by
+``(K, d, rows)``, and ``pq_adc`` and ``l2_dist`` the rows they scored
+(:func:`launch_shapes`):
 
 * ``l2_topk.l2_dist``  — squared-L2 block for flat vectors (the scan).
 * ``l2_topk.l2_top1``  — nearest centroid per row (k-means assignment in
@@ -31,7 +34,7 @@ from .wt_rank import pack_bits_u32, wt_rank, wt_rank_ref
 __all__ = ["l2_dist", "l2_dist_ref", "l2_top1", "l2_top1_ref", "pq_adc",
            "pq_adc_ref", "seg_topk", "seg_topk_ref", "wt_rank", "wt_rank_ref",
            "pack_bits_u32", "rans_decode", "rans_decode_ref", "make_tables",
-           "reset_launches", "launch_counts"]
+           "reset_launches", "launch_counts", "launch_shapes"]
 
 _WRAPPERS = {"l2_dist": l2_dist, "l2_top1": l2_top1, "pq_adc": pq_adc,
              "seg_topk": seg_topk, "wt_rank": wt_rank,
@@ -39,11 +42,23 @@ _WRAPPERS = {"l2_dist": l2_dist, "l2_top1": l2_top1, "pq_adc": pq_adc,
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count (and the shape counts) to 0."""
     for w in _WRAPPERS.values():
         w.launches = 0
+    seg_topk.shapes = {}
+    l2_top1.shapes = {}
+    pq_adc.rows = l2_dist.rows = 0
 
 
 def launch_counts() -> dict:
     """``{kernel name: launches since the last reset}``."""
     return {name: w.launches for name, w in _WRAPPERS.items()}
+
+
+def launch_shapes() -> dict:
+    """Shapes since the last reset: ``{"seg_topk": {(n, k): launches},
+    "l2_top1": {(K, d, rows): launches}, "pq_adc": rows, "l2_dist":
+    rows}``."""
+    return {"seg_topk": dict(seg_topk.shapes),
+            "l2_top1": dict(l2_top1.shapes),
+            "pq_adc": pq_adc.rows, "l2_dist": l2_dist.rows}

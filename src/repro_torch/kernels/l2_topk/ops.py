@@ -47,10 +47,12 @@ def l2_dist(queries: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
     rc = fn(ptr(queries), ptr(cands), ptr(out), nq, n, d, stream_of(out))
     _build.check(lib, rc, "l2_dist")
     l2_dist.launches += 1
+    l2_dist.rows += n
     return out
 
 
 l2_dist.launches = 0
+l2_dist.rows = 0             # candidate rows scored, over all launches
 
 
 def l2_top1(queries: torch.Tensor, centroids: torch.Tensor):
@@ -88,7 +90,9 @@ def l2_top1(queries: torch.Tensor, centroids: torch.Tensor):
     rc = fn(ptr(q), ptr(c), ptr(idx), ptr(val), nq, k, d, stream_of(idx))
     _build.check(lib, rc, "l2_top1")
     l2_top1.launches += 1
+    l2_top1.shapes[(k, d, nq)] = l2_top1.shapes.get((k, d, nq), 0) + 1
     return idx, val
 
 
 l2_top1.launches = 0
+l2_top1.shapes = {}          # {(K, d, rows): launches}

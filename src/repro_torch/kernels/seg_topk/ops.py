@@ -12,6 +12,7 @@ minimum, ties at ``+inf`` included, so slots past the real candidates
 come back as ``val=+inf`` pointing at the lowest masked columns; callers
 separate real ``+inf`` hits from padding by ``idx < lens[i]``.
 ``torch.topk`` is not used anywhere: its tie order is unspecified.
+NaN sorts after ``+inf`` (padding included), every NaN tied by column.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ from .._check import cuda_args, ptr, stream_of
 from .ref import seg_topk_ref
 
 __all__ = ["seg_topk"]
+
+SORT_CHUNK = 4096            # u64 entries the kernel sorts in shared memory
 
 
 def seg_topk(dists: torch.Tensor, lens: torch.Tensor, k: int):
@@ -46,15 +49,22 @@ def seg_topk(dists: torch.Tensor, lens: torch.Tensor, k: int):
         raise TypeError("seg_topk: kernel takes float32 dists and int32 lens")
     vals = torch.empty((nq, k), dtype=torch.float32, device=dists.device)
     idx = torch.empty((nq, k), dtype=torch.int32, device=dists.device)
+    # past SORT_CHUNK the kernel sorts the k selected keys in global memory
+    kpad = max(2, 1 << (k - 1).bit_length())
+    scratch = (torch.empty((nq, kpad), dtype=torch.int64, device=dists.device)
+               if kpad > SORT_CHUNK else None)
     lib = _build.library("seg_topk")
     fn = lib.seg_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(ptr(dists), ptr(lens), ptr(vals), ptr(idx), nq, n, k,
+    rc = fn(ptr(dists), ptr(lens), ptr(vals), ptr(idx),
+            None if scratch is None else ptr(scratch), nq, n, k,
             stream_of(vals))
     _build.check(lib, rc, "seg_topk")
     seg_topk.launches += 1
+    seg_topk.shapes[(n, k)] = seg_topk.shapes.get((n, k), 0) + 1
     return vals, idx
 
 
 seg_topk.launches = 0
+seg_topk.shapes = {}         # {(n, k): launches}

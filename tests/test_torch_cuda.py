@@ -11,8 +11,11 @@ every ``m`` of the grammar's common PQ shapes, ragged ``K`` and ``d`` and
 tied centroids for ``l2_top1``, integer-valued near duplicates, depths
 under one k8 step and an input that one pass of TF32 rounds the same way
 everywhere for the split-TF32 L2 kernels, rank at 0 and at n, rANS
-tables in global memory and 1 to 1024 lanes); ``l2_top1`` run twice must
-give bitwise-equal results; a CUDA index is held bit-exact against its
+tables in global memory and 1 to 1024 lanes); ``seg_topk`` at the main
+path's widths (16384 to 300000) and ``k`` up to ``n``, with NaN rows, held
+against the plain version on the CPU; ``pq_adc`` bitwise equal to the
+j-ordered f32 sum for m = 1 .. 227; ``l2_top1`` and ``seg_topk`` run twice
+must give bitwise-equal results; a CUDA index is held bit-exact against its
 own ``search_ref`` and against a CPU index carried from the same arrays,
 also after ingest.  k-means on the card must give bitwise-equal centroids
 from run to run.  Whether a card is present is decided inside the
@@ -97,6 +100,7 @@ def test_pq_adc_kernel(dev, qb, m, n):
                           dtype=torch.int32).to(torch.uint8)
     out = pq_adc(luts, codes)
     _in_band(out, pq_adc_ref(luts, codes), 8 * m, 0.0)
+    assert _bits_equal(out, _j_ordered_sum(luts, codes))
     # an unaligned code view takes the byte path
     if n > 1:
         buf = torch.zeros(n * m + 1, dtype=torch.uint8, device=dev)
@@ -131,6 +135,80 @@ def test_seg_topk_kernel(dev, nq, n, k):
     v, i = seg_topk(d, lens, k)
     vr, ir = seg_topk_ref(d, lens.clamp(max=n), k)
     assert _bits_equal(v, vr) and torch.equal(i, ir)
+
+
+def _seg_rows(nq, n, dev, g):
+    """Random rows with the edge rows of ``chip_smoke.py``: all tied, all
+    +inf, signed zeros, duplicates, lens 5, 0 and past n, a few hits then
+    +inf, and NaN of both signs and two payloads."""
+    d = torch.randn(nq, n, device=dev, generator=g)
+    lens = torch.randint(n // 2, n + 1, (nq,), device=dev, generator=g,
+                         dtype=torch.int32)
+    d[1] = 1.0
+    d[2] = float("inf")
+    d[3, ::2] = -0.0
+    d[3, 1::2] = 0.0
+    d[4, : n // 2] = torch.floor(d[4, : n // 2] * 4)
+    lens[5], lens[6], lens[7] = 5, 0, n + 100
+    d[8, 100:] = float("inf")
+    bits = d[9].view(torch.int32)
+    bits[1::7] = 0x7FC00000
+    bits[2::7] = 0xFFC00000 - (1 << 32)
+    bits[3::11] = 0x7FA00001
+    lens[9] = n
+    return d.contiguous(), lens.contiguous()
+
+
+@pytest.mark.parametrize("n,k", [(16384, 32), (16384, 2048), (16384, 16384),
+                                 (32768, 32), (32768, 2048), (32768, 32768),
+                                 (65536, 32), (65536, 5000), (300000, 32),
+                                 (300000, 2048), (300, 7)])
+def test_seg_topk_kernel_at_main_path_widths_with_nan(dev, n, k):
+    """Bit-equal to the plain version run on the CPU: the card's stable
+    sort is not the yardstick for NaN rows (it orders them otherwise).
+    n = 300000 is wider than 8 blocks of staged keys: the kernel reads
+    the keys from global memory on each pass."""
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    d, lens = _seg_rows(64 if n > 300 else 12, n, dev, g)
+    v, i = seg_topk(d, lens, k)
+    vr, ir = seg_topk_ref(d.cpu(), lens.cpu().clamp(max=n), k)
+    assert _bits_equal(v.cpu(), vr) and torch.equal(i.cpu(), ir)
+
+
+def test_seg_topk_kernel_is_deterministic(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    d, lens = _seg_rows(64, 32768, dev, g)
+    for k in (64, 8192):
+        v, i = seg_topk(d, lens, k)
+        v2, i2 = seg_topk(d, lens, k)
+        assert _bits_equal(v, v2) and torch.equal(i, i2)
+
+
+def _j_ordered_sum(luts, codes):
+    """The sum the kernel computes: f32 adds in the order j = 0 .. m - 1."""
+    out = torch.zeros(luts.shape[0], codes.shape[0], device=luts.device)
+    for j in range(luts.shape[1]):
+        out += luts[:, j, codes[:, j].long()]
+    return out
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 8, 16, 32, 64, 192, 227])
+@pytest.mark.parametrize("qb,n", [(5, 4099), (17, 33_001), (64, 300_003)])
+def test_pq_adc_kernel_is_the_j_ordered_sum(dev, m, qb, n):
+    """Bitwise the j-ordered f32 sum: qb not a multiple of the tables a
+    block holds, n not a multiple of a span, and an unaligned code view;
+    m = 192 has a shortened code ring, m = 227 (odd, one table filling a
+    block) none, its codes read from global memory."""
+    g = torch.Generator(device=dev).manual_seed(qb * 100 + m)
+    luts = torch.rand(qb, m, 256, device=dev, generator=g) * 10
+    codes = torch.randint(0, 256, (n, m), device=dev, generator=g,
+                          dtype=torch.int32).to(torch.uint8)
+    want = _j_ordered_sum(luts, codes)
+    assert _bits_equal(pq_adc(luts, codes), want)
+    buf = torch.zeros(n * m + 1, dtype=torch.uint8, device=dev)
+    view = buf[1:].view(n, m)
+    view.copy_(codes)
+    assert _bits_equal(pq_adc(luts, view), want)
 
 
 @pytest.mark.parametrize("nq,k,d,kind", [

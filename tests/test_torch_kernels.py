@@ -138,6 +138,24 @@ def test_pq_adc_empty(qb, n):
     assert out.shape == (qb, n) and out.dtype == torch.float32
 
 
+@pytest.mark.parametrize("m", [1, 3, 8, 16, 64, 129, 181, 182, 192, 227])
+def test_pq_adc_tables_per_block_fits_every_m_whose_table_fits(m):
+    """The kernel takes any m whose single 256-entry table fits one block's
+    shared memory (227 KB on an H100); its code ring shrinks, or goes,
+    beside the tables."""
+    from repro_torch.kernels.pq_adc.ops import (SMEM_MAX, ring_rows,
+                                                tables_per_block)
+
+    qt = tables_per_block(m)
+    rows = ring_rows(m, qt)
+    assert qt in (16, 8, 4, 2, 1) and rows % 16 == 0
+    assert m * 256 * 4 * qt + (2 * rows * m + 16 if rows else 0) <= SMEM_MAX
+    if m <= 181:
+        assert rows >= 128                   # a full ring at every m <= 181
+    with pytest.raises(ValueError):
+        tables_per_block(228)
+
+
 # ---------------------------------------------------------------------------
 # seg_topk
 # ---------------------------------------------------------------------------
