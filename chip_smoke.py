@@ -22,7 +22,11 @@ exits non-zero without the final ``ok`` line:
    ``l2_dist``, ``pq_adc`` and ``l2_top1`` inside the scan's
    ``rescore_eps`` band (``l2_top1`` at the IVF1024 and PQ8x8 k-means
    shapes; ``band_use`` is the largest error over the band); ``rans_decode``
-   bit-equal on ``gap_ans``'s quotient model — with CUDA-event times (short
+   bit-equal to the plain version run on a CPU copy on ``gap_ans``'s
+   quotient model at (L, rows) = (128, 8192), (16, 64) and (1024, 1024),
+   with ``step_cycles`` (one step at the top SM clock); ``wt_rank`` on a
+   2^24-bit random bitvector (too large for shared memory: the global
+   route) — with CUDA-event times (short
    kernels from a CUDA graph's replay, so the host's cost of each call is
    not counted), a roofline bound from this run's inputs (``l2_dist`` and
    ``l2_top1`` at the TF32 tensor-core rate, with the old SIMT f32 bound
@@ -46,10 +50,12 @@ exits non-zero without the final ``ok`` line:
    phase 3), ``pq_adc`` and ``l2_dist`` at its mean arena rows; each
    kernel's ``main_path_ms`` is launches x time at the shape launched;
 7. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
-   index's assignment (2^20 positions, bit-equal to ``BitVector`` and the
-   plain version) and ``rans_decode`` on gap_ans-model streams (bit-equal
-   to the encoded symbols and the plain version).  No engine calls these
-   two, so their launches are counted here.
+   index's assignment (2^20 positions, the resident route; bit-equal to
+   ``BitVector`` and the plain version on a CPU copy) and ``rans_decode``
+   on gap_ans-model streams at (128, 8192) and (16, 64) (bit-equal to the
+   encoded symbols and the plain version).  No engine calls these two, so
+   their launches (and ``wt_rank``'s routes) are counted here; the
+   (1024, 1024) decode is timed in phase 3 and not counted.
 
 The last three lines are the card's name and power limit (as
 ``nvidia-smi`` gives them), the ``kernels`` JSON (one entry a kernel) and
@@ -98,8 +104,13 @@ SEG_KS = (16, 32, 64, 128, 256, 512, 1024, 2048)
 # shared memory serves 32 four-byte words a clock on each SM
 SMEM_WORDS_PER_CLOCK = 32
 # rans_decode at (lanes, rows): 2^20 symbols, and one IVF1024 cluster at 1M
+# (the kernel-API path); and eight decode warps at L = 1024, timed beside
+# them but not counted in main_path_ms
 RANS_SHAPES = ((128, 8192), (16, 64))
+RANS_WIDE = (1024, 1024)
 WT_QUERIES = 1 << 20
+# wt_rank also on a bitvector too large for shared memory (the global route)
+WT_LARGE_BITS = 1 << 24
 
 
 @contextlib.contextmanager
@@ -416,8 +427,9 @@ def rans_args(dev, heads, words, tables):
             *(torch.from_numpy(t).to(dev) for t in tables)]
 
 
-def check_rans_decode(dev, lanes, rows):
-    """rans_decode bit-equal to the plain step loop and to the symbols."""
+def check_rans_decode(dev, lanes, rows, sm_hz):
+    """rans_decode bit-equal to the plain step loop run on a CPU copy and to
+    the symbols; ``step_cycles`` is one step's time at the top SM clock."""
     import numpy as np
     import torch
     from repro_torch.kernels.rans_decode import rans_decode, rans_decode_ref
@@ -425,8 +437,8 @@ def check_rans_decode(dev, lanes, rows):
     data, heads, words, tables, r = rans_stream(lanes, rows, seed=lanes)
     args = rans_args(dev, heads, words, tables)
     out = rans_decode(*args, rows=rows, r=r)
-    ref = rans_decode_ref(*args, rows=rows, r=r)
-    if not (torch.equal(out, ref)
+    ref = rans_decode_ref(*(a.cpu() for a in args), rows=rows, r=r)
+    if not (torch.equal(out.cpu(), ref)
             and np.array_equal(out.cpu().numpy(), data)):
         raise AssertionError(f"rans_decode L={lanes} rows={rows} differs "
                              "from the symbols or the plain version")
@@ -434,15 +446,15 @@ def check_rans_decode(dev, lanes, rows):
     # integer operations (~12 a symbol) never decide the bound
     b, by = bound_ms(4 * (lanes + len(words) + 3 * (1 << r) + rows * lanes),
                      12 * rows * lanes)
+    ms = cuda_ms(lambda: rans_decode(*args, rows=rows, r=r), reps=5,
+                 graph=True)
     return dict(
-        name="rans_decode" if rows >= 1024 else
+        name="rans_decode" if (lanes, rows) == RANS_SHAPES[0] else
         f"rans_decode(L={lanes},rows={rows})",
         route="cuda", source="src/repro_torch/csrc/rans_decode.cu",
         replaces="src/repro/kernels/rans_decode/kernel.py:62",
         shape=f"L={lanes} rows={rows} r={r} words={len(words)}",
-        max_abs_err=0.0,
-        ms=cuda_ms(lambda: rans_decode(*args, rows=rows, r=r), reps=5,
-                   graph=True),
+        max_abs_err=0.0, ms=ms, step_cycles=ms * 1e-3 * sm_hz / rows,
         plain_ms=cuda_ms(lambda: rans_decode_ref(*args, rows=rows, r=r),
                          reps=1, warmup=1),
         bound_ms=b, bound_by=by, library_ms=None)
@@ -467,16 +479,36 @@ def wt_rank_args(dev, gen, level0):
             torch.from_numpy(sup).to(dev), q]
 
 
-def check_wt_rank(args, level0):
-    """wt_rank bit-equal to the plain version and to ``BitVector``."""
+def wt_rank_large_args(dev, gen):
+    """A random bitvector of WT_LARGE_BITS bits (too large for shared
+    memory) and its ``BitVector``, with WT_QUERIES random queries."""
+    import numpy as np
+    import torch
+    from repro_torch.core.bitvec import BitVector
+    from repro_torch.kernels.wt_rank import pack_bits_u32
+
+    bits = np.random.default_rng(7).random(WT_LARGE_BITS) < 0.5
+    words, sup = pack_bits_u32(bits.astype(np.uint8))
+    q = torch.randint(0, WT_LARGE_BITS + 1, (WT_QUERIES,), device=dev,
+                      generator=gen, dtype=torch.int32)
+    return [torch.from_numpy(words.view(np.int32)).to(dev),
+            torch.from_numpy(sup).to(dev), q], BitVector.from_bits(bits)
+
+
+def check_wt_rank(args, bitvec, what):
+    """wt_rank bit-equal to the plain version run on a CPU copy and to
+    ``BitVector``; the route the wrapper took."""
     import numpy as np
     import torch
     from repro_torch.kernels.wt_rank import wt_rank, wt_rank_ref
 
     words, sup, q = args
+    before = dict(wt_rank.routes)
     out = wt_rank(*args)
-    if not (torch.equal(out, wt_rank_ref(*args)) and np.array_equal(
-            out.cpu().numpy(), level0.rank1_batch(q.cpu().numpy()))):
+    (route,) = [r for r, n in wt_rank.routes.items() if n != before.get(r, 0)]
+    if not (torch.equal(out.cpu(), wt_rank_ref(*(a.cpu() for a in args)))
+            and np.array_equal(out.cpu().numpy(),
+                               bitvec.rank1_batch(q.cpu().numpy()))):
         raise AssertionError("wt_rank differs from the plain version or "
                              "BitVector.rank1_batch")
     # bytes: words, superblock counts, queries and ranks once each; ops:
@@ -487,8 +519,8 @@ def check_wt_rank(args, level0):
     return dict(
         name="wt_rank", route="cuda", source="src/repro_torch/csrc/wt_rank.cu",
         replaces="src/repro/kernels/wt_rank/kernel.py:54",
-        shape=f"{level0.nbits} bits (level 0 of the IVF{NLIST} wavelet "
-              f"tree), {q.numel()} queries",
+        shape=f"{bitvec.nbits} bits ({what}), {q.numel()} queries",
+        kernel_route=route,
         max_abs_err=0.0, ms=cuda_ms(lambda: wt_rank(*args), graph=True),
         plain_ms=cuda_ms(lambda: wt_rank_ref(*args), reps=5),
         bound_ms=b, bound_by=by, library_ms=None)
@@ -651,7 +683,8 @@ def main(argv=None) -> int:
               f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
         print(f"card: {smi}, max SM clock {sm_hz / 1e6:.0f} MHz")
 
-    from repro_torch.kernels import _build, launch_counts, reset_launches
+    from repro_torch.kernels import (_build, launch_counts, launch_shapes,
+                                     reset_launches)
 
     with phase("build"):
         libs = _build.build_all()
@@ -678,8 +711,12 @@ def main(argv=None) -> int:
         for nq, k, d in TOP1_SHAPES:
             results.append(check_l2_top1(dev, gen, nq, k, d))
         for lanes, rows in RANS_SHAPES:
-            results.append(check_rans_decode(dev, lanes, rows))
-        for r in results + list(seg.values()):
+            results.append(check_rans_decode(dev, lanes, rows, sm_hz))
+        rans_wide = check_rans_decode(dev, *RANS_WIDE, sm_hz)
+        wt_large = dict(check_wt_rank(*wt_rank_large_args(dev, gen),
+                                      "random, p = 0.5"),
+                        name="wt_rank(2^24 bits)")
+        for r in results + list(seg.values()) + [rans_wide, wt_large]:
             print("  " + json.dumps(r))
 
     import numpy as np
@@ -761,6 +798,7 @@ def main(argv=None) -> int:
         decoded = [rans_decode(*rans_args(dev, h, w, tabs), rows=len(data),
                                r=r) for data, h, w, tabs, r in streams]
         api_path = launch_counts()
+        api_routes = launch_shapes()["wt_rank"]
         if not np.array_equal(ranks.cpu().numpy(),
                               level0.rank1_batch(wt_args[2].cpu().numpy())):
             raise AssertionError("wt_rank differs from BitVector.rank1_batch")
@@ -768,9 +806,11 @@ def main(argv=None) -> int:
             if not np.array_equal(out.cpu().numpy(), data):
                 raise AssertionError("rans_decode differs from the encoded "
                                      "symbols")
-        results.append(check_wt_rank(wt_args, level0))
+        results.append(check_wt_rank(
+            wt_args, level0, f"level 0 of the IVF{NLIST} wavelet tree"))
         print("  " + json.dumps(results[-1]))
-        print(f"  launches: {json.dumps(api_path)}")
+        print(f"  launches: {json.dumps(api_path)}, wt_rank by route: "
+              f"{json.dumps(api_routes)}")
 
     on_api = ("wt_rank", "rans_decode")
     totals = {k: api_path[k] if k in on_api else v
@@ -790,6 +830,8 @@ def main(argv=None) -> int:
         wt_rank=api_path["wt_rank"] * by_name["wt_rank"]["ms"],
         rans_decode=sum(r["ms"] for r in results
                         if r["name"].startswith("rans_decode")))
+    rans_rows = [r for r in results if r["name"].startswith("rans_decode")]
+    keep = ("shape", "ms", "step_cycles", "plain_ms", "bound_ms")
     top_seg = max(seg_launches, key=seg_launches.get)
     shown = dict(by_name, seg_topk=seg[top_seg])
     extra = dict(
@@ -805,7 +847,17 @@ def main(argv=None) -> int:
                           for (n, k), c in sorted(seg_launches.items())}),
         l2_top1=dict(launches_by_shape={
             f"K={k},d={d},rows={rows}": [c, top1_at[(k, d, rows)]["ms"]]
-            for (k, d, rows), c in sorted(top1.items())}))
+            for (k, d, rows), c in sorted(top1.items())}),
+        rans_decode=dict(
+            step_cycles=by_name["rans_decode"]["step_cycles"],
+            shapes={r["name"]: {k: r[k] for k in keep}
+                    for r in rans_rows + [rans_wide]
+                    if r["name"] != "rans_decode"}),
+        wt_rank=dict(kernel_route=by_name["wt_rank"]["kernel_route"],
+                     routes=api_routes,
+                     large={k: wt_large[k] for k in (
+                         "shape", "kernel_route", "ms", "plain_ms",
+                         "bound_ms", "bound_by")}))
     kernels = []
     for name in _build.KERNELS:
         r = shown[name]

@@ -26,7 +26,7 @@ from .ref import rans_decode_ref
 
 __all__ = ["make_tables", "rans_decode"]
 
-MAX_LANES = 1024   # one block of L threads
+MAX_LANES = 1024   # at most 8 decode warps of 4 lanes a thread
 
 
 def make_tables(freqs: np.ndarray, r: int):
@@ -51,8 +51,8 @@ def rans_decode(heads: torch.Tensor, words: torch.Tensor,
     heads (L,) int32 (u32 bit patterns), words (W,) int32 (16-bit
     values), tables (2^r,) int32 from :func:`make_tables`, ``r`` in
     [1, 16].  CPU tensors take the plain step loop; CUDA tensors launch
-    ``csrc/rans_decode.cu`` (one block of ``L <= 1024`` threads),
-    bit-equal to it.
+    ``csrc/rans_decode.cu`` (one block; one decode warp up to 64 lanes,
+    else up to 8, ``L <= 1024``), bit-equal to it.
     """
     rows, r = int(rows), int(r)
     if not 1 <= r <= 16:

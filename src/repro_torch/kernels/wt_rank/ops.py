@@ -23,7 +23,7 @@ from .ref import wt_rank_ref
 __all__ = ["pack_bits_u32", "wt_rank"]
 
 WORDS_PER_SUPER = 16
-_THREADS = 256
+ROUTES = ("global", "resident")   # by the code ``wt_rank_route`` returns
 
 
 def pack_bits_u32(bits: np.ndarray):
@@ -56,8 +56,11 @@ def wt_rank(words: torch.Tensor, super_cum: torch.Tensor,
 
     A query must lie in ``[0, 32 W]`` and its superblock in ``super_cum``;
     any other query gives -1.  CPU tensors take the plain version; CUDA
-    tensors launch ``csrc/wt_rank.cu`` (one thread per query), bit-equal
-    to it.
+    tensors launch ``csrc/wt_rank.cu``, bit-equal to it, on the route the
+    library picks by size: ``"resident"`` (the bitvector in each SM's
+    shared memory) where words and ``super_cum`` fit and the batch is large
+    enough to pay for loading them, else ``"global"``.
+    ``wt_rank.routes`` counts the launches of each route.
     """
     if words.dim() != 1 or super_cum.dim() != 1 or queries.dim() != 1:
         raise ValueError("wt_rank: words, super_cum and queries are 1-D")
@@ -78,8 +81,13 @@ def wt_rank(words: torch.Tensor, super_cum: torch.Tensor,
     rc = fn(ptr(words), ptr(super_cum), ptr(queries), ptr(out), nq,
             words.shape[0], super_cum.shape[0], stream_of(out))
     _build.check(lib, rc, "wt_rank")
+    lib.wt_rank_route.argtypes = [ctypes.c_int] * 3
+    lib.wt_rank_route.restype = ctypes.c_int
+    route = ROUTES[lib.wt_rank_route(words.shape[0], super_cum.shape[0], nq)]
     wt_rank.launches += 1
+    wt_rank.routes[route] = wt_rank.routes.get(route, 0) + 1
     return out
 
 
 wt_rank.launches = 0
+wt_rank.routes = {}

@@ -11,7 +11,10 @@ every ``m`` of the grammar's common PQ shapes, ragged ``K`` and ``d`` and
 tied centroids for ``l2_top1``, integer-valued near duplicates, depths
 under one k8 step and an input that one pass of TF32 rounds the same way
 everywhere for the split-TF32 L2 kernels, rank at 0 and at n, rANS
-tables in global memory and 1 to 1024 lanes); ``seg_topk`` at the main
+tables in global memory and 1 to 1024 lanes; ``rans_decode`` at the
+chip_smoke shapes, r = 14 and 15, heads below 2^16 and words views at odd
+storage offsets, ``wt_rank`` on both routes, unpadded and at a 4-byte
+offset, both against the plain version on a CPU copy); ``seg_topk`` at the main
 path's widths (16384 to 300000) and ``k`` up to ``n``, with NaN rows, held
 against the plain version on the CPU; ``pq_adc`` bitwise equal to the
 j-ordered f32 sum for m = 1 .. 227; ``l2_top1`` and ``seg_topk`` run twice
@@ -277,6 +280,32 @@ def test_wt_rank_kernel(dev, n, p):
     np.testing.assert_array_equal(got.cpu().numpy()[4:6], [-1, -1])
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("nbits", [1 << 24, 1_050_000, 100_003, 33])
+def test_wt_rank_kernel_both_routes(dev, nbits, offset):
+    """A bitvector larger than shared memory (the global route) and ones
+    that fit (resident, at 2^20 queries), unpadded (W = ceil(n / 32),
+    queries in its last superblock) and padded, and a words view at a
+    4-byte offset; bit-equal to the plain version on a CPU copy."""
+    rng = np.random.default_rng(nbits + offset)
+    bits = (rng.random(nbits) < 0.3).astype(np.uint8)
+    padded, sup = pack_bits_u32(bits)
+    for words in (padded, padded[:-(-nbits // 32)]):
+        W = len(words)
+        q = np.concatenate([[0, nbits, 32 * W, 32 * W - 1, -1, 32 * W + 1],
+                            np.arange(32 * W - 600, 32 * W + 1),
+                            np.arange(0, 32 * W + 1, 512)[:4096],
+                            rng.integers(0, 32 * W + 1, 1 << 20)]
+                           ).astype(np.int32)
+        args = (_offset_view(words.view(np.int32), dev, offset),
+                torch.from_numpy(sup).to(dev), torch.from_numpy(q).to(dev))
+        reset_launches()
+        got = wt_rank(*args)
+        route = "global" if nbits == 1 << 24 else "resident"
+        assert wt_rank.routes == {route: 1}
+        assert torch.equal(got.cpu(), _on_cpu_copy(wt_rank_ref, args))
+
+
 def _geom_freqs(alpha, r):
     f = np.maximum(1, (1 << r) >> (np.arange(alpha) + 1)).astype(np.int64)
     f[0] += (1 << r) - f.sum()
@@ -308,6 +337,72 @@ def test_rans_decode_kernel(dev, r, alpha, rows, lanes):
     # past the stream's end the kernel reads 0, as the plain version does
     more = rans_decode(*args, rows=rows + 5, r=r)
     assert torch.equal(more, rans_decode_ref(*args, rows=rows + 5, r=r))
+
+
+def _on_cpu_copy(fn, args, **kw):
+    """``fn`` run on CPU copies of ``args`` (the plain version)."""
+    return fn(*(a.cpu() for a in args), **kw)
+
+
+def _offset_view(x, dev, offset):
+    """``x`` on the card as a contiguous view at ``offset`` elements into a
+    larger tensor (a storage offset: 4 * offset bytes off 16-byte
+    alignment for offsets 1 .. 3)."""
+    big = torch.zeros(x.size + offset, dtype=torch.int32, device=dev)
+    big[offset:] = torch.from_numpy(x).to(dev)
+    view = big[offset:]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    return view
+
+
+@pytest.mark.parametrize("lanes,rows", [(128, 8192), (16, 64), (1024, 1024)])
+def test_rans_decode_kernel_at_chip_smoke_shapes(dev, lanes, rows):
+    """gap_ans's quotient model (r = 12, packed table in shared memory) at
+    the shapes chip_smoke.py times, and rows past the stream's end."""
+    from repro_torch.core import gap_ans
+    from repro_torch.core.vrans import VRans16Encoder
+
+    r, freqs = gap_ans._Q_PRECISION, gap_ans._QF
+    starts = np.cumsum(freqs) - freqs
+    rng = np.random.default_rng(lanes)
+    data = rng.choice(len(freqs), size=(rows, lanes), p=freqs / freqs.sum())
+    enc = VRans16Encoder(lanes)
+    for t in range(rows - 1, -1, -1):
+        enc.push(starts[data[t]], freqs[data[t]], r)
+    heads, words = enc.finalize()
+    args = [torch.from_numpy(heads.view(np.int32)).to(dev),
+            torch.from_numpy(words.astype(np.int32)).to(dev)]
+    args += [torch.from_numpy(t).to(dev) for t in make_tables(freqs, r)]
+    out = rans_decode(*args, rows=rows, r=r)
+    np.testing.assert_array_equal(out.cpu().numpy(), data)
+    assert torch.equal(out.cpu(), _on_cpu_copy(rans_decode_ref, args,
+                                               rows=rows, r=r))
+    more = rans_decode(*args, rows=rows + 40, r=r)
+    assert torch.equal(more.cpu(), _on_cpu_copy(rans_decode_ref, args,
+                                                rows=rows + 40, r=r))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("lanes", [16, 128, 300])
+@pytest.mark.parametrize("r", [14, 15])
+def test_rans_decode_kernel_edges(dev, r, lanes, offset):
+    """Either side of the shared-memory table (r = 14 packed, r = 15 from
+    the three tables), heads below 2^16, words with high bits, a words view
+    at an odd storage offset, and rows past the stream's end."""
+    rng = np.random.default_rng(r * 1000 + lanes + offset)
+    freqs = _geom_freqs(40, r)
+    heads = rng.integers(1 << 16, 1 << 32, lanes, dtype=np.uint64
+                         ).astype(np.uint32)
+    heads[::5] = rng.integers(0, 1 << 16, len(heads[::5]))
+    words = rng.integers(0, 1 << 16, 20_000 + offset).astype(np.int32)
+    words[::97] = rng.integers(-(1 << 31), 1 << 31, len(words[::97]))
+    args = [torch.from_numpy(heads.view(np.int32)).to(dev),
+            _offset_view(words, dev, offset)]
+    args += [torch.from_numpy(t).to(dev) for t in make_tables(freqs, r)]
+    rows = 20_000 // lanes * 4 // 3   # runs some rows past the end
+    out = rans_decode(*args, rows=rows, r=r)
+    assert torch.equal(out.cpu(), _on_cpu_copy(rans_decode_ref, args,
+                                               rows=rows, r=r))
 
 
 def test_kmeans_on_the_card_is_deterministic(dev):
