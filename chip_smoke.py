@@ -18,7 +18,9 @@ exits non-zero without the final ``ok`` line:
    the card — ``seg_topk`` bit-equal to the plain version run on a CPU copy
    (rows with ties, +inf, signed zeros and NaN of both signs) at n = 16384
    and 32768 and every k the scan's retry reaches, plus k = n; ``pq_adc``
-   bitwise equal to the j-ordered f32 sum, with its lookup count;
+   bitwise equal to the j-ordered f32 sum, with its lookup count, and at
+   m = 256 (PQ256x8: two j-ordered launches, the second adding onto the
+   first's partial sums) bitwise equal to the plain version;
    ``l2_dist``, ``pq_adc`` and ``l2_top1`` inside the scan's
    ``rescore_eps`` band (``l2_top1`` at the IVF1024 and PQ8x8 k-means
    shapes; ``band_use`` is the largest error over the band); ``rans_decode``
@@ -45,11 +47,27 @@ exits non-zero without the final ``ok`` line:
    of ``pq_adc`` and ``l2_dist``) is set to 0 before the build and read
    after the last pass; results must equal ``search_ref`` exactly on the
    first 64 queries, before and after ingest;
-6. main-path shapes: ``seg_topk`` at every ``(n, k)`` and ``l2_top1`` at
-   every ``(K, d, rows)`` the main path launched (each checked as in
-   phase 3), ``pq_adc`` and ``l2_dist`` at its mean arena rows; each
+6. Flat path: ``Flat`` on the card (``make_index("Flat")``) over the same
+   1M vectors, serving the same queries through ``AnnService`` twice (the
+   first pass uploads the base); every kernel's launch count set to 0
+   before the build and read after; ids and dists equal to a CPU
+   ``FlatIndex`` (the numpy loop) on the first 64 queries, and recall@10
+   1.0 against exact search;
+7. container path: ``save_index`` and ``load_index(device="cuda")`` of
+   the ``IVF1024,ids=roc`` index after its ingest (six epochs) and of the
+   Flat index, with pack and unpack seconds and blob MB; bits per id and
+   epochs equal, and search after reload equal to search before over all
+   queries (counts set to 0 before the path and read after);
+8. main-path shapes: ``seg_topk`` at every ``(n, k)`` and ``l2_top1`` at
+   every ``(K, d, rows)`` that phases 5-7 launched (each checked as in
+   phase 3; at n = 2^20, Flat's width, the kernel reads its keys from
+   global memory on every pass, and it is timed, bounded and set beside
+   ``torch.topk`` on the block Flat gives it: the first 64 queries'
+   distances to the padded base, lens = n on every row, held bit-equal
+   as well), ``pq_adc`` and ``l2_dist`` at the IVF
+   mean arena rows (``l2_dist`` at Flat's 2^20 rows in phase 3); each
    kernel's ``main_path_ms`` is launches x time at the shape launched;
-7. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
+9. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
    index's assignment (2^20 positions, the resident route; bit-equal to
    ``BitVector`` and the plain version on a CPU copy) and ``rans_decode``
    on gap_ans-model streams at (128, 8192) and (16, 64) (bit-equal to the
@@ -222,15 +240,18 @@ def check_l2_dist(dev, gen, n=1 << 20):
                                                alpha=-2.0).add_(qn32)))
 
 
-def check_pq_adc(dev, gen, sm_hz, n=1 << 20):
+def check_pq_adc(dev, gen, sm_hz, n=1 << 20, m=8):
     """pq_adc bitwise equal to a sequential j-ordered f32 sum (a loop over
-    j on the card) and inside rescore_eps of the plain version; with the
-    lookup count (qb * n * m shared-memory words) and its time at 32
-    words a clock on every SM, beside the byte bound."""
+    j on the card) and to the plain version (the same sum) and inside
+    rescore_eps of it; with the lookup count (qb * n * m
+    shared-memory words) and its time at 32 words a clock on every SM,
+    beside the byte bound, and the launches one call makes (``chunks``:
+    m >= 228 is scored as j-ordered chunks of tables)."""
     import torch
     from repro_torch.kernels.pq_adc import pq_adc, pq_adc_ref
+    from repro_torch.kernels.pq_adc.ops import chunk_plan
 
-    qb, m, d = 64, 8, 128
+    qb, d = 64, max(128, m)
     luts = torch.rand(qb, m, 256, device=dev, generator=gen) * 40.0
     codes = torch.randint(0, 256, (n, m), device=dev, generator=gen,
                           dtype=torch.int32).to(torch.uint8)
@@ -242,6 +263,8 @@ def check_pq_adc(dev, gen, sm_hz, n=1 << 20):
     torch.cuda.synchronize()
     if not torch.equal(out.view(torch.int32), seq.view(torch.int32)):
         raise AssertionError("pq_adc differs from the j-ordered f32 sum")
+    if not torch.equal(out.view(torch.int32), ref.view(torch.int32)):
+        raise AssertionError(f"pq_adc m={m} differs from the plain version")
     err = (out.double() - ref.double()).abs()
     if not bool((err <= rescore_band(d, ref, 0.0)).all()):
         raise AssertionError(f"pq_adc outside rescore_eps: max err "
@@ -261,10 +284,12 @@ def check_pq_adc(dev, gen, sm_hz, n=1 << 20):
     lookups = qb * n * m
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(
-        name="pq_adc" if n == 1 << 20 else f"pq_adc(n={n})", route="cuda",
+        name=("pq_adc" if (n, m) == (1 << 20, 8) else f"pq_adc(n={n})"
+              if m == 8 else f"pq_adc(m={m})"), route="cuda",
         source="src/repro_torch/csrc/pq_adc.cu",
         replaces="src/repro/kernels/pq_adc/kernel.py:37",
         shape=f"luts {qb}x{m}x256 f32, codes {n}x{m} u8",
+        chunks=len(chunk_plan(m)),
         max_abs_err=float(err.max()), bitwise_j_ordered=True,
         ms=cuda_ms(lambda: pq_adc(luts, codes), graph=True),
         plain_ms=cuda_ms(lambda: pq_adc_ref(luts, codes), reps=3, warmup=1),
@@ -299,46 +324,73 @@ def seg_topk_inputs(dev, gen, qb=64, n=16384):
     return d.contiguous(), lens.contiguous()
 
 
-def check_seg_topk(dev, gen, shapes):
+def seg_topk_held(d, lens, ks, n, what):
+    """seg_topk at each k of ``ks`` on one (qb, n) block, bit-equal to the
+    plain version run on a CPU copy (the card's stable sort orders NaN
+    otherwise; whether it agrees is reported).  Returns {k: (max_abs_err,
+    plain_on_card_agrees)}."""
+    import torch
+    from repro_torch.kernels.seg_topk import seg_topk, seg_topk_ref
+
+    # the first k of one full stable sort are the plain version at k
+    full_v, full_i = seg_topk_ref(d.cpu(), lens.cpu().clamp(max=n), n)
+    held = {}
+    for k in ks:
+        v, i = seg_topk(d, lens, k)
+        vr, ir = full_v[:, :k], full_i[:, :k]
+        if not (torch.equal(v.cpu().view(torch.int32), vr.view(torch.int32))
+                and torch.equal(i.cpu(), ir)):
+            bad = (i.cpu() != ir).any(1).nonzero().flatten().tolist()
+            raise AssertionError(f"seg_topk n={n} k={k} on {what} differs "
+                                 f"from the stable sort in rows {bad[:8]}")
+        vc, ic = seg_topk_ref(d, lens.clamp(max=n), k)
+        agrees = bool(torch.equal(vc.cpu().view(torch.int32),
+                                  vr.view(torch.int32))
+                      and torch.equal(ic.cpu(), ir))
+        both = torch.isfinite(v) & torch.isfinite(vr.to(d.device))
+        held[k] = (float(torch.where(both, (v - vr.to(d.device)).abs(),
+                                     0.0).max()), agrees)
+    return held
+
+
+def check_seg_topk(dev, gen, shapes, flat=None):
     """seg_topk at each (n, k) of ``shapes``, bit-equal to the plain
-    version run on a CPU copy of the same inputs (the card's stable sort
-    orders NaN otherwise; whether it agrees is reported); with a bound and
-    a ``torch.topk`` yardstick at each shape.  Returns {(n, k): record}."""
+    version on random rows with the edge rows (``seg_topk_inputs``); with a
+    bound and a ``torch.topk`` yardstick at each shape, timed on those rows.
+    ``flat`` = (dmat, lens), a (qb, n) block of Flat's own distances with
+    every row's lens the index's rows: at its width n, seg_topk is held
+    bit-equal on it too, and the time, the bound and ``torch.topk`` are
+    taken on it, the input the Flat path gives the kernel.  Returns {(n,
+    k): record}."""
     import torch
     from repro_torch.kernels.seg_topk import seg_topk, seg_topk_ref
 
     qb, rows = 64, {}
     for n in sorted({n for n, _ in shapes}):
+        ks = sorted(k for m, k in shapes if m == n)
         d, lens = seg_topk_inputs(dev, gen, qb, n)
-        # the first k of one full stable sort are the plain version at k
-        full_v, full_i = seg_topk_ref(d.cpu(), lens.cpu().clamp(max=n), n)
+        held = seg_topk_held(d, lens, ks, n, "random and edge rows")
+        timed_on = "random rows, lens in [n/2, n], edge rows"
+        if flat is not None and flat[0].shape[1] == n:
+            d, lens = flat
+            on_flat = seg_topk_held(d, lens, ks, n, "Flat's distances")
+            held = {k: (max(held[k][0], on_flat[k][0]),
+                        held[k][1] and on_flat[k][1]) for k in ks}
+            timed_on = (f"Flat's distances, {d.shape[0]} queries, lens = "
+                        f"{int(lens[0])} on every row")
         live = int(lens.clamp(max=n).sum())
         masked = torch.where(
             torch.arange(n, device=dev)[None] < lens[:, None].clamp(max=n),
             d, torch.full((), float("inf"), device=dev))
-        for k in sorted(k for m, k in shapes if m == n):
-            v, i = seg_topk(d, lens, k)
-            vr, ir = full_v[:, :k], full_i[:, :k]
-            if not (torch.equal(v.cpu().view(torch.int32),
-                                vr.view(torch.int32))
-                    and torch.equal(i.cpu(), ir)):
-                bad = (i.cpu() != ir).any(1).nonzero().flatten().tolist()
-                raise AssertionError(f"seg_topk n={n} k={k} differs from "
-                                     f"the stable sort in rows {bad[:8]}")
-            vc, ic = seg_topk_ref(d, lens.clamp(max=n), k)
-            agrees = bool(torch.equal(vc.cpu().view(torch.int32),
-                                      vr.view(torch.int32))
-                          and torch.equal(ic.cpu(), ir))
-            both = torch.isfinite(v) & torch.isfinite(vr.to(dev))
-            err = float(torch.where(both, (v - vr.to(dev)).abs(), 0.0).max())
+        for k in ks:
             b, by = bound_ms(4 * live + 4 * qb + 8 * qb * k, live)
             reps = 5 if k > 4096 else 20
             rows[(n, k)] = dict(
                 name=f"seg_topk(n={n},k={k})", route="cuda",
                 source="src/repro_torch/csrc/seg_topk.cu",
                 replaces="src/repro/kernels/seg_topk/kernel.py:71",
-                shape=f"{qb}x{n} f32, k={k}", max_abs_err=err,
-                plain_on_card_agrees=agrees,
+                shape=f"{qb}x{n} f32, k={k}", timed_on=timed_on,
+                max_abs_err=held[k][0], plain_on_card_agrees=held[k][1],
                 ms=cuda_ms(lambda: seg_topk(d, lens, k), reps=reps,
                            graph=True),
                 plain_ms=cuda_ms(lambda: seg_topk_ref(d, lens, k),
@@ -347,6 +399,7 @@ def check_seg_topk(dev, gen, shapes):
                 library_ms=cuda_ms(lambda: torch.topk(masked, k, dim=1,
                                                       largest=False),
                                    reps=reps, graph=True))
+        del masked
     return rows
 
 
@@ -583,7 +636,8 @@ def serve(spec, base, queries, gt, adds, device):
     twice (decoded-id cache cold, then warm); then ingest ``adds`` one
     ``add`` call each and serve the queries again.  The launch counts are
     set to 0 before the build and read after the last pass.  Returns
-    (report, launch counts, launch shapes, the built index's assignment)."""
+    (report, launch counts, launch shapes, the built index's assignment,
+    the index)."""
     import numpy as np
     import torch
     from repro_torch.api import index_factory
@@ -604,8 +658,7 @@ def serve(spec, base, queries, gt, adds, device):
     warm_t, warm = serve_pass(svc, queries)
     for tickets in (cold_t, warm_t):
         ids = check_parity(spec, idx, tickets, queries)
-    recall = float(np.mean([len(set(a) & set(b)) / TOPK
-                            for a, b in zip(ids, gt)]))
+    recall = recall_at_10(ids, gt)
     bits_built = idx.ivf.bits_per_id()
 
     top1 = launch_counts()["l2_top1"]
@@ -631,7 +684,112 @@ def serve(spec, base, queries, gt, adds, device):
                     l2_top1_launches_ingest=ingest_top1,
                     served=grown, parity_vs_search_ref=True),
         launches=counts, shapes=shape_report(counts, shapes)), counts, shapes, \
-        cluster_of
+        cluster_of, idx
+
+
+def recall_at_10(ids, gt):
+    import numpy as np
+
+    return float(np.mean([len(set(a) & set(b)) / TOPK
+                          for a, b in zip(ids, gt)]))
+
+
+def serve_flat(base, queries, gt, device):
+    """Build ``Flat`` on ``device`` and serve ``queries`` through AnnService
+    twice (the first pass uploads the padded base); launch counts set to 0
+    before the build and read after the second pass.  Results must equal a
+    CPU ``FlatIndex`` (the numpy loop) on the first 64 queries and reach
+    recall@10 1.0.  Returns (report, counts, shapes, the index)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import make_index
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.serve import AnnService, BatchPolicy
+
+    reset_launches()
+    t = time.perf_counter()
+    idx = make_index("Flat", device=device).build(base)
+    build_s = time.perf_counter() - t
+    svc = AnnService(idx, topk=TOPK, policy=BatchPolicy(max_batch=MAX_BATCH),
+                     device=device)
+    first_t, first = serve_pass(svc, queries)
+    second_t, second = serve_pass(svc, queries)
+    torch.cuda.synchronize()
+    counts, shapes = launch_counts(), launch_shapes()
+    if svc.last_stats.engine != "flat-pallas":
+        raise AssertionError(f"Flat served by {svc.last_stats.engine}")
+    t = time.perf_counter()
+    d_cpu, ids_cpu, st_cpu = make_index("Flat", device="cpu").build(
+        base).search(queries[:64], k=TOPK)
+    loop_s = time.perf_counter() - t
+    if st_cpu.engine != "flat":
+        raise AssertionError(f"CPU Flat ran {st_cpu.engine}")
+    for tickets in (first_t, second_t):
+        ids = np.concatenate([tk.ids for tk in tickets])
+        dists = np.concatenate([tk.dists for tk in tickets])
+        if ids.shape != (len(queries), TOPK) or not np.isfinite(dists).all():
+            raise AssertionError("Flat: bad result shape or non-finite dists")
+        if not (np.array_equal(ids[:64], ids_cpu)
+                and np.array_equal(dists[:64], d_cpu)):
+            raise AssertionError("Flat: served results differ from the "
+                                 "numpy loop")
+    recall = recall_at_10(ids, gt)
+    if recall != 1.0:
+        raise AssertionError(f"Flat recall@10 {recall} against exact search")
+    return dict(
+        spec="Flat", n=int(base.shape[0]), build_s=build_s,
+        recall_at_10=recall, first=first, second=second,
+        parity_vs_numpy_loop=True, numpy_loop_s_64_queries=loop_s,
+        launches=counts, shapes=shape_report(counts, shapes)), counts, \
+        shapes, idx
+
+
+def container_path(name, idx, opts, queries, device):
+    """``save_index`` and ``load_index(device=...)`` of one index: pack and
+    unpack seconds, blob MB, bits per id and epochs equal, and search
+    (with ``opts``) after reload equal to search before over all
+    ``queries``.  Launch counts set to 0 before and read after.  Returns
+    (report, counts, shapes)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import load_index, save_index
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+
+    reset_launches()
+    d0, i0, _ = idx.search(queries, k=TOPK, **opts)
+    t = time.perf_counter()
+    blob = save_index(idx)
+    pack_s = time.perf_counter() - t
+    t = time.perf_counter()
+    back = load_index(blob, device=device)
+    torch.cuda.synchronize()
+    unpack_s = time.perf_counter() - t
+    rec = dict(index=name, spec=idx.spec, blob_mb=len(blob) / 2**20,
+               pack_s=pack_s, unpack_s=unpack_s)
+    del blob
+    if back.spec != idx.spec or back.device != idx.device:
+        raise AssertionError(f"{name}: reloaded as {back.spec} on "
+                             f"{back.device}")
+    inner, inner2 = getattr(idx, "ivf", None), getattr(back, "ivf", None)
+    if inner is not None:
+        rec.update(bits_per_id=inner2.bits_per_id(),
+                   epochs=inner2.n_epochs)
+        if (inner2.bits_per_id() != inner.bits_per_id()
+                or inner2.n_epochs != inner.n_epochs):
+            raise AssertionError(f"{name}: bits per id or epochs differ "
+                                 "after reload")
+    t = time.perf_counter()
+    d1, i1, st = back.search(queries, k=TOPK, **opts)
+    rec.update(search_after_reload_s=time.perf_counter() - t,
+               engine=st.engine)
+    if not (np.array_equal(i1, i0) and np.array_equal(d1, d0)):
+        raise AssertionError(f"{name}: search after reload differs")
+    rec["search_equal_after_reload"] = True
+    del back
+    counts, shapes = launch_counts(), launch_shapes()
+    return dict(rec, launches=counts), counts, shapes
 
 
 def shape_report(counts, shapes):
@@ -706,6 +864,7 @@ def main(argv=None) -> int:
     with phase("kernels vs plain"):
         results.append(check_l2_dist(dev, gen))
         results.append(check_pq_adc(dev, gen, sm_hz))
+        pq256 = check_pq_adc(dev, gen, sm_hz, m=256)
         seg = check_seg_topk(dev, gen, [(n, k) for n in SEG_NS
                                         for k in SEG_KS + (n,)])
         for nq, k, d in TOP1_SHAPES:
@@ -716,7 +875,8 @@ def main(argv=None) -> int:
         wt_large = dict(check_wt_rank(*wt_rank_large_args(dev, gen),
                                       "random, p = 0.5"),
                         name="wt_rank(2^24 bits)")
-        for r in results + list(seg.values()) + [rans_wide, wt_large]:
+        for r in results + list(seg.values()) + [pq256, rans_wide,
+                                                 wt_large]:
             print("  " + json.dumps(r))
 
     import numpy as np
@@ -747,31 +907,72 @@ def main(argv=None) -> int:
         print("  centroids bitwise equal")
 
     main_path, shapes = {}, []
-    cluster_of = None
+    cluster_of = ivf_idx = None
     for spec in SPECS:
         with phase(f"main path {spec}"):
-            report, counts, spec_shapes, assignment = serve(
+            report, counts, spec_shapes, assignment, idx = serve(
                 spec, base, queries, gt, adds, dev)
             print("  " + json.dumps(report))
             for k, v in counts.items():
                 main_path[k] = main_path.get(k, 0) + v
             shapes.append(spec_shapes)
             cluster_of = assignment if cluster_of is None else cluster_of
+            ivf_idx = idx if ivf_idx is None else ivf_idx
+            del idx
+
+    # the Flat path and the container path, each counted on its own: every
+    # count set to 0 before the path and read after it
+    with phase("flat path Flat"):
+        flat_report, flat_counts, flat_shapes, flat_idx = serve_flat(
+            base, queries, gt, dev)
+        print("  " + json.dumps(flat_report))
+        print("  Flat launches: " + json.dumps(flat_counts)
+              + ", seg_topk by (n, k): " + json.dumps(
+                  flat_report["shapes"]["seg_topk"])
+              + ", l2_dist rows: " + json.dumps(
+                  flat_report["shapes"]["l2_dist"]))
+    with phase("container path: save_index, load_index onto the card"):
+        cont_ivf, cont_ivf_counts, cont_ivf_shapes = container_path(
+            f"{SPECS[0]} after {INGEST_ADDS} adds", ivf_idx,
+            dict(nprobe=NPROBE), queries, dev)
+        print("  " + json.dumps(cont_ivf))
+        cont_flat, cont_flat_counts, cont_flat_shapes = container_path(
+            "Flat", flat_idx, {}, queries, dev)
+        print("  " + json.dumps(cont_flat))
+    # the block Flat's first query block hands seg_topk (its own distances,
+    # lens = n on every row), for timing seg_topk at Flat's width; made
+    # after every path's counts were read
+    from repro_torch.kernels import l2_dist
+
+    flat_q = torch.from_numpy(queries[:64]).to(dev)
+    flat_block = (l2_dist(flat_q, flat_idx.base_dev),
+                  torch.full((64,), flat_idx.n, dtype=torch.int32,
+                             device=dev))
+    del ivf_idx, flat_idx, flat_q
+    paths = dict(main=main_path, flat=flat_counts,
+                 container_ivf=cont_ivf_counts,
+                 container_flat=cont_flat_counts)
 
     # the main path's own shapes: seg_topk at every (n, k) and l2_top1 at
     # every (K, d, rows) it launched, pq_adc and l2_dist at its mean arena
     # rows
     seg_launches, top1 = {}, {}
-    for sh in shapes:
+    for sh in shapes + [flat_shapes, cont_ivf_shapes, cont_flat_shapes]:
         for key, c in sh["seg_topk"].items():
             seg_launches[key] = seg_launches.get(key, 0) + c
         for key, c in sh["l2_top1"].items():
             top1[key] = top1.get(key, 0) + c
     mean_rows = {name: round(sum(sh[name] for sh in shapes) / main_path[name])
                  for name in ("pq_adc", "l2_dist")}
+    # l2_dist launches at Flat's padded rows (2^20 at 1M) and at the IVF
+    # arenas (the main path's mean)
+    flat_n = flat_shapes["l2_dist"] // flat_counts["l2_dist"]
+    l2_at = dict(arena=main_path["l2_dist"] + cont_ivf_counts["l2_dist"],
+                 flat=flat_counts["l2_dist"] + cont_flat_counts["l2_dist"])
     with phase("main-path shapes"):
         more = check_seg_topk(dev, gen, [s for s in seg_launches
-                                         if s not in seg])
+                                         if s not in seg], flat=flat_block)
+        del flat_block
         seg.update(more)
         pq_mean = check_pq_adc(dev, gen, sm_hz, n=mean_rows["pq_adc"])
         l2_mean = check_l2_dist(dev, gen, n=mean_rows["l2_dist"])
@@ -813,8 +1014,8 @@ def main(argv=None) -> int:
               f"{json.dumps(api_routes)}")
 
     on_api = ("wt_rank", "rans_decode")
-    totals = {k: api_path[k] if k in on_api else v
-              for k, v in main_path.items()}
+    totals = {k: api_path[k] if k in on_api else
+              sum(path[k] for path in paths.values()) for k in main_path}
     if min(totals.values()) <= 0:
         raise AssertionError(f"a kernel of the port never launched on its "
                              f"path: {totals}")
@@ -823,7 +1024,8 @@ def main(argv=None) -> int:
     # launched
     by_name = {r["name"]: r for r in results}
     run_ms = dict(
-        l2_dist=main_path["l2_dist"] * l2_mean["ms"],
+        l2_dist=(l2_at["arena"] * l2_mean["ms"]
+                 + l2_at["flat"] * by_name["l2_dist"]["ms"]),
         pq_adc=main_path["pq_adc"] * pq_mean["ms"],
         seg_topk=sum(c * seg[s]["ms"] for s, c in seg_launches.items()),
         l2_top1=sum(c * top1_at[s]["ms"] for s, c in top1.items()),
@@ -834,17 +1036,31 @@ def main(argv=None) -> int:
     keep = ("shape", "ms", "step_cycles", "plain_ms", "bound_ms")
     top_seg = max(seg_launches, key=seg_launches.get)
     shown = dict(by_name, seg_topk=seg[top_seg])
+    flat_seg = {f"n={n},k={k}": dict(
+        launches=c, **{key: seg[(n, k)][key] for key in (
+            "ms", "bound_ms", "plain_ms", "library_ms")})
+        for (n, k), c in sorted(flat_shapes["seg_topk"].items())}
     extra = dict(
         l2_dist=dict(mean_rows=mean_rows["l2_dist"],
-                     mean_rows_ms=l2_mean["ms"]),
+                     mean_rows_ms=l2_mean["ms"],
+                     launches_by_rows={mean_rows["l2_dist"]: l2_at["arena"],
+                                       flat_n: l2_at["flat"]},
+                     launches_by_path={p: c["l2_dist"]
+                                       for p, c in paths.items()}),
         pq_adc=dict(lookups=by_name["pq_adc"]["lookups"],
                     lookup_ms=by_name["pq_adc"]["lookup_ms"],
                     mean_rows=mean_rows["pq_adc"], mean_rows_ms=pq_mean["ms"],
-                    mean_rows_lookup_ms=pq_mean["lookup_ms"]),
+                    mean_rows_lookup_ms=pq_mean["lookup_ms"],
+                    m256={key: pq256[key] for key in (
+                        "shape", "chunks", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")}),
         seg_topk=dict(shape=f"n={top_seg[0]},k={top_seg[1]}",
                       launches_by_shape={
                           f"n={n},k={k}": [c, seg[(n, k)]["ms"]]
-                          for (n, k), c in sorted(seg_launches.items())}),
+                          for (n, k), c in sorted(seg_launches.items())},
+                      flat=flat_seg,
+                      launches_by_path={p: c["seg_topk"]
+                                        for p, c in paths.items()}),
         l2_top1=dict(launches_by_shape={
             f"K={k},d={d},rows={rows}": [c, top1_at[(k, d, rows)]["ms"]]
             for (k, d, rows), c in sorted(top1.items())}),

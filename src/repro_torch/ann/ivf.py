@@ -155,6 +155,38 @@ class IVFIndex(CacheOwnerMixin):
             self.vecs = np.asarray(arrays["vecs"], np.float32)
         return self._seal_single_epoch(lists)
 
+    @classmethod
+    def from_state(cls, state: Mapping[str, object], *, device="cuda",
+                   **fields) -> "IVFIndex":
+        """A searchable index from its sealed state, as a container holds it.
+
+        ``fields`` are the dataclass fields (``nlist``, ``id_codec``,
+        ``pq`` with trained codebooks, ``code_codec``, cache and epoch
+        options); ``state`` holds the host arrays and encoded ids: ``n``,
+        ``d``, ``centroids``, ``sizes``, ``cluster_of``, ``lists`` (global
+        sorted ids per cluster), ``ids`` (the :class:`EpochStore`), ``vecs``
+        or ``codes`` (cluster-grouped), ``code_blobs`` (Pólya blobs per
+        epoch, or None).  The payload and centroids are uploaded to
+        ``device`` last, so the index serves from there.
+        """
+        self = cls(device=device, **fields)
+        self.n, self.d = int(state["n"]), int(state["d"])
+        self.centroids = np.asarray(state["centroids"], np.float32)
+        self.sizes = np.asarray(state["sizes"], np.int64)
+        self.offsets = np.concatenate([[0], np.cumsum(self.sizes)]).astype(
+            np.int64)
+        self.cluster_of = np.asarray(state["cluster_of"], np.int64)
+        self._lists = list(state["lists"])
+        self._ids = state["ids"]
+        self.vecs = state.get("vecs")
+        self.codes = state.get("codes")
+        self._code_blobs = state.get("code_blobs")
+        if self._code_blobs is not None:
+            self._polya = PolyaCodec()
+        self._decoded_cache = self._new_cache()
+        self._to_device()
+        return self
+
     # -- online ingest (epoch scheme) ---------------------------------------------
     def add(self, x: np.ndarray) -> "IVFIndex":
         """Append new vectors to a built index (ids ``n .. n+len(x)-1``).
@@ -269,6 +301,16 @@ class IVFIndex(CacheOwnerMixin):
         elems = sum(int(sum(b["sizes"])) * int(b["m"])
                     for b in self._code_blobs)
         return bits / max(1, elems)
+
+    @property
+    def _code_blob(self):
+        # legacy single-blob view (v1 RIVF container): exact for one epoch,
+        # re-encoded from the global grouping otherwise
+        if self._code_blobs is None:
+            return None
+        if len(self._code_blobs) == 1:
+            return self._code_blobs[0]
+        return self._polya.encode(self._per_cluster_codes())
 
     # -- id resolution (the §4.1 trick) --------------------------------------------
     def resolve_ids(self, clusters: np.ndarray, offsets: np.ndarray) -> np.ndarray:

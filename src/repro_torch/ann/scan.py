@@ -32,6 +32,12 @@ raises; on a CPU index ``auto``/``xla`` run the plain torch versions and
 Batching contract: results are a pure function of (index, queries,
 nprobe, topk) — independent of ``query_block``, ``select`` and cache
 state.  Only the stats differ.
+
+:func:`batched_flat_search` is the brute-force counterpart for a Flat
+index: ``l2_dist`` against the whole (padded) base, ``seg_topk`` on the
+device, the same K-doubling retry and numpy re-score, bit-identical to
+the per-query numpy loop (``stats.engine`` ``"flat-pallas"`` or
+``"flat-xla"``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ from .stats import SearchStats
 
 __all__ = [
     "batched_search",
+    "batched_flat_search",
+    "padded_base",
     "MERGE_KEY_PAD",
     "coarse_probes",
     "select_topk",
@@ -642,3 +650,104 @@ def batched_search(index, queries: np.ndarray, nprobe: int = 16,
     )
     return all_ids, all_d, stats
 
+
+# ---------------------------------------------------------------------------
+# batched flat (brute-force) search
+# ---------------------------------------------------------------------------
+
+def padded_base(vecs: np.ndarray, device) -> torch.Tensor:
+    """``vecs`` as the (``_bucket(n)``, d) f32 base that
+    :func:`batched_flat_search` scores against: on ``device``, zero rows
+    past ``n``."""
+    n, d = vecs.shape
+    base = torch.zeros((_bucket(max(n, 1)), d), dtype=torch.float32,
+                       device=device)
+    base[:n] = torch.from_numpy(np.ascontiguousarray(vecs, np.float32)).to(
+        device)
+    return base
+
+
+def batched_flat_search(vecs: np.ndarray, base_dev: torch.Tensor,
+                        queries: np.ndarray, topk: int = 10,
+                        engine: str = "auto",
+                        query_block: int = DEFAULT_QUERY_BLOCK):
+    """Kernel-scored brute-force search; bit-identical to the numpy loop.
+
+    ``vecs`` is the (n, d) f32 base on the host and ``base_dev`` the same
+    rows on the device, padded with zero rows to ``n_pad = _bucket(n)``
+    (:func:`padded_base`; a caller that searches the same rows again keeps
+    it rather than uploading it per call).  Its device picks the engine.
+    Each query block is scored against the whole base with
+    ``l2_dist`` (the Hopper kernel on a CUDA base, its plain torch version
+    on a CPU one), the ``(qb, n_pad)`` block stays on the device and is cut
+    by ``seg_topk`` (``lens = n``), and only ``(qb, K)`` short-lists reach
+    the host; K doubles while a row's ``rescore_eps`` band may run past the
+    cut.  The short-list is re-scored with the oracle's numpy scalar path
+    (``score_rows_flat`` + ``select_topk``), so ids **and** distances equal
+    ``np.argsort(score_rows_flat(...))``'s, ties to the lower row, on either
+    device.
+
+    Returns ``(ids (nq, topk) int64, dists (nq, topk) f32, SearchStats)``
+    with ``engine="flat-pallas"`` (CUDA base) or ``"flat-xla"`` (CPU).
+    """
+    dev = base_dev.device
+    engine = _resolve_engine(engine, dev)
+    t0 = time.perf_counter()
+    queries = np.asarray(queries, np.float32)
+    nq, d = queries.shape
+    n = vecs.shape[0]
+    topk_eff = min(topk, n)
+    all_ids = np.zeros((nq, topk), np.int64)
+    all_d = np.full((nq, topk), np.inf, np.float32)
+    base = base_dev
+    n_pad = base.shape[0]
+    nbatches = 0
+    host_block_bytes = 0
+    n_dev_select = 0
+    for q0 in range(0, nq if n else 0, query_block):
+        q1 = min(nq, q0 + query_block)
+        qb = q1 - q0
+        nbatches += 1
+        n_dev_select += 1
+        qblk = np.ascontiguousarray(queries[q0:q1])
+        qn_host = np.einsum("qd,qd->q", qblk, qblk)
+        dmat = l2_dist(torch.from_numpy(qblk).to(dev), base)
+        lens = torch.full((qb,), n, dtype=torch.int32, device=dev)
+        take = min(topk_eff + RESCORE_SLACK, n)
+        K = min(_bucket(take, floor=16), n_pad)
+        while True:
+            vals_d, cols_d = seg_topk(dmat, lens, K)
+            vals = vals_d.cpu().numpy()
+            cols = cols_d.cpu().numpy()
+            host_block_bytes += vals.nbytes + cols.nbytes
+            thr = np.empty(qb)
+            retry = False
+            for i in range(qb):
+                bound = float(vals[i, take - 1])
+                thr[i] = bound + rescore_eps(d, bound, float(qn_host[i]))
+                if n > K and vals[i, K - 1] <= thr[i]:
+                    retry = True        # band may extend past the K cut
+            if not retry or K >= n_pad:
+                break
+            K = min(2 * K, n_pad)
+        for i in range(qb):
+            qi = q0 + i
+            cnt = int(np.searchsorted(vals[i], thr[i], side="right"))
+            rows = cols[i, :cnt]
+            rows = np.sort(rows[rows < n]).astype(np.int64)
+            d_exact = score_rows_flat(vecs[rows], queries[qi])
+            best = select_topk(d_exact, topk)
+            n_found = best.shape[0]
+            all_ids[qi, :n_found] = rows[best]
+            all_d[qi, :n_found] = d_exact[best]
+
+    stats = SearchStats(
+        wall_s=time.perf_counter() - t0,
+        ndis=n * nq,
+        id_resolve_s=0.0,
+        batches=nbatches,
+        engine=f"flat-{engine}",
+        host_block_bytes=host_block_bytes,
+        device_select=n_dev_select,
+    )
+    return all_ids, all_d, stats

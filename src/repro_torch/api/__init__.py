@@ -1,23 +1,28 @@
 """repro_torch.api — the unified index layer of the port.
 
-One :class:`Index` protocol and faiss-style factory strings (the grammar
-of ``repro.api.spec``, canonical strings identical)::
+One :class:`Index` protocol, faiss-style factory strings (the grammar of
+``repro.api.spec``, canonical strings identical) and lossless save/load
+in the reference's RIDX container::
 
-    from repro_torch.api import index_factory
+    from repro_torch.api import index_factory, load_index, save_index
 
     idx = index_factory("IVF1024,PQ8x8,ids=roc,codes=polya").build(x)
     dists, ids, stats = idx.search(queries, k=10)
+    blob = save_index(idx)                 # RIDX v3, the reference's bytes
+    idx2 = load_index(blob, device="cuda") # bit-identical search results
 
-IVF specs are ported; Flat, NSG and HNSW specs raise
+IVF and Flat specs are ported; NSG and HNSW specs raise
 ``NotImplementedError``.
 """
 
-from .indexes import IVFApiIndex, as_api_index, make_index
+from .container import load_index, pack_index, save_index, unpack_index
+from .indexes import FlatIndex, IVFApiIndex, as_api_index, make_index
 from .protocol import Index
 from .spec import IndexSpec, parse_spec
 
 __all__ = ["Index", "IndexSpec", "parse_spec", "index_factory",
-           "as_api_index", "IVFApiIndex"]
+           "as_api_index", "FlatIndex", "IVFApiIndex", "pack_index",
+           "unpack_index", "save_index", "load_index"]
 
 
 def index_factory(spec, device="cuda") -> Index:

@@ -1,32 +1,39 @@
 """Concrete :class:`repro_torch.api.Index` implementations.
 
-:class:`IVFApiIndex` wraps :class:`repro_torch.ann.ivf.IVFIndex` (all id
-codecs + wavelet tree, optional PQ / Pólya codes) behind the one
-protocol: faiss ``(dists, ids)`` order, uniform :class:`SearchStats`,
-uniform memory ledger.  Flat, NSG and HNSW specs parse (the grammar is
-shared with the reference) but their indexes are not ported yet: building
-one raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Adapters presenting the port's index structures through the one protocol
+(faiss ``(dists, ids)`` order, uniform :class:`SearchStats`, uniform
+memory ledger):
+
+* :class:`FlatIndex`   — exact brute-force baseline (no compression),
+  the recall oracle of every other index.
+* :class:`IVFApiIndex` — wraps :class:`repro_torch.ann.ivf.IVFIndex` (all
+  id codecs + wavelet tree, optional PQ / Pólya codes).
+
+NSG and HNSW specs parse (the grammar is shared with the reference) but
+their indexes are not ported yet: building one raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from ..ann.ivf import IVFIndex
 from ..ann.pq import ProductQuantizer
+from ..ann.scan import (batched_flat_search, padded_base, score_rows_flat,
+                        select_topk)
+from ..ann.stats import SearchStats
+from ..device import resolve_device
 from .protocol import Index
 from .spec import IndexSpec, parse_spec
 
-__all__ = ["IVFApiIndex", "as_api_index", "make_index"]
+__all__ = ["FlatIndex", "IVFApiIndex", "as_api_index", "make_index"]
 
-_NOT_PORTED = {
-    "flat": "Flat search (ROADMAP.md, queue 1: 'Flat index and "
-            "batched_flat_search')",
-    "nsg": "graph indexes (ROADMAP.md, queue 1: 'Graph indexes')",
-    "hnsw": "graph indexes (ROADMAP.md, queue 1: 'Graph indexes')",
-}
+GRAPH_NOT_PORTED = "graph indexes (ROADMAP.md, queue 1: 'Graph indexes')"
 
 
 def _cache_bytes(spec: IndexSpec) -> Optional[int]:
@@ -40,6 +47,162 @@ def _ingest_fields(spec: IndexSpec) -> dict:
     return dict(cache_bytes=_cache_bytes(spec),
                 cache_policy=spec.cache_policy or "lru",
                 max_epochs=spec.max_epochs)
+
+
+class FlatIndex:
+    """Exact brute-force search over raw f32 vectors (the recall oracle).
+
+    ``id_map`` (set by the shard planner, serialized in the RIDX
+    container) remaps local row indices to global database ids: a
+    hash-partitioned shard holds a row subset but still answers with the
+    unsharded id space.  Rows are kept in ascending global-id order, so the
+    stable local tie-break (smaller row first) coincides with the
+    monolithic one (smaller id first) and sharded merges stay
+    bit-identical.
+
+    ``device`` (default ``"cuda"``) is where the kernel path scores: the
+    base, padded to ``_bucket(n)`` rows, is uploaded there once at the
+    first kernel search (``base_dev``) and dropped whenever ``add`` or
+    ``append_rows`` changes the rows.
+    """
+
+    def __init__(self, spec: Optional[IndexSpec] = None, device="cuda"):
+        self.index_spec = spec or IndexSpec(kind="flat")
+        self.torch_device = resolve_device(device)
+        self.id_map: Optional[np.ndarray] = None
+        self._base_dev: Optional[torch.Tensor] = None
+
+    @property
+    def spec(self) -> str:
+        """Canonical factory string (``index_factory(idx.spec)`` rebuilds)."""
+        return str(self.index_spec)
+
+    @property
+    def device(self):
+        """The ``torch.device`` the kernel path scores on."""
+        return self.torch_device
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"{type(self).__name__}(spec={self.spec!r}, "
+                f"n={getattr(self, 'n', None)}, device={self.device})")
+
+    def _set_rows(self, vecs: np.ndarray) -> None:
+        self.vecs = vecs
+        self.n, self.d = vecs.shape
+        self._base_dev = None               # stale: re-upload on next use
+
+    @property
+    def base_dev(self) -> torch.Tensor:
+        """The (``_bucket(n)``, d) f32 base on the index's device, zero rows
+        past ``n``; uploaded at first use and kept until the rows change."""
+        if self._base_dev is None:
+            self._base_dev = padded_base(self.vecs, self.torch_device)
+        return self._base_dev
+
+    def build(self, x: np.ndarray, seed: int = 0) -> "FlatIndex":
+        """Store ``x`` as the (n, d) f32 base matrix; no trained state."""
+        del seed  # no trained state; accepted for protocol uniformity
+        self._set_rows(np.ascontiguousarray(x, np.float32))
+        return self
+
+    def add(self, x: np.ndarray) -> "FlatIndex":
+        """Append rows (dense ids ``n..n+m-1``); planner shards must route
+        ingest through :meth:`append_rows` instead."""
+        if self.id_map is not None:
+            raise ValueError("cannot add() to a planner-made Flat shard: "
+                             "its global-id mapping is fixed by the plan")
+        x = np.asarray(x, np.float32)
+        if x.ndim == 1:
+            x = x[None]
+        self._set_rows(np.concatenate([self.vecs, x], axis=0))
+        return self
+
+    def append_rows(self, x: np.ndarray,
+                    global_ids: np.ndarray) -> "FlatIndex":
+        """Routed ingest for a planner-made shard: append the owned rows
+        and extend ``id_map``.  New global ids exceed every existing one,
+        so ascending order (the sharded tie-break invariant) is kept."""
+        x = np.asarray(x, np.float32)
+        if x.ndim == 1:
+            x = x[None]
+        global_ids = np.asarray(global_ids, np.int64)
+        if x.shape[0] != global_ids.shape[0]:
+            raise ValueError("one global id per appended row")
+        if x.shape[0] == 0:
+            return self
+        if self.id_map is None:
+            if np.any(global_ids != self.n + np.arange(global_ids.size)):
+                raise ValueError("unsharded Flat ingest must be dense "
+                                 "(ids n..n+m-1); use add()")
+            self._set_rows(np.concatenate([self.vecs, x], axis=0))
+            return self
+        if self.id_map.size and int(global_ids[0]) <= int(self.id_map[-1]):
+            raise ValueError("appended global ids must exceed existing ones")
+        self._set_rows(np.concatenate([self.vecs, x], axis=0))
+        self.id_map = np.concatenate([self.id_map, global_ids])
+        return self
+
+    def search(self, queries: np.ndarray, k: int = 10,
+               engine: Optional[str] = None, query_block: int = 64, **opts):
+        """Exact k-NN.
+
+        ``engine`` (or ``Flat,engine=...`` in the spec) routes scoring
+        through the kernel path
+        (:func:`repro_torch.ann.scan.batched_flat_search`: ``l2_dist`` +
+        device-side ``seg_topk``); ``auto``/``pallas`` on a CUDA index,
+        ``auto``/``xla`` on a CPU one.  Without an engine a CUDA index
+        takes the kernel path too (``engine="auto"``), while a CPU index
+        runs the per-query numpy loop (``stats.engine == "flat"``) as the
+        reference's ``FlatIndex`` does: a CUDA index never serves from the
+        host loop.  Results are bit-identical either way — the kernel path
+        re-scores its short-list with the same scalar numpy expression —
+        only ``stats.engine`` and the select counters tell them apart."""
+        if opts:
+            raise TypeError(f"FlatIndex.search got unknown options {sorted(opts)}")
+        engine = engine or self.index_spec.engine
+        if engine is None and self.torch_device.type == "cuda":
+            engine = "auto"
+        queries = np.asarray(queries, np.float32)
+        nq = queries.shape[0]
+        if engine is not None:
+            ids, dists, stats = batched_flat_search(
+                self.vecs, self.base_dev, queries, topk=k, engine=engine,
+                query_block=query_block)
+        else:
+            t0 = time.perf_counter()
+            k_eff = min(k, self.n)
+            ids = np.zeros((nq, k), np.int64)
+            dists = np.full((nq, k), np.inf, np.float32)
+            # scalar numpy scoring per query: deterministic, stable ties
+            for qi in range(nq):
+                d = score_rows_flat(self.vecs, queries[qi])
+                sel = select_topk(d, k_eff)
+                ids[qi, :k_eff] = sel
+                dists[qi, :k_eff] = d[sel]
+            stats = SearchStats(wall_s=time.perf_counter() - t0,
+                                ndis=self.n * nq, id_resolve_s=0.0,
+                                engine="flat")
+        if self.id_map is not None:
+            # remap valid slots only: padding must stay id 0 / dist inf
+            ids = np.where(np.isfinite(dists), self.id_map[ids], 0)
+        return dists, ids, stats
+
+    def memory_ledger(self) -> Dict[str, float]:
+        """Bytes by component (vectors + optional id_map); flat stores no
+        compressed ids, so all three id layouts coincide."""
+        map_bytes = (float(self.id_map.nbytes) if self.id_map is not None
+                     else 0.0)
+        return {
+            "n": self.n,
+            "ids_bytes": map_bytes,
+            "ids_bytes_unc64": map_bytes,
+            "ids_bytes_compact": map_bytes,
+            "payload_bytes": float(self.vecs.nbytes),
+            "payload_bytes_unc": float(self.vecs.nbytes),
+            "centroid_bytes": 0.0,
+            "decoded_cache_bytes": 0.0,
+            "total_bytes": float(self.vecs.nbytes) + map_bytes,
+        }
 
 
 class IVFApiIndex:
@@ -101,6 +264,20 @@ class IVFApiIndex:
         self.ivf.add(x)
         return self
 
+    def append_rows(self, x: np.ndarray, global_ids: np.ndarray,
+                    count: Optional[int] = None) -> "IVFApiIndex":
+        """Routed ingest: seal the epoch holding these (possibly partial)
+        rows.  A cluster shard passes only its owned rows plus the global
+        epoch ``count`` so epoch boundaries stay universe-wide; see
+        :meth:`IVFIndex.append_epoch`."""
+        global_ids = np.asarray(global_ids, np.int64)
+        if count is None:
+            count = (int(global_ids.max()) + 1 - self.ivf.n
+                     if global_ids.size else 0)
+        if count > 0:
+            self.ivf.append_epoch(x, global_ids, count)
+        return self
+
     def compact(self) -> "IVFApiIndex":
         """Fold all epochs back into one (recovers single-universe rates)."""
         self.ivf.compact()
@@ -158,7 +335,7 @@ class IVFApiIndex:
 
 def as_api_index(index):
     """Upgrade a raw :class:`IVFIndex` to the protocol (identity otherwise)."""
-    if isinstance(index, IVFApiIndex):
+    if isinstance(index, (FlatIndex, IVFApiIndex)):
         return index
     if isinstance(index, IVFIndex):
         return IVFApiIndex.from_built(index)
@@ -168,11 +345,12 @@ def as_api_index(index):
                     "repro_torch.api.Index")
 
 
-def make_index(spec, device="cuda") -> IVFApiIndex:
+def make_index(spec, device="cuda") -> "FlatIndex | IVFApiIndex":
     """Spec (string or IndexSpec) -> empty index on ``device``."""
     spec = parse_spec(spec)
+    if spec.kind == "flat":
+        return FlatIndex(spec, device=device)
     if spec.kind != "ivf":
         raise NotImplementedError(
-            f"{spec} is not ported to repro_torch yet: "
-            f"{_NOT_PORTED[spec.kind]}")
+            f"{spec} is not ported to repro_torch yet: {GRAPH_NOT_PORTED}")
     return IVFApiIndex(spec, device=device)

@@ -178,6 +178,7 @@ CODEC_NAMES = tuple(_REGISTRY)
 
 
 def get_codec(name: str) -> IdCodec:
+    """A fresh id codec by registry name (one of ``CODEC_NAMES``)."""
     try:
         return _REGISTRY[name]()
     except KeyError:

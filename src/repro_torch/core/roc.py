@@ -116,6 +116,7 @@ def _encode_one(ids: np.ndarray, alphabet: int) -> BigANS:
 def roc_decode_clusters(
     streams: Sequence[BigANS], sizes: Sequence[int], alphabet: int, joint: bool = False
 ) -> List[np.ndarray]:
+    """Inverse of :func:`roc_encode_clusters`: per-cluster sorted ids."""
     if joint:
         (ans,) = streams
         out = [roc_pop_set(ans, n, alphabet) for n in reversed(list(sizes))]

@@ -8,7 +8,12 @@
 //     out[q, r] = sum_{j < m} luts[q, j, codes[r, j]]      (qb, n) f32
 //
 // with f32 adds in the order j = 0, 1, ..., m - 1 from 0.0f, so the
-// output is bitwise a sequential j-ordered f32 sum.  The TPU kernel turns
+// output is bitwise a sequential j-ordered f32 sum.  With `accumulate`
+// each sum starts from the value already in out instead of 0.0f: the
+// wrapper scores m subquantizers whose tables do not fit one block
+// (m >= 228) as chunks of tables, in j order, each launch adding its
+// chunk onto the previous one's partial sums, which keeps the result
+// bitwise the j-ordered sum over all m.  The TPU kernel turns
 // the lookup into a one-hot contraction for the matrix unit; on Hopper
 // that would widen the work 256-fold, so this kernel gathers.
 //
@@ -126,7 +131,7 @@ __global__ void __launch_bounds__(THREADS)
 pq_adc_kernel(const float* __restrict__ luts,
               const uint8_t* __restrict__ codes, float* __restrict__ out,
               int qb, int n, int m, int blocks_per_group, int rows_per_block,
-              int tma) {
+              int tma, int accumulate) {
   constexpr int VEC = QT < 4 ? QT : 4;     // floats one lookup loads
   constexpr int S = QT / VEC;              // lookups per (j, code) entry
   constexpr int GROUPS = 32 / S;           // row groups of a warp
@@ -232,6 +237,20 @@ pq_adc_kernel(const float* __restrict__ luts,
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
         for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
+      // a later chunk of tables starts from the earlier chunks' sums.  The
+      // stores below may write a next row group's columns, but only after
+      // the shuffle that reads its sums, so each value is read first
+      if (accumulate) {                    // grid-uniform
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          const int q = q0 + slot * VEC + e;
+          if (q >= qb) continue;
+          const float* o = out + (size_t)q * n + r0 + rr;
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            if (rr + i < rows) acc[i][e] = __ldcs(o + i);
+        }
+      }
 
       // one pair of tables (2G, 2G + 1) given the codes of the 4 rows
       auto pair = [&](int G, const uint32_t (&c)[RPT][2]) {
@@ -361,7 +380,7 @@ pq_adc_kernel(const float* __restrict__ luts,
 
 template <int QT>
 int launch(const float* luts, const uint8_t* codes, float* out, int qb, int n,
-           int m, cudaStream_t stream) {
+           int m, int accumulate, cudaStream_t stream) {
   const size_t smem = smem_bytes(m, QT);
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   auto kernel = pq_adc_kernel<QT>;
@@ -396,26 +415,27 @@ int launch(const float* luts, const uint8_t* codes, float* out, int qb, int n,
   bpg = (n + rows_per_block - 1) / rows_per_block;
   const int tma = (reinterpret_cast<uintptr_t>(codes) & 15) == 0;
   kernel<<<groups * bpg, THREADS, smem, stream>>>(
-      luts, codes, out, qb, n, m, bpg, rows_per_block, tma);
+      luts, codes, out, qb, n, m, bpg, rows_per_block, tma, accumulate);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // qt: queries a block holds (16, 8, 4, 2 or 1; the wrapper picks the
-// largest whose tables fit)
+// largest whose tables fit); accumulate: add onto the sums already in out
 extern "C" int pq_adc_launch(const void* luts, const void* codes, void* out,
-                             int qb, int n, int m, int qt, void* stream) {
+                             int qb, int n, int m, int qt, int accumulate,
+                             void* stream) {
   const float* l = (const float*)luts;
   const uint8_t* c = (const uint8_t*)codes;
   float* o = (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
   switch (qt) {
-    case 16: return launch<16>(l, c, o, qb, n, m, st);
-    case 8: return launch<8>(l, c, o, qb, n, m, st);
-    case 4: return launch<4>(l, c, o, qb, n, m, st);
-    case 2: return launch<2>(l, c, o, qb, n, m, st);
-    case 1: return launch<1>(l, c, o, qb, n, m, st);
+    case 16: return launch<16>(l, c, o, qb, n, m, accumulate, st);
+    case 8: return launch<8>(l, c, o, qb, n, m, accumulate, st);
+    case 4: return launch<4>(l, c, o, qb, n, m, accumulate, st);
+    case 2: return launch<2>(l, c, o, qb, n, m, accumulate, st);
+    case 1: return launch<1>(l, c, o, qb, n, m, accumulate, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,7 +16,7 @@ from .. import _build
 from .._check import cuda_args, ptr, stream_of
 from .ref import pq_adc_ref
 
-__all__ = ["pq_adc", "tables_per_block"]
+__all__ = ["pq_adc", "tables_per_block", "chunk_plan"]
 
 KSUB = 256
 QT_CHOICES = (16, 8, 4, 2, 1)    # queries one block can hold
@@ -26,6 +26,14 @@ SMEM_MAX = 227 << 10             # the most one H100 block may take
 # block loads its tables once, and on an H100 (64 queries, m = 8) 16 tables
 # a block lost to 8 at 95,350 rows and won from 500,000 rows on
 QT16_MIN_ROWS = 1 << 18
+# the most subquantizers one launch scores: one table of 256 f32 entries
+# a subquantizer must fit a block (m * 1 KB <= 227 KB)
+M_LAUNCH_MAX = SMEM_MAX // (KSUB * 4)
+# subquantizers a launch scores past M_LAUNCH_MAX: 16, where 8 tables a
+# block fit beside a full code ring and every warp of a span has rows.
+# On an H100 (64 queries, m = 256, 2^20 codes; tools/ab_kernels.py) chunks
+# of 16 took 6.9 ms, of 8 8.7, of 32 9.2, of 64 16.3, of 128 47.3
+M_CHUNK = 16
 
 
 def ring_rows(m: int, qt: int) -> int:
@@ -54,12 +62,24 @@ def tables_per_block(m: int) -> int:
                      f"one block's shared memory")
 
 
+def chunk_plan(m: int) -> list:
+    """The subquantizer ranges ``[(j0, j1), ...]`` of one call, one launch
+    each, in j order: all of ``m`` at once where its tables fit a block
+    (m <= 227), else chunks of ``M_CHUNK`` (the last one shorter).  A
+    later launch adds onto the earlier ones' partial sums, so the result
+    is bitwise the j-ordered f32 sum over all m."""
+    if m <= M_LAUNCH_MAX:
+        return [(0, m)]
+    return [(j0, min(m, j0 + M_CHUNK)) for j0 in range(0, m, M_CHUNK)]
+
+
 def pq_adc(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
     """luts (QB, m, 256) f32, codes (N, m) u8 -> (QB, N) f32 distances.
 
     ``out[q, r] = sum_j luts[q, j, codes[r, j]]``.  CPU tensors take the
     plain torch version (any integer code dtype); CUDA tensors (f32
-    tables, u8 codes) launch ``csrc/pq_adc.cu``.  Empty inputs
+    tables, u8 codes) launch ``csrc/pq_adc.cu`` once for each chunk of
+    :func:`chunk_plan` (once for any m <= 227).  Empty inputs
     short-circuit.
     """
     if luts.dim() != 3 or codes.dim() != 2 or luts.shape[1] != codes.shape[1]:
@@ -77,19 +97,37 @@ def pq_adc(luts: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
             ksub != KSUB:
         raise TypeError("pq_adc: kernel takes float32 (QB, m, 256) tables "
                         "and uint8 codes")
-    qt = tables_per_block(m)
+    out = torch.empty((qb, n), dtype=torch.float32, device=luts.device)
+    for j0, j1 in chunk_plan(m):
+        if j1 - j0 == m:
+            launch(luts, codes, out, accumulate=False)
+        else:
+            launch(luts[:, j0:j1].contiguous(), codes[:, j0:j1].contiguous(),
+                   out, accumulate=j0 > 0)
+    return out
+
+
+def launch(luts: torch.Tensor, codes: torch.Tensor, out: torch.Tensor,
+           accumulate: bool) -> None:
+    """One launch of ``csrc/pq_adc.cu`` on contiguous CUDA tensors: luts
+    (QB, mc, 256) f32 and codes (N, mc) u8 with mc <= 227.  It writes
+    ``out[q, r] = s + sum_j luts[q, j, codes[r, j]]``, the j-ordered f32
+    sum started from ``s = out[q, r]`` (``accumulate``) or from 0.
+    :func:`pq_adc` calls it once for each chunk of :func:`chunk_plan`."""
+    qb, mc, _ = luts.shape
+    n = codes.shape[0]
+    qt = tables_per_block(mc)
     if n < QT16_MIN_ROWS:
         qt = min(qt, 8)
-    out = torch.empty((qb, n), dtype=torch.float32, device=luts.device)
     lib = _build.library("pq_adc")
     fn = lib.pq_adc_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    rc = fn(ptr(luts), ptr(codes), ptr(out), qb, n, m, qt, stream_of(out))
+    rc = fn(ptr(luts), ptr(codes), ptr(out), qb, n, mc, qt, int(accumulate),
+            stream_of(out))
     _build.check(lib, rc, "pq_adc")
     pq_adc.launches += 1
     pq_adc.rows += n
-    return out
 
 
 pq_adc.launches = 0

@@ -2,10 +2,11 @@
 
 The serving deployment the paper motivates: a RAM-resident ANN index with
 losslessly-compressed ids answers nearest-neighbor requests from many
-clients.  The service holds a :class:`repro_torch.api.Index` through the
-one protocol (a raw ``IVFIndex`` is auto-wrapped).  Search knobs
-(``nprobe``, ``engine``, ``query_block``, ``select``) ride in as keyword
-options; ``cache_mb`` overrides the index's decoded-list cache budget.
+clients.  The service holds a :class:`repro_torch.api.Index` — IVF or
+flat — through the one protocol (a raw ``IVFIndex`` is auto-wrapped).
+Search knobs (IVF: ``nprobe``, ``engine``, ``query_block``, ``select``;
+flat: ``engine``, ``query_block``) ride in as keyword options;
+``cache_mb`` overrides an IVF index's decoded-list cache budget.
 
 Individual requests are small (often one query); the batched IVF engine
 (repro_torch.ann.scan) only pays off when whole query blocks hit the kernels
@@ -92,7 +93,8 @@ class AnnService:
     """Micro-batching front-end over a ``repro_torch.api.Index``.
 
     ``**search_opts`` are forwarded to every ``index.search`` call
-    (``nprobe``/``engine``/``query_block``/``select``).  ``clock`` is injectable
+    (IVF: ``nprobe``/``engine``/``query_block``/``select``; flat:
+    ``engine``/``query_block``).  ``clock`` is injectable
     (defaults to ``time.perf_counter``) so the max-wait policy is
     testable without sleeping.
 
@@ -116,7 +118,12 @@ class AnnService:
         self.search_opts = search_opts
         self.clock = clock
         if cache_mb is not None:
-            self.index.ivf.decoded_cache.set_budget(int(cache_mb * (1 << 20)))
+            inner = getattr(self.index, "ivf", None)
+            if inner is None:
+                raise ValueError(
+                    f"index {self.index.spec!r} has no decoded-list cache "
+                    "to budget")
+            inner.decoded_cache.set_budget(int(cache_mb * (1 << 20)))
         self._pending: List[Ticket] = []
         self._pending_q: List[np.ndarray] = []
         self._pending_add: List[AddTicket] = []

@@ -4,7 +4,10 @@ The port carries its own copies of the numpy codecs; these tests hold
 them byte-exact to ``repro.core``: for every id codec and the edge
 universes of ``tests/test_codec_edges.py`` (plus random lists) the blobs
 are byte-equal, each package decodes the other's blobs, and ``size_bits``
-agrees.  Wavelet-tree select/bits and Pólya code blobs likewise.
+agrees.  Wavelet-tree select/bits and Pólya code blobs likewise, and
+the graph coders of the RIDX container (REC under both vertex models,
+webgraph-lite) and the REC decoder's ``SortedList`` on seeded
+adjacencies.
 """
 
 import numpy as np
@@ -130,3 +133,81 @@ def test_epoch_store_resolve_matches(codec):
     port.compact(glob, n0 + n1)
     assert canon(port.epochs[0].blobs or port.epochs[0].wt) == \
         canon(ref.epochs[0].blobs or ref.epochs[0].wt)
+
+
+# ---------------------------------------------------------------------------
+# graph coders and the sorted list (the RIDX container's graph sections)
+# ---------------------------------------------------------------------------
+
+def _adjacency(n, deg, seed):
+    """A seeded directed graph: ``deg``-ish distinct out-neighbours a node
+    (some nodes empty, some self-similar runs), sorted per node."""
+    rng = np.random.default_rng(seed)
+    adj = []
+    for i in range(n):
+        k = int(rng.integers(0, deg + 1)) if i % 7 else 0
+        if i % 5 == 0 and adj and len(adj[-1]):
+            nb = np.union1d(adj[-1], rng.choice(n, k, replace=False))[:deg]
+        else:
+            nb = rng.choice(n, k, replace=False)
+        adj.append(np.sort(nb).astype(np.int64))
+    return adj
+
+
+def _edges(adj):
+    src = np.concatenate([np.full(len(a), i, np.int64)
+                          for i, a in enumerate(adj)])
+    return np.stack([src, np.concatenate(adj)], axis=1)
+
+
+@pytest.mark.parametrize("model", ["polya", "degree"])
+@pytest.mark.parametrize("n,deg,seed", [(12, 3, 5), (40, 4, 1), (300, 12, 2)])
+def test_rec_blobs_byte_equal_and_cross_decode(model, n, deg, seed):
+    from repro.core.rec import rec_decode as ref_decode
+    from repro.core.rec import rec_encode as ref_encode
+    from repro_torch.core import rec_decode, rec_encode
+
+    edges = _edges(_adjacency(n, deg, seed))
+    r_ref = ref_encode(edges, n, model=model)
+    r_port = rec_encode(edges, n, model=model)
+    assert canon(r_port) == canon(r_ref)
+    assert r_port.total_bits == r_ref.total_bits
+    want = edges[np.lexsort((edges[:, 1], edges[:, 0]))]
+    e = len(edges)
+    np.testing.assert_array_equal(
+        rec_decode(transplant(r_ref, "repro_torch"), n, e), want)
+    np.testing.assert_array_equal(
+        ref_decode(transplant(r_port, "repro"), n, e), want)
+
+
+@pytest.mark.parametrize("n,deg,seed", [(1, 0, 0), (50, 6, 3), (400, 16, 4)])
+def test_webgraph_blobs_byte_equal_and_cross_decode(n, deg, seed):
+    from repro.core.webgraph_lite import webgraph_decode as ref_decode
+    from repro.core.webgraph_lite import webgraph_encode as ref_encode
+    from repro_torch.core.ans import StreamANS
+    from repro_torch.core.webgraph_lite import (webgraph_decode,
+                                                webgraph_encode)
+
+    adj = _adjacency(n, deg, seed)
+    a_ref, a_port = ref_encode(adj, n), webgraph_encode(adj, n)
+    assert a_port.tobytes() == a_ref.tobytes()
+    got = webgraph_decode(StreamANS.frombytes(*a_ref.tobytes()), n, n)
+    back = ref_decode(transplant(a_port, "repro"), n, n)
+    for a, g, b in zip(adj, got, back):
+        np.testing.assert_array_equal(g, a)
+        np.testing.assert_array_equal(b, a)
+
+
+@pytest.mark.parametrize("n,seed", [(0, 0), (5000, 1), (3000, 2)])
+def test_sorted_list_matches_reference(n, seed):
+    """Rank-insert: every returned rank and the final order equal the
+    reference's, across block splits (duplicates included)."""
+    from repro.core.sortedlist import SortedList as RefSorted
+    from repro_torch.core.sortedlist import SortedList
+
+    keys = np.random.default_rng(seed).integers(0, max(1, n // 3), n)
+    ref, port = RefSorted(), SortedList()
+    ranks_r = [ref.insert(int(k)) for k in keys]
+    ranks_p = [port.insert(int(k)) for k in keys]
+    assert ranks_p == ranks_r and len(port) == len(ref) == n
+    assert port.to_list() == ref.to_list() == sorted(int(k) for k in keys)

@@ -18,9 +18,13 @@ offset, both against the plain version on a CPU copy); ``seg_topk`` at the main
 path's widths (16384 to 300000) and ``k`` up to ``n``, with NaN rows, held
 against the plain version on the CPU; ``pq_adc`` bitwise equal to the
 j-ordered f32 sum for m = 1 .. 227; ``l2_top1`` and ``seg_topk`` run twice
-must give bitwise-equal results; a CUDA index is held bit-exact against its
-own ``search_ref`` and against a CPU index carried from the same arrays,
-also after ingest.  k-means on the card must give bitwise-equal centroids
+must give bitwise-equal results; ``pq_adc`` past one block's tables (m =
+228, 256, 512, in j-ordered chunks) bit-equal to the plain version on a
+CPU copy, and ``IVF16,PQ256x8`` through the scan; a CUDA index is held
+bit-exact against its own ``search_ref`` and against a CPU index carried
+from the same arrays, also after ingest; a CUDA Flat index at n = 300000
+(retry past k = 4096) against the numpy loop; a container round trip
+onto the card.  k-means on the card must give bitwise-equal centroids
 from run to run.  Whether a card is present is decided inside the
 fixture, so every worker collects the same tests.
 """
@@ -212,6 +216,51 @@ def test_pq_adc_kernel_is_the_j_ordered_sum(dev, m, qb, n):
     view = buf[1:].view(n, m)
     view.copy_(codes)
     assert _bits_equal(pq_adc(luts, view), want)
+
+
+@pytest.mark.parametrize("m", [228, 256, 512])
+@pytest.mark.parametrize("qb,n", [(5, 4099), (64, 33_001)])
+def test_pq_adc_kernel_in_chunks_past_one_block(dev, m, qb, n):
+    """m >= 228 runs as j-ordered chunks of tables, each launch adding
+    onto the sums of the one before: bit-equal to the plain version run
+    on a CPU copy (the j-ordered f32 sum), also for an unaligned view."""
+    from repro_torch.kernels.pq_adc.ops import chunk_plan
+
+    g = torch.Generator(device=dev).manual_seed(qb * 1000 + m)
+    luts = torch.rand(qb, m, 256, device=dev, generator=g) * 10
+    codes = torch.randint(0, 256, (n, m), device=dev, generator=g,
+                          dtype=torch.int32).to(torch.uint8)
+    want = pq_adc_ref(luts.cpu(), codes.cpu())
+    reset_launches()
+    assert _bits_equal(pq_adc(luts, codes).cpu(), want)
+    assert launch_counts()["pq_adc"] == len(chunk_plan(m)) > 1
+    buf = torch.zeros(n * m + 1, dtype=torch.uint8, device=dev)
+    view = buf[1:].view(n, m)
+    view.copy_(codes)
+    assert _bits_equal(pq_adc(luts, view).cpu(), want)
+
+
+def test_cuda_ivf_pq256_search_equals_search_ref(dev):
+    """IVF16,PQ256x8 at d = 256: its tables do not fit one block, and the
+    scan scores them in chunks; ids and dists equal ``search_ref``."""
+    from repro_torch.api import index_factory
+
+    rng = np.random.default_rng(5)
+    base = rng.standard_normal((3000, 256)).astype(np.float32)
+    base[9] = base[4]
+    queries = rng.standard_normal((40, 256)).astype(np.float32)
+    queries[0] = base[4]
+    idx = index_factory("IVF16,PQ256x8,ids=roc", device=dev).build(base,
+                                                                   seed=1)
+    from repro_torch.kernels.pq_adc.ops import chunk_plan
+
+    reset_launches()
+    d, ids, st = idx.search(queries, k=10, nprobe=4)
+    assert st.engine == "pallas"
+    assert launch_counts()["pq_adc"] == len(chunk_plan(256)) * st.batches
+    want_ids, want_d, _ = idx.ivf.search_ref(queries, nprobe=4, topk=10)
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(d, want_d)
 
 
 @pytest.mark.parametrize("nq,k,d,kind", [
@@ -488,3 +537,63 @@ def test_cuda_index_matches_cpu_index_and_search_ref(dev, ids, payload):
             assert got[2].engine == "pallas"
     with pytest.raises(ValueError, match="xla"):
         gpu.search(queries, engine="xla")
+
+
+def test_cuda_flat_search_equals_the_numpy_loop(dev):
+    """Flat at n = 300000 (n_pad = 2^19, unstaged seg_topk rows), with 6000
+    copies of one row next to a query: the K-doubling retry runs past
+    4096 (the kernel's global-memory sort).  Ids and dists equal the
+    numpy loop of a CPU index."""
+    from repro_torch.api import index_factory
+    from repro_torch.kernels import launch_shapes
+
+    rng = np.random.default_rng(3)
+    base = rng.standard_normal((300_000, 32)).astype(np.float32)
+    base[1000:7000] = base[10]
+    queries = rng.standard_normal((20, 32)).astype(np.float32)
+    queries[1] = base[10] + 0.01
+    queries[2] = base[77]
+    gpu = index_factory("Flat", device=dev).build(base)
+    cpu = index_factory("Flat", device="cpu").build(base)
+    reset_launches()
+    d, ids, st = gpu.search(queries, k=10, query_block=8)
+    assert st.engine == "flat-pallas"
+    counts, shapes = launch_counts(), launch_shapes()["seg_topk"]
+    assert counts["l2_dist"] == st.batches == 3
+    assert max(k for _, k in shapes) >= 8192
+    assert {n for n, _ in shapes} == {1 << 19}
+    want_d, want_ids, want_st = cpu.search(queries, k=10)
+    assert want_st.engine == "flat"
+    np.testing.assert_array_equal(ids, want_ids)
+    np.testing.assert_array_equal(d, want_d)
+    with pytest.raises(ValueError, match="xla"):
+        gpu.search(queries, engine="xla")
+
+
+def test_cuda_container_round_trip(dev):
+    """save_index of a CUDA IVF64,PQ8x8,ids=roc,codes=polya index after
+    an add, loaded back onto the card: same blob as the CPU copy's, search
+    equal to before, ids and dists."""
+    from repro_torch.api import index_factory, load_index, save_index
+
+    rng = np.random.default_rng(8)
+    base = rng.standard_normal((6000, 32)).astype(np.float32)
+    queries = rng.standard_normal((30, 32)).astype(np.float32)
+    idx = index_factory("IVF64,PQ8x8,ids=roc,codes=polya",
+                        device=dev).build(base, seed=1)
+    idx.add(rng.standard_normal((500, 32)).astype(np.float32))
+    d0, i0, _ = idx.search(queries, k=10, nprobe=8)
+    blob = save_index(idx)
+    back = load_index(blob, device=dev)
+    assert back.ivf.payload_dev.is_cuda and back.ivf.n_epochs == 2
+    assert back.ivf.bits_per_id() == idx.ivf.bits_per_id()
+    reset_launches()
+    d1, i1, st = back.search(queries, k=10, nprobe=8)
+    assert st.engine == "pallas" and launch_counts()["pq_adc"] > 0
+    np.testing.assert_array_equal(i1, i0)
+    np.testing.assert_array_equal(d1, d0)
+    cpu = load_index(blob, device="cpu")
+    assert save_index(cpu) == blob
+    d2, i2, _ = cpu.search(queries, k=10, nprobe=8)
+    np.testing.assert_array_equal(i2, i0)
+    np.testing.assert_array_equal(d2, d0)

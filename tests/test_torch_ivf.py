@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_blobs import canon
+from _torch_blobs import canon, flat_arrays
 from repro.ann.ivf import IVFIndex as RefIVF
 from repro.ann.pq import ProductQuantizer as RefPQ
 from repro.api import index_factory as ref_factory
@@ -35,7 +35,7 @@ from repro.serve.ann_service import AnnService as RefService
 from repro.serve.ann_service import BatchPolicy as RefPolicy
 from repro_torch.ann.ivf import IVFIndex
 from repro_torch.ann.pq import ProductQuantizer
-from repro_torch.api import IVFApiIndex, index_factory
+from repro_torch.api import FlatIndex, IVFApiIndex, index_factory
 from repro_torch.serve import AnnService, BatchPolicy
 
 jax.config.update("jax_platforms", "cpu")
@@ -58,8 +58,12 @@ def _data(n=2000, d=32, nq=25, seed=0):
 DATA = _data()
 
 
-def export(ref: RefIVF) -> dict:
-    """The reference index as plain arrays (what ``from_arrays`` takes)."""
+def export(ref) -> dict:
+    """The reference index as plain arrays: an IVF index as
+    ``IVFIndex.from_arrays`` takes them, a Flat index as its ``vecs`` and
+    ``id_map``."""
+    if not isinstance(ref, RefIVF):
+        return flat_arrays(ref)
     out = dict(centroids=ref.centroids, offsets=ref.offsets, sizes=ref.sizes,
                lists=[np.asarray(x) for x in ref._lists], n=ref.n, d=ref.d)
     if ref.pq is not None:
@@ -91,6 +95,14 @@ def reference(ids: str, payload: str) -> RefIVF:
                             code_codec="polya" if pq else None).build(
                                 base, centroids=first.centroids)
     return _REFS[key]
+
+
+def carried_flat(ref, device="cpu") -> FlatIndex:
+    """The port's Flat index carried from a reference Flat index."""
+    arrays = export(ref)
+    port = index_factory(arrays["spec"], device=device).build(arrays["vecs"])
+    port.id_map = arrays["id_map"]
+    return port
 
 
 def carried(ids: str, payload: str, **fields) -> IVFIndex:
@@ -377,9 +389,32 @@ def test_cuda_without_a_card_raises():
         AnnService(IVFApiIndex.from_built(carried("roc", "flat")))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         IVFIndex.from_arrays(export(reference("roc", "flat")), id_codec="roc")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        index_factory("Flat")
+    from repro_torch.api import load_index, save_index
+
+    blob = save_index(carried("roc", "flat"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_index(blob)
 
 
-@pytest.mark.parametrize("spec", ["Flat", "NSG16,ids=roc", "HNSW8,ids=ef"])
+@pytest.mark.parametrize("id_map", [False, True])
+def test_flat_carried_from_arrays(id_map):
+    base, queries = DATA
+    ref = ref_factory("Flat").build(base)
+    if id_map:
+        ref.id_map = np.arange(0, 3 * len(base), 3, dtype=np.int64)
+    port = carried_flat(ref)
+    assert flat_arrays(port).keys() == export(ref).keys()
+    np.testing.assert_array_equal(port.vecs, ref.vecs)
+    for engine in (None, "xla"):
+        got = port.search(queries, k=TOPK, engine=engine)
+        want = ref.search(queries, k=TOPK)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("spec", ["NSG16,ids=roc", "HNSW8,ids=ef"])
 def test_unported_structures_raise(spec):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         index_factory(spec, device="cpu")
@@ -420,8 +455,9 @@ import repro_torch.api, repro_torch.serve, repro_torch.core, repro_torch.data
 import repro_torch.kernels, repro_torch.kernels._build
 import repro_torch.kernels.l2_topk, repro_torch.kernels.wt_rank
 import repro_torch.kernels.rans_decode
+import repro_torch.api.container, repro_torch.core.container
 import torch
-from repro_torch.api import index_factory
+from repro_torch.api import index_factory, load_index, save_index
 from repro_torch.kernels import (l2_top1, make_tables, pack_bits_u32,
                                  rans_decode, wt_rank)
 from repro_torch.serve import AnnService
@@ -432,6 +468,14 @@ svc = AnnService(idx, topk=3, device="cpu", nprobe=2)
 svc.add(x[:5])
 ids, dists = svc.search(x[:2])
 assert ids.shape == (2, 3) and ids[0, 0] == 0, ids
+back = load_index(save_index(idx), device="cpu")
+assert np.array_equal(back.search(x[:2], k=3, nprobe=2)[1], ids)
+flat = index_factory("Flat", device="cpu").build(x)
+for engine in (None, "xla"):
+    assert flat.search(x[:2], k=3, engine=engine)[1][1, 0] == 1
+fsvc = AnnService(load_index(save_index(flat), device="cpu"), topk=3,
+                  device="cpu", engine="auto")
+assert fsvc.search(x[4:5])[0][0, 0] == 4
 assert l2_top1(torch.from_numpy(x), torch.from_numpy(x[:3]))[0][2] == 2
 words, sup = pack_bits_u32(np.ones(40, np.uint8))
 assert wt_rank(torch.from_numpy(words.view(np.int32)), torch.from_numpy(sup),
@@ -456,7 +500,9 @@ def test_import_guard_subprocess():
 
 
 @pytest.mark.parametrize("pkg", ["repro_torch.api", "repro_torch.serve",
-                                 "repro_torch.kernels"])
+                                 "repro_torch.kernels", "repro_torch.core",
+                                 "repro_torch.api.container",
+                                 "repro_torch.core.container"])
 def test_public_surface_documented(pkg):
     import importlib
     import inspect

@@ -156,6 +156,42 @@ def test_pq_adc_tables_per_block_fits_every_m_whose_table_fits(m):
         tables_per_block(228)
 
 
+@pytest.mark.parametrize("m", [1, 8, 227, 228, 256, 300, 448, 449, 512, 1024])
+def test_pq_adc_chunk_plan_covers_m_in_launches_that_fit(m):
+    """Any m is scored: in one launch up to 227, past it in j-ordered
+    chunks of M_CHUNK (a multiple of 8) whose tables fit one block with a
+    full code ring; the chunks tile [0, m) in order."""
+    from repro_torch.kernels.pq_adc.ops import (M_CHUNK, chunk_plan,
+                                                ring_rows, tables_per_block)
+
+    plan = chunk_plan(m)
+    assert plan[0][0] == 0 and plan[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    for j0, j1 in plan:
+        assert tables_per_block(j1 - j0) >= 1
+    if m <= 227:
+        assert plan == [(0, m)]
+    else:
+        assert M_CHUNK % 8 == 0 and len(plan) == -(-m // M_CHUNK)
+        assert all(j1 - j0 == M_CHUNK for j0, j1 in plan[:-1])
+        qt = tables_per_block(M_CHUNK)
+        assert ring_rows(M_CHUNK, qt) >= 128
+
+
+@pytest.mark.parametrize("m", [228, 256])
+def test_pq_adc_plain_version_is_the_j_ordered_sum(m):
+    """The plain version (the CPU path) adds the tables in j order from
+    0.0, one f32 add at a time: the sum the kernel's chunks reproduce."""
+    rng = np.random.default_rng(m)
+    luts = (rng.random((3, m, 256)) * 10).astype(np.float32)
+    codes = rng.integers(0, 256, (500, m)).astype(np.uint8)
+    got = pq_adc(torch.from_numpy(luts), torch.from_numpy(codes)).numpy()
+    want = np.zeros((3, 500), np.float32)
+    for j in range(m):
+        want += luts[:, j, codes[:, j]]
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
 # ---------------------------------------------------------------------------
 # seg_topk
 # ---------------------------------------------------------------------------

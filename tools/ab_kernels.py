@@ -33,7 +33,14 @@ from a CUDA graph's replay):
   address the value of the one before: the cycles of one dependent
   ``ld.shared.u32`` (no earlier source needed; always runs);
 * ``seg_topk`` and ``pq_adc`` (commit 3c8ab66's sources) at the main
-  path's widths.
+  path's widths;
+* ``pq_adc chunks``: the current ``pq_adc`` at m = 256 (64 queries, 2^20
+  codes), scored in chunks of ``PQ_CHUNKS`` subquantizers a launch in
+  turns (the wrapper's ``M_CHUNK`` set for each), each result bit-equal
+  to the plain version, with the time split into the chunks' strided
+  copies, the launches, and the later launches' read-back of the partial
+  output; this sets ``M_CHUNK`` (no earlier source
+  needed; always runs).
 
 Prints the card's name and power limit, then one JSON line of ``{kernel,
 shape, old_ms, new_ms}`` records (the ``lds`` record carries
@@ -75,6 +82,7 @@ RANS_ONE_WIDE_WARP = """  } else if (per_thread <= 4) {
   } else {
     const int nw = std::min(MAX_WARPS, per_thread);
 """
+PQ_CHUNKS = (8, 16, 24, 32, 48, 64, 128, 224)
 WT_BITS = (1_050_000, 1 << 24)
 WT_QUERIES = (1 << 20, 1 << 18, 1 << 16, 1 << 14, 1 << 12)
 # the two routes against each other, around the cut-over
@@ -346,6 +354,71 @@ def ab_wt(old: Path, dev, gen):
     return rows
 
 
+def pq_chunks(dev, gen, m=256, n=1 << 20, qb=64):
+    """pq_adc at m past one launch's tables, in chunks of each of
+    PQ_CHUNKS subquantizers, timed forward then backward.  Beside the
+    wrapper's time (``ms``), each chunk size reports its parts: the
+    strided copies that make each chunk's tables and codes contiguous
+    (``copies_ms``), the launches alone on copies made beforehand
+    (``kernels_ms``), and the same launches with every one starting from
+    0 (``kernels_from_zero_ms``, a wrong sum, timed only), whose gap to
+    ``kernels_ms`` is the later launches' read-back of the partial output
+    (``readback_ms``)."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels.pq_adc import ops, pq_adc, pq_adc_ref
+
+    luts = torch.rand(qb, m, 256, device=dev, generator=gen) * 40.0
+    codes = torch.randint(0, 256, (n, m), device=dev, generator=gen,
+                          dtype=torch.int32).to(torch.uint8)
+    want = pq_adc_ref(luts, codes)
+    out = torch.empty(qb, n, device=dev)
+    shipped = ops.M_CHUNK
+    keys = ("ms", "copies_ms", "kernels_ms", "kernels_from_zero_ms")
+    ms = {c: {key: [] for key in keys} for c in PQ_CHUNKS}
+    try:
+        for order in (PQ_CHUNKS, PQ_CHUNKS[::-1]):
+            for c in order:
+                ops.M_CHUNK = c
+                plan = ops.chunk_plan(m)
+
+                def copies():
+                    return [(luts[:, a:b].contiguous(),
+                             codes[:, a:b].contiguous()) for a, b in plan]
+
+                parts = copies()
+
+                def kernels(first_only_from_zero=True):
+                    for i, (lc, cc) in enumerate(parts):
+                        ops.launch(lc, cc, out, first_only_from_zero and i > 0)
+
+                if not same(pq_adc(luts, codes), want):
+                    raise AssertionError(f"pq_adc in chunks of {c} differs")
+                kernels()
+                if not same(out, want):
+                    raise AssertionError(f"pq_adc launches of {c} differ")
+                t = ms[c]
+                t["ms"].append(cs.cuda_ms(lambda: pq_adc(luts, codes),
+                                          reps=5, graph=True))
+                t["copies_ms"].append(cs.cuda_ms(copies, reps=5, graph=True))
+                t["kernels_ms"].append(cs.cuda_ms(kernels, reps=5,
+                                                  graph=True))
+                t["kernels_from_zero_ms"].append(cs.cuda_ms(
+                    lambda: kernels(False), reps=5, graph=True))
+                del parts
+    finally:
+        ops.M_CHUNK = shipped
+    rows = []
+    for c, t in ms.items():
+        mean = {key: sum(v) / len(v) for key, v in t.items()}
+        rows.append(dict(kernel="pq_adc chunks", shape=f"64x{m}x256, n={n}",
+                         chunk=c, launches=len(range(0, m, c)), **mean,
+                         readback_ms=(mean["kernels_ms"]
+                                      - mean["kernels_from_zero_ms"]),
+                         runs=t["ms"]))
+    return rows
+
+
 def lds_chase(old: Path, dev):
     import torch
 
@@ -382,7 +455,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    rows = lds_chase(old, dev)
+    rows = lds_chase(old, dev) + pq_chunks(dev, gen)
     if (old / "rans_decode.cu").exists():
         rows += ab_rans(old, dev)
     if (old / "wt_rank.cu").exists():
