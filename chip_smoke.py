@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py                 # full size: 1M sift-like vectors
-    python3 chip_smoke.py --n 200000      # a quicker, smaller main path
+    python3 chip_smoke.py                 # full size: 1M vectors a path
+    python3 chip_smoke.py --n 200000      # a quicker, smaller run
 
 Phases, each printed with its seconds; any failure raises and the script
 exits non-zero without the final ``ok`` line:
@@ -58,7 +58,37 @@ exits non-zero without the final ``ok`` line:
    Flat index, with pack and unpack seconds and blob MB; bits per id and
    epochs equal, and search after reload equal to search before over all
    queries (counts set to 0 before the path and read after);
-8. main-path shapes: ``seg_topk`` at every ``(n, k)`` and ``l2_top1`` at
+8. graph paths, on the reference's graph workload (1M ``deep-like``
+   vectors, d = 96, seed 0, and its own 1000 queries): ``NSG32,ids=roc``
+   built on the card (kNN through ``l2_dist`` + ``seg_topk``, the
+   occlusion prune, the host's ROC coding, each timed; bits per edge, and
+   the nodes a search can reach from the entry), served through
+   ``AnnService`` (ef = 32) cold and warm, then grown by five ``add``
+   calls of 10,000 vectors and served again; results equal to
+   ``search_ref`` on the first 64 queries after each pass, recall@10
+   against exact search.  One beam step's device path (copies, gather,
+   ``l2_dist``, copy back) is timed against the host re-score of the same
+   candidates at tiles of 64 x 128 .. 4096.  The reference's builders
+   leave this base in pieces (a search reaches only the entry's mode), so
+   ``NSG32`` is also built and served over the first ``GRAPH_NAV_N``
+   vectors, where its graph is navigable: the reachable share and
+   recall@10 must reach ``GRAPH_NAV_FLOOR``, and warm passes at each
+   ``kernel_min`` of ``GRAPH_GATES`` in turns (results equal) give the
+   reading behind ``graph_scan.KERNEL_MIN_CUDA`` and every step's tile
+   width.  The card's decisions against the CPU's: the NSG32 and HNSW16
+   prunes of the first 20,000 nodes' kNN lists (and NSG32's against the
+   lists the 1M build made), HNSW's reverse edges on that subgraph (card,
+   CPU and the reference's loop), ``knn_graph`` over 10,000 vectors
+   (differing only inside ``rescore_eps``) and ``np_sum_f32`` (bit-equal
+   to ``np.sum``).  ``HNSW16,ids=roc`` built over the 1M vectors and
+   served cold and warm.  An ``NSG32,ids=roc`` index over the first
+   100,000 vectors after one ``add`` saved with webgraph and REC edges
+   and loaded onto the card (a host-only cut: the edge coders cost
+   ~0.1-0.3 ms a node), search equal.  Every ``l2_dist`` tile and
+   ``seg_topk`` ``(rows, n, k)`` these paths launched is held against its
+   plain version and timed; each path's counts are set to 0 before it and
+   read after;
+9. main-path shapes: ``seg_topk`` at every ``(n, k)`` and ``l2_top1`` at
    every ``(K, d, rows)`` that phases 5-7 launched (each checked as in
    phase 3; at n = 2^20, Flat's width, the kernel reads its keys from
    global memory on every pass, and it is timed, bounded and set beside
@@ -66,8 +96,9 @@ exits non-zero without the final ``ok`` line:
    distances to the padded base, lens = n on every row, held bit-equal
    as well), ``pq_adc`` and ``l2_dist`` at the IVF
    mean arena rows (``l2_dist`` at Flat's 2^20 rows in phase 3); each
-   kernel's ``main_path_ms`` is launches x time at the shape launched;
-9. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
+   kernel's ``main_path_ms`` is launches x time at the shape launched
+   (the graph paths' launches at their tiles of phase 8 included);
+10. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
    index's assignment (2^20 positions, the resident route; bit-equal to
    ``BitVector`` and the plain version on a CPU copy) and ``rans_decode``
    on gap_ans-model streams at (128, 8192) and (16, 64) (bit-equal to the
@@ -129,6 +160,41 @@ RANS_WIDE = (1024, 1024)
 WT_QUERIES = 1 << 20
 # wt_rank also on a bitvector too large for shared memory (the global route)
 WT_LARGE_BITS = 1 << 24
+# the graph paths run on the reference's graph workload, the deep-like
+# preset (benchmarks/graph_bench.py:38; d = 96), seed 0, as many vectors
+# and queries as the main path: NSG32 (the paper's Table 2 graph) at full
+# scale, served and grown like the IVF specs; HNSW16 built and served; the
+# card's decisions held against the CPU's on the first nodes; a graph
+# container round trip on a host-only cut of the base (webgraph / REC
+# coding is ~0.2-0.3 ms a node on the host)
+GRAPH_PRESET = "deep-like"
+GRAPH_SPECS = ("NSG32,ids=roc", "HNSW16,ids=roc")
+GRAPH_EF = 32
+# The reference's builders (exact kNN, the occlusion prune, no step that
+# joins components) leave deep-like at 1M in pieces: from the entry a
+# search reaches only the entry's Gaussian mode, whose points all have
+# their 64 nearest neighbours inside it.  So NSG32 is served as well over
+# the first GRAPH_NAV_N vectors, the most at which its graph is navigable
+# (tools/graph_ladder.py), and must reach the floors below there; the
+# kernel_min gate is read on that graph, in warm passes at each of
+# GRAPH_GATES in turns (GRAPH_BLOCK_N: every step's tile on the kernel;
+# the last: none)
+GRAPH_NAV_N = 50_000
+# (the ladder: reachable share 0.994-0.996 and recall@10 0.82-0.92 from
+# 20,000 to 50,000 vectors; from 70,000 on, a search stays in one mode or
+# recall falls to 0.36 and below)
+GRAPH_NAV_FLOOR = dict(reachable_share=0.98, recall_at_10=0.75)
+GRAPH_GATES = (128, 512, 1024, 2048, 1 << 30)
+GRAPH_GATE_ROUNDS = 3
+GRAPH_CHECK_NODES = 20_000
+GRAPH_KNN_CHECK = 10_000
+GRAPH_CONTAINER_N = 100_000
+NPSUM_DIMS = (7, 24, 128, 129, 960)
+# graph-step tiles (query rows, candidate columns) at which one step's
+# device path is timed against the host re-score of the same candidates
+STEP_TILES = tuple((64, n) for n in (128, 256, 512, 1024, 2048, 4096))
+# the most elements of a beam step's l2_dist tile (64 rows x 4096)
+STEP_TILE_MAX = 64 * 4096
 
 
 @contextlib.contextmanager
@@ -209,11 +275,10 @@ def rescore_band(d, ref, qn):
     return 16.0 * d * eps32 * (1.0 + ref.abs().double() + qn)
 
 
-def check_l2_dist(dev, gen, n=1 << 20):
+def check_l2_dist(dev, gen, n=1 << 20, qb=64, d=128):
     import torch
     from repro_torch.kernels.l2_topk import l2_dist, l2_dist_ref
 
-    qb, d = 64, 128
     q = torch.randn(qb, d, device=dev, generator=gen)
     a = torch.randn(n, d, device=dev, generator=gen)
     out = l2_dist(q, a)
@@ -227,17 +292,20 @@ def check_l2_dist(dev, gen, n=1 << 20):
                              f"{float(err.max())}, {band_use} of the band")
     qn32, an32 = (q * q).sum(1, keepdim=True), (a * a).sum(1)
     b, by, b32 = l2_bounds(4 * (qb * d + n * d + qb * n), qb, n, d)
+    small = n < (1 << 16)        # a graph step's tile: time a graph replay
     return dict(
-        name="l2_dist" if n == 1 << 20 else f"l2_dist(n={n})", route="cuda",
+        name="l2_dist" if n == 1 << 20 else f"l2_dist(n={n})" if qb == 64
+        else f"l2_dist({qb}x{n})", route="cuda",
         source="src/repro_torch/csrc/l2_dist.cu",
         replaces="src/repro/kernels/l2_topk/kernel.py:76",
         shape=f"q {qb}x{d}, arena {n}x{d} f32",
         max_abs_err=float(err.max()), band_use=band_use,
-        ms=cuda_ms(lambda: l2_dist(q, a)),
-        plain_ms=cuda_ms(lambda: l2_dist_ref(q, a)),
+        ms=cuda_ms(lambda: l2_dist(q, a), graph=small),
+        plain_ms=cuda_ms(lambda: l2_dist_ref(q, a), graph=small),
         bound_ms=b, bound_by=by, bound_f32_ms=b32,
         library_ms=cuda_ms(lambda: torch.addmm(an32[None], q, a.T,
-                                               alpha=-2.0).add_(qn32)))
+                                               alpha=-2.0).add_(qn32),
+                           graph=small))
 
 
 def check_pq_adc(dev, gen, sm_hz, n=1 << 20, m=8):
@@ -604,7 +672,7 @@ def serve_pass(svc, queries):
     wall = time.perf_counter() - t
     lat = np.array([tk.latency_s for tk in tickets])
     st = svc.stats()
-    return tickets, dict(
+    report = dict(
         qps=len(queries) / wall, serve_s=wall,
         p50_latency_ms=float(np.quantile(lat, 0.5)) * 1e3,
         p99_latency_ms=float(np.quantile(lat, 0.99)) * 1e3,
@@ -612,6 +680,9 @@ def serve_pass(svc, queries):
         decodes=st["decodes"], batches=st["batches"],
         mean_batch=st["mean_batch"], device_selects=st["device_selects"],
         host_block_bytes=st["host_block_bytes"])
+    if svc.steps:                    # a graph index's beam steps
+        report.update(steps=svc.steps, dedup_hits=svc.dedup_hits)
+    return tickets, report
 
 
 def check_parity(spec, idx, tickets, queries):
@@ -792,6 +863,408 @@ def container_path(name, idx, opts, queries, device):
     return dict(rec, launches=counts), counts, shapes
 
 
+def reachable_from_entry(adj, entry):
+    """Nodes a search can reach: those on a directed path from ``entry``
+    (a frontier expansion over the friend lists)."""
+    import numpy as np
+
+    lens = np.fromiter((len(a) for a in adj), np.int64, len(adj))
+    flat = np.concatenate(adj)
+    start = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    seen = np.zeros(len(adj), bool)
+    seen[entry] = True
+    front = np.array([entry])
+    while front.size:
+        cnt = lens[front]
+        pos = np.repeat(start[front] - np.cumsum(cnt) + cnt, cnt) + \
+            np.arange(int(cnt.sum()))
+        nb = np.unique(flat[pos])
+        front = nb[~seen[nb]]
+        seen[front] = True
+    return int(seen.sum())
+
+
+def check_graph_parity(spec, idx, tickets, queries):
+    """Served graph results of the right shape, finite, and equal to the
+    index's own ``search_ref`` on the first 64 queries."""
+    import numpy as np
+
+    ids = np.concatenate([tk.ids for tk in tickets])
+    dists = np.concatenate([tk.dists for tk in tickets])
+    if ids.shape != (len(queries), TOPK) or not np.isfinite(dists).all():
+        raise AssertionError(f"{spec}: bad result shape or non-finite dists")
+    ids_r, d_r, _ = idx.graph.search_ref(queries[:64], ef=GRAPH_EF,
+                                         topk=TOPK)
+    if not (np.array_equal(ids[:64], ids_r)
+            and np.array_equal(dists[:64], d_r)):
+        raise AssertionError(f"{spec}: served results differ from "
+                             "search_ref")
+    return ids
+
+
+def serve_graph(spec, base, queries, gt, adds, device, floor=None):
+    """Build the graph ``spec`` on ``device`` (stage seconds from
+    ``build_s``) and serve ``queries`` through AnnService (``ef``) cold and
+    warm; then, when ``adds`` are given, ingest them one ``add`` call each
+    and serve again.  Parity with ``search_ref`` on the first 64 queries
+    after each pass; recall@10 against ``gt``, and the share of nodes a
+    search can reach from the entry, each held to ``floor`` when given.
+    Launch counts are set to 0 before the build and read after the last
+    pass.  Returns (report, counts, shapes, the index, its first
+    GRAPH_CHECK_NODES friend lists as built)."""
+    import torch
+    from repro_torch.api import index_factory
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.serve import AnnService, BatchPolicy
+
+    reset_launches()
+    t = time.perf_counter()
+    idx = index_factory(spec, device=device).build(base)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    built_head = [a.copy() for a in idx.graph.adj_raw[:GRAPH_CHECK_NODES]]
+    build_launches = launch_counts()
+    svc = AnnService(idx, topk=TOPK, policy=BatchPolicy(max_batch=MAX_BATCH),
+                     device=device, ef=GRAPH_EF)
+    cold_t, cold = serve_pass(svc, queries)
+    warm_t, warm = serve_pass(svc, queries)
+    for tickets in (cold_t, warm_t):
+        ids = check_graph_parity(spec, idx, tickets, queries)
+    reach = reachable_from_entry(idx.graph.adj_raw, idx.graph.entry)
+    report = dict(
+        spec=spec, n=int(base.shape[0]), ef=GRAPH_EF, build_s=build_s,
+        build_stages_s=dict(idx.build_s),
+        edges=int(sum(len(a) for a in idx.graph.adj_raw)),
+        bits_per_edge=idx.graph.bits_per_edge(),
+        reachable_from_entry=reach, reachable_share=reach / base.shape[0],
+        recall_at_10=recall_at_10(ids, gt), cold=cold, warm=warm,
+        parity_vs_search_ref=True, build_launches=build_launches)
+    if floor is not None:
+        low = {k: report[k] for k, v in floor.items() if report[k] < v}
+        if low:
+            raise AssertionError(f"{spec} at n={base.shape[0]}: {low} below "
+                                 f"the floors {floor}")
+        report["floor"] = floor
+    if adds:
+        t = time.perf_counter()
+        for x in adds:
+            svc.add(x)
+        torch.cuda.synchronize()
+        add_s = time.perf_counter() - t
+        if idx.graph.n != base.shape[0] + sum(len(x) for x in adds):
+            raise AssertionError(f"{spec}: {idx.graph.n} nodes after ingest")
+        grown_t, grown = serve_pass(svc, queries)
+        check_graph_parity(spec, idx, grown_t, queries)
+        report["ingest"] = dict(
+            adds=len(adds), rows=int(sum(len(x) for x in adds)), add_s=add_s,
+            epochs=idx.graph.n_epochs, n=int(idx.graph.n),
+            bits_per_edge=idx.graph.bits_per_edge(), served=grown,
+            parity_vs_search_ref=True)
+    counts, shapes = launch_counts(), launch_shapes()
+    report.update(launches=counts, shapes=shape_report(counts, shapes))
+    return report, counts, shapes, idx, built_head
+
+
+def gate_passes(spec, idx, queries, gates, device, rounds):
+    """Warm passes through AnnService at each ``kernel_min`` of ``gates``
+    in turns, forwards then backwards (so each gate runs early and late),
+    ``rounds`` times; each pass's results must equal the first's (the
+    gate never changes them).  Returns (one record a pass: QPS, p50/p99,
+    search seconds, steps and the ``l2_dist`` launches by ``(NQ, N)``
+    tile; per gate: the median search seconds and QPS over its passes,
+    its launches a pass and the share of steps they are)."""
+    import numpy as np
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.serve import AnnService, BatchPolicy
+
+    first, rows = None, []
+    for gate in (list(gates) + list(gates)[::-1]) * rounds:
+        svc = AnnService(idx, topk=TOPK,
+                         policy=BatchPolicy(max_batch=MAX_BATCH),
+                         device=device, ef=GRAPH_EF, kernel_min=gate)
+        reset_launches()
+        tickets, rep = serve_pass(svc, queries)
+        ids = np.concatenate([tk.ids for tk in tickets])
+        dists = np.concatenate([tk.dists for tk in tickets])
+        if first is None:
+            first = (ids, dists)
+        elif not (np.array_equal(ids, first[0])
+                  and np.array_equal(dists, first[1])):
+            raise AssertionError(f"{spec}: kernel_min={gate} changed the "
+                                 "results")
+        rows.append(dict(kernel_min=gate, **{k: rep[k] for k in (
+            "qps", "p50_latency_ms", "p99_latency_ms", "search_s",
+            "steps")}, l2_dist_launches=launch_counts()["l2_dist"],
+            tiles=dict(sorted(launch_shapes()["l2_dist_tiles"].items()))))
+    summary = {}
+    for gate in gates:
+        mine = [r for r in rows if r["kernel_min"] == gate]
+        summary[gate] = dict(
+            passes=len(mine),
+            median_search_s=float(np.median([r["search_s"] for r in mine])),
+            median_qps=float(np.median([r["qps"] for r in mine])),
+            l2_dist_launches=mine[0]["l2_dist_launches"],
+            share_of_steps=mine[0]["l2_dist_launches"] / mine[0]["steps"])
+    return rows, summary
+
+
+def graph_decisions(base, nsg_head, device):
+    """The card's graph decisions against the CPU's (no launch counted):
+    the NSG32 and HNSW16 prunes of the first GRAPH_CHECK_NODES nodes' kNN
+    lists equal on both devices (and NSG's equal to the lists the 1M build
+    made), HNSW's closed-form reverse edges on that subgraph equal on both
+    devices and to the reference's loop, ``knn_graph`` over the first
+    GRAPH_KNN_CHECK vectors differing from the CPU's only at near-ties
+    inside ``rescore_eps``, and ``np_sum_f32`` bit-equal to ``np.sum``."""
+    import numpy as np
+    import torch
+    from repro_torch.ann.graph import (hnsw_reverse_edges, kept_lists,
+                                       knn_graph, prune_kept)
+    from repro_torch.ann.npsum import np_sum_f32
+    from repro_torch.ann.scan import rescore_eps
+
+    rec = {}
+    xdev = torch.from_numpy(base).to(device)
+    xcpu = torch.from_numpy(base)
+    nodes = np.arange(GRAPH_CHECK_NODES)
+    for name, r, k in (("NSG32", 32, 64), ("HNSW16", 16, 32)):
+        nn = knn_graph(xdev, k, rows=GRAPH_CHECK_NODES)
+        t = time.perf_counter()
+        card = prune_kept(xdev, nn, nodes, r)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        cpu = prune_kept(xcpu, nn, nodes, r)
+        cpu_s = time.perf_counter() - t
+        if not np.array_equal(card, cpu):
+            bad = np.flatnonzero((card != cpu).any(1))
+            raise AssertionError(f"{name} prune: card differs from the CPU "
+                                 f"at nodes {bad[:8].tolist()}")
+        rec[f"{name}_prune"] = dict(nodes=GRAPH_CHECK_NODES, card_s=card_s,
+                                    cpu_s=cpu_s, equal=True)
+        if name == "NSG32":
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(kept_lists(card), nsg_head)):
+                raise AssertionError("NSG32 prune of the first nodes differs "
+                                     "from the lists the build made")
+            rec[f"{name}_prune"]["equal_to_build"] = True
+        else:
+            sub = np.where(card < GRAPH_CHECK_NODES, card, -1)
+            got = hnsw_reverse_edges(sub, r, device=device)
+            want = hnsw_reverse_edges(sub, r, device="cpu")
+            adj = [[int(j) for j in row if j >= 0] for row in sub]
+            for i in range(len(adj)):               # the reference's loop
+                for j in adj[i]:
+                    if len(adj[j]) < r and i not in adj[j]:
+                        adj[j].append(i)
+            if not all(np.array_equal(a, b) and np.array_equal(
+                    a, np.asarray(sorted(set(c)), np.int64))
+                    for a, b, c in zip(got, want, adj)):
+                raise AssertionError("HNSW16 reverse edges: card, CPU and "
+                                     "the loop differ")
+            rec["HNSW16_reverse_edges"] = dict(
+                nodes=GRAPH_CHECK_NODES, equal_card_cpu_loop=True,
+                edges=int(sum(len(a) for a in got)))
+    del xdev
+    sub = base[:GRAPH_KNN_CHECK]
+    card = knn_graph(torch.from_numpy(sub).to(device), 64)
+    cpu = knn_graph(torch.from_numpy(sub), 64)
+    x64 = sub.astype(np.float64)
+    diff = np.argwhere(card != cpu)
+    band_use = 0.0
+    for i, j in diff:
+        da = float(np.sum((x64[cpu[i, j]] - x64[i]) ** 2))
+        db = float(np.sum((x64[card[i, j]] - x64[i]) ** 2))
+        eps = rescore_eps(sub.shape[1], da, float(x64[i] @ x64[i]))
+        band_use = max(band_use, abs(da - db) / eps)
+    if band_use > 1.0:
+        raise AssertionError(f"knn_graph: card and CPU differ outside "
+                             f"rescore_eps ({band_use} of the band)")
+    rec["knn_graph"] = dict(n=GRAPH_KNN_CHECK, k=64,
+                            positions_differ=int(len(diff)),
+                            rows_differ=int((card != cpu).any(1).sum()),
+                            band_use=band_use)
+    rng = np.random.default_rng(5)
+    for d in NPSUM_DIMS:
+        a = (rng.standard_normal((4096, d)) ** 2 * rng.uniform(
+            0.01, 1e4, (4096, 1))).astype(np.float32)
+        got = np_sum_f32(torch.from_numpy(a).to(device)).cpu().numpy()
+        if not np.array_equal(got.view(np.int32),
+                              np.sum(a, axis=1).view(np.int32)):
+            raise AssertionError(f"np_sum_f32 d={d} on the card differs "
+                                 "from np.sum")
+    rec["np_sum_f32"] = dict(dims=list(NPSUM_DIMS), rows=4096,
+                             bit_equal=True)
+    return rec
+
+
+def graph_container_path(base, queries, add, device):
+    """``save_index`` / ``load_index(device=...)`` of an NSG32 index over
+    the first GRAPH_CONTAINER_N vectors after one ``add``, with webgraph and
+    REC edges: pack and unpack seconds, blob MB, bits per edge and epochs
+    equal, search after reload equal over all ``queries``.  Launch counts
+    set to 0 before and read after.  Returns (report, counts, shapes)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import index_factory, load_index, save_index
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+
+    reset_launches()
+    t = time.perf_counter()
+    idx = index_factory(GRAPH_SPECS[0], device=device).build(
+        base[:GRAPH_CONTAINER_N])
+    idx.add(add)
+    torch.cuda.synchronize()
+    rec = dict(spec=GRAPH_SPECS[0], n=int(idx.n), build_and_add_s=(
+        time.perf_counter() - t), epochs=idx.n_epochs,
+        bits_per_edge=idx.graph.bits_per_edge())
+    d0, i0, _ = idx.search(queries, k=TOPK, ef=GRAPH_EF)
+    for codec in ("webgraph", "rec"):
+        t = time.perf_counter()
+        blob = save_index(idx, graph_codec=codec)
+        pack_s = time.perf_counter() - t
+        t = time.perf_counter()
+        back = load_index(blob, device=device)
+        torch.cuda.synchronize()
+        unpack_s = time.perf_counter() - t
+        if (back.spec != idx.spec or back.device != idx.device
+                or back.graph.bits_per_edge() != idx.graph.bits_per_edge()
+                or back.n_epochs != idx.n_epochs):
+            raise AssertionError(f"graph container ({codec}): spec, device, "
+                                 "bits per edge or epochs differ")
+        d1, i1, st = back.search(queries, k=TOPK, ef=GRAPH_EF)
+        if not (np.array_equal(i1, i0) and np.array_equal(d1, d0)):
+            raise AssertionError(f"graph container ({codec}): search after "
+                                 "reload differs")
+        rec[codec] = dict(blob_mb=len(blob) / 2**20, pack_s=pack_s,
+                          unpack_s=unpack_s, engine=st.engine,
+                          search_equal_after_reload=True)
+        del blob, back
+    counts, shapes = launch_counts(), launch_shapes()
+    return dict(rec, launches=counts), counts, shapes
+
+
+def time_step_tiles(idx, queries):
+    """One graph step's device path (``score_step``: the H2D copies, the
+    gather of the candidates, ``l2_dist`` and the ``(n_pad,)`` copy back,
+    on the host clock with a synchronize) against the host re-score of
+    the same candidates (the engine's numpy expression), at each tile of
+    STEP_TILES; and the smallest tile where the device path is faster.
+    The candidates are random nodes spread over the tile's query rows."""
+    import numpy as np
+    import torch
+    from repro_torch.ann.graph_scan import KERNEL_MIN_CUDA, score_step
+
+    g = idx.graph
+    rng = np.random.default_rng(3)
+    rows, crossover = [], None
+    for qb, n_pad in STEP_TILES:
+        cand_v = rng.integers(0, g.n, n_pad)
+        cand_row = np.sort(rng.integers(0, qb, n_pad))
+        qblk = np.ascontiguousarray(queries[:qb], np.float32)
+        idx_pad = cand_v.astype(np.int32)
+
+        def device_step():
+            score_step(g, qblk, idx_pad, cand_row)
+
+        def host_rescore():
+            np.sum((g.x[cand_v] - qblk[cand_row]) ** 2, axis=1)
+
+        times = {}
+        for name, fn in (("device_ms", device_step),
+                         ("host_rescore_ms", host_rescore)):
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            reps = 50
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            times[name] = (time.perf_counter() - t) / reps * 1e3
+        rows.append(dict(tile=f"{qb}x{n_pad}", **times))
+        if crossover is None and times["device_ms"] < times["host_rescore_ms"]:
+            crossover = n_pad
+    return dict(tiles=rows, device_faster_from=crossover,
+                kernel_min_cuda=KERNEL_MIN_CUDA)
+
+
+def time_graph_tiles(l2_tiles, seg_tiles, base_dev, queries_dev):
+    """Every kernel launch shape of the graph paths, held and timed:
+    ``l2_dist`` at each ``(NQ, N)`` tile (the queries against the first N
+    base rows; inside ``rescore_eps`` of ``l2_dist_ref``; a CUDA graph's
+    replay for a beam step's tiles) and ``seg_topk`` at each ``(rows,
+    n, k)`` on the base's own distances with ``lens = n`` (bit-equal to the
+    plain version on a CPU copy of 16 rows).  At the most launched wide
+    tile of each (the kNN build's block) also the bound, the plain
+    version's time and a library call's (``torch.addmm``, ``torch.topk``).
+    Returns ({tile: ms} for ``l2_dist``, {tile: ms} for ``seg_topk``,
+    {kernel: record at its widest tile})."""
+    import torch
+    from repro_torch.kernels.l2_topk import l2_dist, l2_dist_ref
+    from repro_torch.kernels.seg_topk import seg_topk, seg_topk_ref
+
+    d = base_dev.shape[1]
+    l2_ms, seg_ms, wide = {}, {}, {}
+    wide_l2 = max((t for t in l2_tiles if t[0] * t[1] > STEP_TILE_MAX),
+                  key=l2_tiles.get)
+    wide_seg = max(seg_tiles, key=seg_tiles.get)
+    for nq, n in sorted(l2_tiles):
+        q = (queries_dev if nq <= queries_dev.shape[0] else base_dev)[:nq]
+        a = base_dev[:n]
+        out, ref = l2_dist(q, a), l2_dist_ref(q, a)
+        qn = (q.double() ** 2).sum(1, keepdim=True)
+        band_use = float(((out.double() - ref.double()).abs()
+                          / rescore_band(d, ref, qn)).max())
+        if not band_use <= 1.0:
+            raise AssertionError(f"l2_dist at tile {nq}x{n} outside "
+                                 f"rescore_eps ({band_use} of the band)")
+        del out, ref
+        small = nq * n <= STEP_TILE_MAX     # a beam step's tile
+        l2_ms[(nq, n)] = cuda_ms(lambda: l2_dist(q, a), graph=small,
+                                 reps=20 if small else 3,
+                                 warmup=3 if small else 1)
+        if (nq, n) == wide_l2:
+            qn32, an32 = (q * q).sum(1, keepdim=True), (a * a).sum(1)
+            b, by, _ = l2_bounds(4 * (nq * d + n * d + nq * n), nq, n, d)
+            wide["l2_dist"] = dict(
+                tile=f"{nq}x{n}", launches=l2_tiles[wide_l2],
+                ms=l2_ms[wide_l2], band_use=band_use, bound_ms=b,
+                bound_by=by, plain_ms=cuda_ms(lambda: l2_dist_ref(q, a),
+                                              reps=3, warmup=1),
+                library_ms=cuda_ms(lambda: torch.addmm(
+                    an32[None], q, a.T, alpha=-2.0).add_(qn32), reps=3,
+                    warmup=1))
+    for rows, n, k in sorted(seg_tiles):
+        dmat = l2_dist(base_dev[:rows], base_dev[:n])
+        lens = torch.full((rows,), n, dtype=torch.int32,
+                          device=base_dev.device)
+        v, i = seg_topk(dmat[:16].contiguous(), lens[:16], k)
+        vr, ir = seg_topk_ref(dmat[:16].cpu(), lens[:16].cpu(), k)
+        if not (torch.equal(v.cpu().view(torch.int32), vr.view(torch.int32))
+                and torch.equal(i.cpu(), ir)):
+            raise AssertionError(f"seg_topk at ({rows}, {n}, {k}) differs "
+                                 "from the plain version")
+        seg_ms[(rows, n, k)] = cuda_ms(lambda: seg_topk(dmat, lens, k),
+                                       reps=3, warmup=1)
+        if (rows, n, k) == wide_seg:
+            b, by = bound_ms(4 * rows * n + 4 * rows + 8 * rows * k,
+                             rows * n)
+            wide["seg_topk"] = dict(
+                tile=f"{rows}x{n},k={k}", launches=seg_tiles[wide_seg],
+                ms=seg_ms[wide_seg], bound_ms=b, bound_by=by,
+                plain_ms=cuda_ms(lambda: seg_topk_ref(dmat, lens, k),
+                                 reps=2, warmup=1),
+                library_ms=cuda_ms(lambda: torch.topk(dmat, k, dim=1,
+                                                      largest=False),
+                                   reps=3, warmup=1))
+        del dmat
+    return l2_ms, seg_ms, wide
+
+
 def shape_report(counts, shapes):
     """The launch shapes of a main-path run, JSON-ready."""
     return dict(
@@ -806,7 +1279,8 @@ def shape_report(counts, shapes):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
-                    help="database vectors of the main path (sift-like)")
+                    help="database vectors of the main path (sift-like) "
+                    "and of the graph paths (deep-like)")
     ap.add_argument("--queries", type=int, default=1000)
     args = ap.parse_args(argv)
 
@@ -953,6 +1427,96 @@ def main(argv=None) -> int:
                  container_ivf=cont_ivf_counts,
                  container_flat=cont_flat_counts)
 
+    # the graph paths, each counted on its own; their launches by tile
+    l2_tiles, seg_tiles = {}, {}
+
+    def graph_path(name, counts, gshapes):
+        paths[name] = counts
+        for tiles, key in ((l2_tiles, "l2_dist_tiles"),
+                           (seg_tiles, "seg_topk_tiles")):
+            for t, c in gshapes[key].items():
+                tiles[t] = tiles.get(t, 0) + c
+
+    del base, queries, gt, adds
+    with phase(f"data {GRAPH_PRESET} n={args.n}"):
+        base, queries = make_dataset(GRAPH_PRESET, args.n, args.queries,
+                                     seed=0)
+        base_dev = torch.from_numpy(base).to(dev)
+        queries_dev = torch.from_numpy(queries).to(dev)
+        gt = exact_topk(base_dev, queries_dev, TOPK)
+        new, _ = make_dataset(GRAPH_PRESET, INGEST_ADDS * INGEST_ROWS, 0,
+                              seed=1)
+        adds = np.split(new, INGEST_ADDS)
+    with phase(f"graph path {GRAPH_SPECS[0]}"):
+        nsg, counts, gshapes, nsg_idx, nsg_head = serve_graph(
+            GRAPH_SPECS[0], base, queries, gt, adds, dev)
+        print("  " + json.dumps(nsg))
+        graph_path("graph_nsg", counts, gshapes)
+    with phase("graph step tiles: device path against the host re-score"):
+        step_tiles = time_step_tiles(nsg_idx, queries)
+        print("  " + json.dumps(step_tiles))
+    del nsg_idx
+    from repro_torch.ann.graph_scan import KERNEL_MIN_CUDA
+
+    nav_n = min(args.n, GRAPH_NAV_N)
+    with phase(f"graph path {GRAPH_SPECS[0]} n={nav_n}, navigable"):
+        nav, counts, gshapes, nav_idx, _ = serve_graph(
+            GRAPH_SPECS[0], base[:nav_n], queries,
+            exact_topk(base_dev[:nav_n], queries_dev, TOPK), [], dev,
+            floor=GRAPH_NAV_FLOOR)
+        print("  " + json.dumps(nav))
+        graph_path("graph_nsg_nav", counts, gshapes)
+        gate_rows, gates = gate_passes(GRAPH_SPECS[0], nav_idx, queries,
+                                       GRAPH_GATES, dev, GRAPH_GATE_ROUNDS)
+        for r in gate_rows:
+            print("  " + json.dumps(dict(r, tiles={
+                f"{nq}x{n}": c for (nq, n), c in r["tiles"].items()})))
+        # every step's tile, from a pass at the smallest gate
+        step_tiles_all = gate_rows[0]["tiles"]
+        print("  kernel_min by gate: " + json.dumps(
+            {"kernel_min_cuda": KERNEL_MIN_CUDA, "step_tiles": {
+                f"{nq}x{n}": c for (nq, n), c in step_tiles_all.items()},
+             **{str(g): v for g, v in gates.items()}}))
+        del nav_idx
+    with phase("graph decisions: the card against the CPU"):
+        decisions = graph_decisions(base, nsg_head, dev)
+        print("  " + json.dumps(decisions))
+    del nsg_head
+    with phase(f"graph path {GRAPH_SPECS[1]}"):
+        hnsw, counts, gshapes, _, _ = serve_graph(
+            GRAPH_SPECS[1], base, queries, gt, [], dev)
+        print("  " + json.dumps(hnsw))
+        graph_path("graph_hnsw", counts, gshapes)
+    with phase("graph container path: save_index, load_index onto the card"):
+        gcont, counts, gshapes = graph_container_path(base, queries, adds[0],
+                                                      dev)
+        print("  " + json.dumps(gcont))
+        graph_path("graph_container", counts, gshapes)
+    with phase("graph-path shapes"):
+        # the tiles of the ingest's blocks reach past n: score them against
+        # the base followed by the added rows
+        grown_base = torch.cat([base_dev, torch.from_numpy(new).to(dev)])
+        del base_dev
+        l2_ms, seg_ms, wide = time_graph_tiles(
+            l2_tiles, seg_tiles, grown_base, queries_dev)
+        print("  widest graph tiles: " + json.dumps(wide))
+        # the graph step's most frequent tile (over every step of the
+        # navigable graph's passes), with its bound and addmm
+        top_tile = max(step_tiles_all, key=step_tiles_all.get)
+        l2_step = check_l2_dist(dev, gen, n=top_tile[1], qb=top_tile[0],
+                                d=base.shape[1])
+        print("  " + json.dumps(l2_step))
+        print("  l2_dist graph tiles (launches, ms): " + json.dumps(
+            {f"{nq}x{n}": [c, l2_ms[(nq, n)]]
+             for (nq, n), c in sorted(l2_tiles.items())}))
+        print("  seg_topk graph tiles (launches, ms): " + json.dumps(
+            {f"{r}x{n},k={k}": [c, seg_ms[(r, n, k)]]
+             for (r, n, k), c in sorted(seg_tiles.items())}))
+    del grown_base
+    graph_ms = dict(
+        l2_dist=sum(c * l2_ms[t] for t, c in l2_tiles.items()),
+        seg_topk=sum(c * seg_ms[t] for t, c in seg_tiles.items()))
+
     # the main path's own shapes: seg_topk at every (n, k) and l2_top1 at
     # every (K, d, rows) it launched, pq_adc and l2_dist at its mean arena
     # rows
@@ -1025,9 +1589,11 @@ def main(argv=None) -> int:
     by_name = {r["name"]: r for r in results}
     run_ms = dict(
         l2_dist=(l2_at["arena"] * l2_mean["ms"]
-                 + l2_at["flat"] * by_name["l2_dist"]["ms"]),
+                 + l2_at["flat"] * by_name["l2_dist"]["ms"]
+                 + graph_ms["l2_dist"]),
         pq_adc=main_path["pq_adc"] * pq_mean["ms"],
-        seg_topk=sum(c * seg[s]["ms"] for s, c in seg_launches.items()),
+        seg_topk=(sum(c * seg[s]["ms"] for s, c in seg_launches.items())
+                  + graph_ms["seg_topk"]),
         l2_top1=sum(c * top1_at[s]["ms"] for s, c in top1.items()),
         wt_rank=api_path["wt_rank"] * by_name["wt_rank"]["ms"],
         rans_decode=sum(r["ms"] for r in results
@@ -1046,7 +1612,16 @@ def main(argv=None) -> int:
                      launches_by_rows={mean_rows["l2_dist"]: l2_at["arena"],
                                        flat_n: l2_at["flat"]},
                      launches_by_path={p: c["l2_dist"]
-                                       for p, c in paths.items()}),
+                                       for p, c in paths.items()},
+                     graph=dict(main_path_ms=graph_ms["l2_dist"],
+                                knn_tile=wide["l2_dist"],
+                                step_tile={key: l2_step[key] for key in (
+                                    "shape", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "band_use")},
+                                step_tile_steps=step_tiles_all[top_tile],
+                                step_vs_host=step_tiles,
+                                kernel_min_cuda=KERNEL_MIN_CUDA,
+                                gates={str(g): v for g, v in gates.items()})),
         pq_adc=dict(lookups=by_name["pq_adc"]["lookups"],
                     lookup_ms=by_name["pq_adc"]["lookup_ms"],
                     mean_rows=mean_rows["pq_adc"], mean_rows_ms=pq_mean["ms"],
@@ -1060,7 +1635,13 @@ def main(argv=None) -> int:
                           for (n, k), c in sorted(seg_launches.items())},
                       flat=flat_seg,
                       launches_by_path={p: c["seg_topk"]
-                                        for p, c in paths.items()}),
+                                        for p, c in paths.items()},
+                      graph=dict(main_path_ms=graph_ms["seg_topk"],
+                                 knn_tile=wide["seg_topk"],
+                                 launches_by_tile={
+                                     f"{r}x{n},k={k}": [c, seg_ms[(r, n, k)]]
+                                     for (r, n, k), c in
+                                     sorted(seg_tiles.items())})),
         l2_top1=dict(launches_by_shape={
             f"K={k},d={d},rows={rows}": [c, top1_at[(k, d, rows)]["ms"]]
             for (k, d, rows), c in sorted(top1.items())}),

@@ -11,17 +11,19 @@ in the reference's RIDX container::
     blob = save_index(idx)                 # RIDX v3, the reference's bytes
     idx2 = load_index(blob, device="cuda") # bit-identical search results
 
-IVF and Flat specs are ported; NSG and HNSW specs raise
-``NotImplementedError``.
+Every spec of the grammar builds: Flat, IVF (with PQ / Pólya codes) and
+the NSG / HNSW graphs.
 """
 
 from .container import load_index, pack_index, save_index, unpack_index
-from .indexes import FlatIndex, IVFApiIndex, as_api_index, make_index
+from .indexes import (FlatIndex, GraphApiIndex, IVFApiIndex, as_api_index,
+                      make_index)
 from .protocol import Index
 from .spec import IndexSpec, parse_spec
 
 __all__ = ["Index", "IndexSpec", "parse_spec", "index_factory",
-           "as_api_index", "FlatIndex", "IVFApiIndex", "pack_index",
+           "as_api_index", "FlatIndex", "IVFApiIndex", "GraphApiIndex",
+           "pack_index",
            "unpack_index", "save_index", "load_index"]
 
 

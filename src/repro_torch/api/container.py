@@ -17,16 +17,19 @@ results are **bit-identical** to the original:
   the ids;
 * PQ codes go through the Pólya coder when the index carries one, one
   blob per epoch (``code{e}_*`` sections);
+* graph edge lists go through the offline path — webgraph-lite by
+  default, Random Edge Coding (``graph_codec="rec"``, static degree
+  model + shipped degree table) on request; per-node encoding universes
+  (the graph ingest analogue of epochs) ride as an RLE section;
 * per-list online blobs (ROC/EF/...) and the wavelet tree are *not*
   stored: they are deterministic functions of (lists, universe) and are
-  re-encoded per epoch on load.
+  re-encoded per epoch (per node's universe, for a graph) on load.
 
-v2 containers (single implicit epoch) still load; new blobs are always
-written as v3.  A blob carries no device, so :func:`unpack_index` and
-:func:`load_index` take ``device=`` (default ``"cuda"``, raising without a
-card): the loaded index's payload is uploaded there.  Graph blobs (NSG /
-HNSW sections) are not ported yet: loading one raises
-``NotImplementedError`` naming the ROADMAP item.
+v2 containers (single implicit epoch, all graph universes = n) still
+load; new blobs are always written as v3.  A blob carries no device, so
+:func:`unpack_index` and :func:`load_index` take ``device=`` (default
+``"cuda"``, raising without a card): the loaded index's payload (a
+graph's base) is uploaded there.
 """
 
 from __future__ import annotations
@@ -36,14 +39,18 @@ from typing import List, Optional, Union
 
 import numpy as np
 
+from ..ann.graph import GraphIndex
 from ..ann.ivf import IVFIndex
 from ..ann.pq import ProductQuantizer
+from ..core.ans import StreamANS
 from ..core.container import (SectionReader, SectionWriter,
                               pack_joint_ids, pack_polya_sections,
                               unpack_joint_ids, unpack_polya_sections)
 from ..core.epoch import EpochStore
 from ..core.polya import PolyaCodec
-from .indexes import (GRAPH_NOT_PORTED, FlatIndex, IVFApiIndex,
+from ..core.rec import RECResult, _degree_table, rec_decode, rec_encode
+from ..core.webgraph_lite import webgraph_decode, webgraph_encode
+from .indexes import (FlatIndex, GraphApiIndex, IVFApiIndex,
                       _ingest_fields, as_api_index)
 from .spec import IndexSpec, parse_spec
 
@@ -58,9 +65,10 @@ RIDX_VERSION = 3
 # pack
 # ---------------------------------------------------------------------------
 
-def pack_index(index) -> bytes:
-    """Serialize a factory-built (or raw IVF) index to one blob — the bytes
-    the reference's ``pack_index`` writes for the same index."""
+def pack_index(index, graph_codec: str = "webgraph") -> bytes:
+    """Serialize a factory-built (or raw IVF / graph) index to one blob —
+    the bytes the reference's ``pack_index`` writes for the same index.
+    ``graph_codec`` (``webgraph`` or ``rec``) codes a graph's edges."""
     index = as_api_index(index)
     spec = parse_spec(index.spec)
     meta = {"spec": str(spec), "kind": spec.kind}
@@ -73,6 +81,8 @@ def pack_index(index) -> bytes:
             w.add("id_map", np.asarray(index.id_map, np.int64).tobytes())
     elif isinstance(index, IVFApiIndex):
         _pack_ivf_sections(w, meta, index.ivf)
+    elif isinstance(index, GraphApiIndex):
+        _pack_graph_sections(w, meta, index.graph, graph_codec)
     else:  # pragma: no cover - as_api_index guarantees one of the above
         raise TypeError(f"cannot pack {type(index).__name__}")
     return w.finish(RIDX_MAGIC, RIDX_VERSION, meta)
@@ -109,9 +119,6 @@ def _pack_ivf_sections(w: SectionWriter, meta: dict, ivf: IVFIndex) -> None:
         w.add("vecs", ivf.vecs.astype(np.float32).tobytes())
 
 
-# the graph sections' edge-list helpers, for the graph slice's loader and
-# writer (ROADMAP.md, queue 1: 'Graph indexes')
-
 def _rle(a: np.ndarray):
     """(values, run_lengths) run-length encoding of a 1-d array."""
     a = np.asarray(a, np.int64)
@@ -120,6 +127,38 @@ def _rle(a: np.ndarray):
     starts = np.concatenate([[0], np.flatnonzero(np.diff(a)) + 1])
     lens = np.diff(np.concatenate([starts, [a.size]]))
     return a[starts], lens.astype(np.int64)
+
+
+def _pack_graph_sections(w: SectionWriter, meta: dict, g: GraphIndex,
+                         graph_codec: str) -> None:
+    meta.update(n=int(g.n), d=int(g.x.shape[1]), entry=int(g.entry),
+                graph_codec=graph_codec)
+    w.add("vecs", g.x.astype(np.float32).tobytes())
+    if g.id_map is not None:
+        meta["id_map"] = True
+        w.add("id_map", np.asarray(g.id_map, np.int64).tobytes())
+    # per-node encoding universes, RLE (one run per ingest generation): the
+    # loader re-encodes each blob at its own universe, so id_bits
+    # round-trips mid-ingest
+    vals, lens = _rle(g._universes)
+    meta["universe_runs"] = int(vals.size)
+    w.add("universes", np.concatenate([vals, lens]).tobytes())
+    if graph_codec == "webgraph":
+        head, tail = webgraph_encode(g.adj_raw, g.n).tobytes()
+        w.add("graph_head", head)
+        w.add("graph_tail", tail)
+    elif graph_codec == "rec":
+        edges = _edge_list(g.adj_raw)
+        meta["n_edges"] = int(edges.shape[0])
+        res = rec_encode(edges, g.n, model="degree")
+        head, tail = res.state.tobytes()
+        w.add("graph_head", head)
+        w.add("graph_tail", tail)
+        degrees = np.bincount(edges.reshape(-1), minlength=g.n)
+        w.add("degrees", degrees.astype(np.int64).tobytes())
+    else:
+        raise ValueError(f"unknown graph_codec {graph_codec!r} "
+                         "(options: webgraph, rec)")
 
 
 def _edge_list(adj: List[np.ndarray]) -> np.ndarray:
@@ -161,9 +200,7 @@ def unpack_index(raw: bytes, device="cuda"):
         return idx
     if spec.kind == "ivf":
         return IVFApiIndex.from_built(_unpack_ivf(r, spec, device), spec)
-    raise NotImplementedError(
-        f"RIDX blob of {spec} holds graph sections, which are not ported to "
-        f"repro_torch yet: {GRAPH_NOT_PORTED}")
+    return GraphApiIndex.from_built(_unpack_graph(r, spec, device), spec)
 
 
 def _f32(raw: bytes, shape) -> np.ndarray:
@@ -237,13 +274,39 @@ def _unpack_ivf(r: SectionReader, spec: IndexSpec, device) -> IVFIndex:
         code_codec=spec.codes, **_ingest_fields(spec))
 
 
+def _unpack_graph(r: SectionReader, spec: IndexSpec, device) -> GraphIndex:
+    m = r.manifest
+    n, d = m["n"], m["d"]
+    ans = StreamANS.frombytes(r.section("graph_head"), r.section("graph_tail"))
+    if m["graph_codec"] == "webgraph":
+        adj = [a.astype(np.int64) for a in webgraph_decode(ans, n, n)]
+    else:  # rec
+        degrees = np.frombuffer(r.section("degrees"), np.int64)
+        res = RECResult(payload_bits=0, aux_bits=0, model="degree",
+                        state=ans, aux=_degree_table(degrees))
+        adj = _group_edges(rec_decode(res, n, m["n_edges"]), n)
+    if r.version == 2 or "universes" not in r:
+        universes = None                   # every node sealed at n
+    else:
+        runs = int(m["universe_runs"])
+        flat = np.frombuffer(r.section("universes"), np.int64)
+        universes = np.repeat(flat[:runs], flat[runs:])
+    id_map = (np.frombuffer(r.section("id_map"), np.int64).copy()
+              if m.get("id_map") else None)
+    return GraphIndex.from_arrays(
+        dict(x=_f32(r.section("vecs"), (n, d)), adj=adj, entry=m["entry"],
+             universes=universes, id_map=id_map),
+        id_codec=spec.ids, device=device, **_ingest_fields(spec))
+
+
 # ---------------------------------------------------------------------------
 # file conveniences
 # ---------------------------------------------------------------------------
 
-def save_index(index, path: Optional[Union[str, os.PathLike]] = None) -> bytes:
+def save_index(index, path: Optional[Union[str, os.PathLike]] = None,
+               graph_codec: str = "webgraph") -> bytes:
     """Pack ``index``; also write the blob to ``path`` when given."""
-    raw = pack_index(index)
+    raw = pack_index(index, graph_codec=graph_codec)
     if path is not None:
         with open(path, "wb") as f:
             f.write(raw)

@@ -8,20 +8,19 @@ memory ledger):
   the recall oracle of every other index.
 * :class:`IVFApiIndex` — wraps :class:`repro_torch.ann.ivf.IVFIndex` (all
   id codecs + wavelet tree, optional PQ / Pólya codes).
-
-NSG and HNSW specs parse (the grammar is shared with the reference) but
-their indexes are not ported yet: building one raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+* :class:`GraphApiIndex` — wraps :class:`repro_torch.ann.graph.GraphIndex`
+  (NSG / HNSW, friend lists through any per-list id codec).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..ann.graph import GraphIndex, build_hnsw, build_nsg
 from ..ann.ivf import IVFIndex
 from ..ann.pq import ProductQuantizer
 from ..ann.scan import (batched_flat_search, padded_base, score_rows_flat,
@@ -31,9 +30,8 @@ from ..device import resolve_device
 from .protocol import Index
 from .spec import IndexSpec, parse_spec
 
-__all__ = ["FlatIndex", "IVFApiIndex", "as_api_index", "make_index"]
-
-GRAPH_NOT_PORTED = "graph indexes (ROADMAP.md, queue 1: 'Graph indexes')"
+__all__ = ["FlatIndex", "IVFApiIndex", "GraphApiIndex", "as_api_index",
+           "make_index"]
 
 
 def _cache_bytes(spec: IndexSpec) -> Optional[int]:
@@ -333,24 +331,180 @@ class IVFApiIndex:
         }
 
 
+class GraphApiIndex:
+    """Protocol adapter over the NSG/HNSW graph index."""
+
+    def __init__(self, spec: IndexSpec, device="cuda"):
+        self.index_spec = spec
+        self.graph = GraphIndex(id_codec=spec.ids, device=device,
+                                **_ingest_fields(spec))
+        self.build_s: Dict[str, float] = {}
+
+    @classmethod
+    def from_built(cls, graph: GraphIndex,
+                   spec: Optional[IndexSpec] = None) -> "GraphApiIndex":
+        """Wrap a built :class:`GraphIndex`; a raw graph does not know its
+        builder, so the spec defaults to NSG with the observed degree cap
+        (callers with the truth pass ``spec``)."""
+        self = cls.__new__(cls)
+        self.index_spec = spec or IndexSpec(
+            kind="nsg", degree=max((len(a) for a in graph.adj_raw), default=1),
+            ids=graph.id_codec)
+        self.graph = graph
+        self.build_s = {}
+        return self
+
+    @property
+    def spec(self) -> str:
+        """Canonical factory string (``index_factory(idx.spec)`` rebuilds)."""
+        return str(self.index_spec)
+
+    @property
+    def device(self):
+        """The ``torch.device`` the base lives and is scored on."""
+        return self.graph.torch_device
+
+    def __repr__(self) -> str:  # pragma: no cover
+        return (f"{type(self).__name__}(spec={self.spec!r}, "
+                f"n={getattr(self.graph, 'n', None)}, device={self.device})")
+
+    @property
+    def n(self) -> int:
+        """Size of the id universe (global row count, not rows held)."""
+        return self.graph.n
+
+    def build(self, x: np.ndarray, seed: int = 0,
+              adj: Optional[List[np.ndarray]] = None) -> "GraphApiIndex":
+        """Build the NSG/HNSW adjacency for ``x`` on the index's device (or
+        take ``adj`` as given) and code each friend list with the spec's id
+        codec.  ``build_s`` holds the seconds of the kNN graph
+        (``knn_s``), the prune (``prune_s``) and the coding (``encode_s``,
+        with the medoid and the base's upload)."""
+        x = np.asarray(x, np.float32)
+        self.build_s = {}
+        if adj is None:
+            builder = build_nsg if self.index_spec.kind == "nsg" else build_hnsw
+            adj = builder(x, self.index_spec.degree, seed=seed,
+                          device=self.device, timings=self.build_s)
+        t = time.perf_counter()
+        self.graph.build(x, adj)
+        self.build_s["encode_s"] = time.perf_counter() - t
+        return self
+
+    def add(self, x: np.ndarray) -> "GraphApiIndex":
+        """Append rows as a new epoch, wiring them into the graph with
+        degree-capped greedy edges (dense ids ``n..n+m-1``)."""
+        if self.graph.id_map is not None:
+            raise ValueError("cannot add() to a planner-made graph shard: "
+                             "its global-id mapping is fixed by the plan; "
+                             "route ingest through append_rows()")
+        self.graph.add(x, r=self.index_spec.degree)
+        return self
+
+    def append_rows(self, x: np.ndarray,
+                    global_ids: np.ndarray) -> "GraphApiIndex":
+        """Routed ingest for a planner-made shard: insert the rows this
+        shard owns and extend ``id_map``.  New global ids exceed every
+        existing one, so the map stays ascending and the sharded-merge
+        tie order stays aligned with the monolithic one."""
+        x = np.asarray(x, np.float32).reshape(-1, self.graph.x.shape[1])
+        global_ids = np.asarray(global_ids, np.int64)
+        if x.shape[0] != global_ids.shape[0]:
+            raise ValueError("one global id per appended row")
+        if x.shape[0] == 0:
+            return self
+        id_map = self.graph.id_map
+        if id_map is None:
+            if np.any(global_ids != self.graph.n
+                      + np.arange(global_ids.size)):
+                raise ValueError("unsharded graph ingest must be dense "
+                                 "(ids n..n+m-1); use add()")
+            self.graph.add(x, r=self.index_spec.degree)
+            return self
+        if global_ids.size and int(global_ids[0]) <= int(id_map[-1]):
+            raise ValueError("appended global ids must exceed existing ones")
+        self.graph.add(x, r=self.index_spec.degree)
+        self.graph.id_map = np.concatenate([id_map, global_ids])
+        return self
+
+    def compact(self) -> "GraphApiIndex":
+        """Fold all epochs back into one (recovers single-universe rates)."""
+        self.graph.compact()
+        return self
+
+    @property
+    def n_epochs(self) -> int:
+        """Number of distinct encoding universes currently stored."""
+        return self.graph.n_epochs
+
+    def search(self, queries: np.ndarray, k: int = 10,
+               ef: Optional[int] = None, engine: Optional[str] = None,
+               query_block: int = 64, select: str = "auto",
+               kernel_min: Optional[int] = None):
+        """Beam (best-first) graph search with compressed adjacency.
+
+        ``ef`` is the beam width (default ``max(16, 2k)``); ``engine``
+        (``auto``/``xla``/``pallas``) must suit the index's device,
+        ``select`` places the per-step candidate-distance gather and
+        ``kernel_min`` gates the tiles that take the kernel — results are
+        bit-identical either way, see :mod:`repro_torch.ann.graph_scan`."""
+        ids, dists, stats = self.graph.search(
+            np.asarray(queries, np.float32),
+            ef=ef if ef is not None else max(16, 2 * k), topk=k,
+            engine=engine or self.index_spec.engine or "auto",
+            query_block=query_block, kernel_min=kernel_min, select=select)
+        if self.graph.id_map is not None:
+            # shard planner remap (local node -> global id); padding slots
+            # (dist inf) must stay id 0, matching the monolithic convention
+            ids = np.where(np.isfinite(dists), self.graph.id_map[ids], 0)
+        return dists, ids, stats
+
+    def memory_ledger(self) -> Dict[str, float]:
+        """Bytes by component: compressed adjacency ids vs uncompressed-64
+        and ceil(log2 n) baselines, raw vectors, decoded-list cache."""
+        g = self.graph
+        edges = sum(len(a) for a in g.adj_raw)
+        id_bytes = g.id_bits() / 8.0
+        map_bytes = float(g.id_map.nbytes) if g.id_map is not None else 0.0
+        cache = g.decoded_cache.stats()
+        return {
+            "n": g.n,
+            "epochs": float(g.n_epochs),
+            "edges": edges,
+            "ids_bytes": id_bytes + map_bytes,
+            "ids_bytes_unc64": 8.0 * edges + map_bytes,
+            "ids_bytes_compact": float(np.ceil(np.log2(max(2, g.n)))) * edges / 8.0
+            + map_bytes,
+            "payload_bytes": float(g.x.nbytes),
+            "payload_bytes_unc": float(g.x.nbytes),
+            "centroid_bytes": 0.0,
+            "decoded_cache_bytes": cache["bytes"],
+            "total_bytes": id_bytes + map_bytes + g.x.nbytes + cache["bytes"],
+        }
+
+
 def as_api_index(index):
-    """Upgrade a raw :class:`IVFIndex` to the protocol (identity otherwise)."""
-    if isinstance(index, (FlatIndex, IVFApiIndex)):
+    """Upgrade a raw :class:`IVFIndex` / :class:`GraphIndex` to the
+    protocol (identity otherwise)."""
+    if isinstance(index, (FlatIndex, IVFApiIndex, GraphApiIndex)):
         return index
     if isinstance(index, IVFIndex):
         return IVFApiIndex.from_built(index)
+    if isinstance(index, GraphIndex):
+        return GraphApiIndex.from_built(index)
     if isinstance(index, Index):
         return index  # already protocol-shaped
     raise TypeError(f"cannot adapt {type(index).__name__} to "
                     "repro_torch.api.Index")
 
 
-def make_index(spec, device="cuda") -> "FlatIndex | IVFApiIndex":
-    """Spec (string or IndexSpec) -> empty index on ``device``."""
+def make_index(spec, device="cuda"
+               ) -> "FlatIndex | IVFApiIndex | GraphApiIndex":
+    """Spec (string or IndexSpec) -> empty index of the right class on
+    ``device``."""
     spec = parse_spec(spec)
     if spec.kind == "flat":
         return FlatIndex(spec, device=device)
-    if spec.kind != "ivf":
-        raise NotImplementedError(
-            f"{spec} is not ported to repro_torch yet: {GRAPH_NOT_PORTED}")
-    return IVFApiIndex(spec, device=device)
+    if spec.kind == "ivf":
+        return IVFApiIndex(spec, device=device)
+    return GraphApiIndex(spec, device=device)

@@ -8,9 +8,10 @@ A wrapper runs the plain version only when its tensors lie on the CPU;
 for CUDA tensors it launches the kernel or raises — there is no
 fallback.  Each wrapper counts its launches in ``<wrapper>.launches``
 (a plain integer), so a run can show which kernels its path went through;
-``seg_topk`` also counts its launches by ``(n, k)``, ``l2_top1`` by
-``(K, d, rows)``, ``pq_adc`` and ``l2_dist`` the rows they scored, and
-``wt_rank`` its launches by route (:func:`launch_shapes`):
+``seg_topk`` also counts its launches by ``(n, k)`` and by ``(rows, n,
+k)``, ``l2_top1`` by ``(K, d, rows)``, ``pq_adc`` and ``l2_dist`` the rows
+they scored, ``l2_dist`` its launches by ``(NQ, N)`` tile, and ``wt_rank``
+its launches by route (:func:`launch_shapes`):
 
 * ``l2_topk.l2_dist``  — squared-L2 block for flat vectors (the scan).
 * ``l2_topk.l2_top1``  — nearest centroid per row (k-means assignment in
@@ -46,6 +47,8 @@ def reset_launches() -> None:
     for w in _WRAPPERS.values():
         w.launches = 0
     seg_topk.shapes = {}
+    seg_topk.tiles = {}
+    l2_dist.tiles = {}
     l2_top1.shapes = {}
     wt_rank.routes = {}
     pq_adc.rows = l2_dist.rows = 0
@@ -58,9 +61,12 @@ def launch_counts() -> dict:
 
 def launch_shapes() -> dict:
     """Shapes since the last reset: ``{"seg_topk": {(n, k): launches},
-    "l2_top1": {(K, d, rows): launches}, "pq_adc": rows, "l2_dist":
-    rows, "wt_rank": {route: launches}}``."""
+    "seg_topk_tiles": {(rows, n, k): launches}, "l2_top1": {(K, d, rows):
+    launches}, "pq_adc": rows, "l2_dist": rows, "l2_dist_tiles": {(NQ, N):
+    launches}, "wt_rank": {route: launches}}``."""
     return {"seg_topk": dict(seg_topk.shapes),
+            "seg_topk_tiles": dict(seg_topk.tiles),
             "l2_top1": dict(l2_top1.shapes),
             "pq_adc": pq_adc.rows, "l2_dist": l2_dist.rows,
+            "l2_dist_tiles": dict(l2_dist.tiles),
             "wt_rank": dict(wt_rank.routes)}

@@ -48,11 +48,13 @@ def l2_dist(queries: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
     _build.check(lib, rc, "l2_dist")
     l2_dist.launches += 1
     l2_dist.rows += n
+    l2_dist.tiles[(nq, n)] = l2_dist.tiles.get((nq, n), 0) + 1
     return out
 
 
 l2_dist.launches = 0
 l2_dist.rows = 0             # candidate rows scored, over all launches
+l2_dist.tiles = {}           # {(NQ, N): launches}
 
 
 def l2_top1(queries: torch.Tensor, centroids: torch.Tensor):

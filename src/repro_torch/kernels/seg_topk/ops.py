@@ -63,8 +63,10 @@ def seg_topk(dists: torch.Tensor, lens: torch.Tensor, k: int):
     _build.check(lib, rc, "seg_topk")
     seg_topk.launches += 1
     seg_topk.shapes[(n, k)] = seg_topk.shapes.get((n, k), 0) + 1
+    seg_topk.tiles[(nq, n, k)] = seg_topk.tiles.get((nq, n, k), 0) + 1
     return vals, idx
 
 
 seg_topk.launches = 0
 seg_topk.shapes = {}         # {(n, k): launches}
+seg_topk.tiles = {}          # {(NQ, n, k): launches}

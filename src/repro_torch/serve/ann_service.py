@@ -2,14 +2,16 @@
 
 The serving deployment the paper motivates: a RAM-resident ANN index with
 losslessly-compressed ids answers nearest-neighbor requests from many
-clients.  The service holds a :class:`repro_torch.api.Index` — IVF or
-flat — through the one protocol (a raw ``IVFIndex`` is auto-wrapped).
-Search knobs (IVF: ``nprobe``, ``engine``, ``query_block``, ``select``;
-flat: ``engine``, ``query_block``) ride in as keyword options;
-``cache_mb`` overrides an IVF index's decoded-list cache budget.
+clients.  The service holds any :class:`repro_torch.api.Index` — IVF,
+NSG/HNSW graph or flat — through the one protocol (a raw ``IVFIndex`` or
+``GraphIndex`` is auto-wrapped).  Search knobs (IVF: ``nprobe``,
+``engine``, ``query_block``, ``select``; graph: ``ef``, ``engine``,
+``query_block``, ``select``, ``kernel_min``; flat: ``engine``,
+``query_block``) ride in as keyword options; ``cache_mb`` overrides an
+IVF or graph index's decoded-list cache budget.
 
-Individual requests are small (often one query); the batched IVF engine
-(repro_torch.ann.scan) only pays off when whole query blocks hit the kernels
+Individual requests are small (often one query); the batched engines
+(repro_torch.ann.scan, .graph_scan) only pay off when whole query blocks hit the kernels
 together.  This service closes that gap with a max-batch/max-wait
 micro-batching policy:
 
@@ -93,10 +95,13 @@ class AnnService:
     """Micro-batching front-end over a ``repro_torch.api.Index``.
 
     ``**search_opts`` are forwarded to every ``index.search`` call
-    (IVF: ``nprobe``/``engine``/``query_block``/``select``; flat:
+    (IVF: ``nprobe``/``engine``/``query_block``/``select``; graph:
+    ``ef``/``engine``/``query_block``/``select``/``kernel_min``; flat:
     ``engine``/``query_block``).  ``clock`` is injectable
     (defaults to ``time.perf_counter``) so the max-wait policy is
-    testable without sleeping.
+    testable without sleeping.  Beside :meth:`stats` (the reference's
+    keys), a graph index's beam steps and same-step decode reuse are
+    summed in the ``steps`` and ``dedup_hits`` attributes.
 
     ``device`` (default ``"cuda"``) names the device the caller expects
     the index to run on; a mismatch with the index's own device raises,
@@ -118,7 +123,8 @@ class AnnService:
         self.search_opts = search_opts
         self.clock = clock
         if cache_mb is not None:
-            inner = getattr(self.index, "ivf", None)
+            inner = getattr(self.index, "ivf", None) or getattr(
+                self.index, "graph", None)
             if inner is None:
                 raise ValueError(
                     f"index {self.index.spec!r} has no decoded-list cache "
@@ -146,6 +152,8 @@ class AnnService:
         self.resolve_s = 0.0
         self.host_block_bytes = 0
         self.device_selects = 0
+        self.steps = 0
+        self.dedup_hits = 0
         self.last_stats = None         # SearchStats of the most recent flush
         # bounded: long-lived replicas must not grow per-request state
         self._batch_sizes: "deque[int]" = deque(maxlen=4096)
@@ -268,6 +276,8 @@ class AnnService:
         self.resolve_s += st.id_resolve_s
         self.host_block_bytes += getattr(st, "host_block_bytes", 0)
         self.device_selects += getattr(st, "device_select", 0)
+        self.steps += getattr(st, "steps", 0)
+        self.dedup_hits += getattr(st, "dedup_hits", 0)
         self._batch_sizes.append(batch.shape[0])
         row = 0
         for t in tickets:
@@ -320,8 +330,8 @@ class AnnService:
           events (LRU misses).
         * ``host_block_bytes`` / ``device_selects`` — device-select
           ledger: bytes of device-computed distance data pulled to the
-          host, and query blocks whose top-k cut ran on device
-          (``repro_torch.kernels.seg_topk``).
+          host, and query blocks / graph steps whose top-k cut or distance
+          gather ran on device.
         """
         bs = np.asarray(self._batch_sizes, np.float64)
         ws = np.asarray(self._waits, np.float64)

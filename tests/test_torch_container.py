@@ -12,8 +12,9 @@ with and without an ``id_map``:
 * ``id_bits``, bits per id and the epoch table round-trip, also after
   two ``add`` epochs;
 * spec options survive, files work, v2 and v1 blobs load, garbage is
-  rejected, and a graph blob raises ``NotImplementedError`` naming the
-  ROADMAP item that ports graphs.
+  rejected, and a graph blob (the item ROADMAP named for it, graph
+  indexes, now ported) loads with search equal to the reference's; the
+  graph sections in full are in ``tests/test_torch_graph_container.py``.
 
 The joint id streams are packed by halving
 (``repro_torch.core.container.pack_joint_ids``): its bytes equal the sequential coder's
@@ -247,12 +248,16 @@ def test_garbage_is_rejected(raw):
 
 
 def test_graph_blob_names_the_roadmap_item():
+    """ROADMAP's graph-indexes item is done: the reference's graph blob
+    loads, with search equal to the reference's."""
     from repro.ann.graph import build_nsg
 
     base = BASE[:120]
     ref = ref_factory("NSG8,ids=roc").build(base, adj=build_nsg(base, 8))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Graph indexes"):
-        load_index(ref_save(ref), device="cpu")
+    got = load_index(ref_save(ref), device="cpu")
+    assert got.spec == ref.spec
+    want = ref.search(QUERIES, k=K)
+    _assert_same(got.search(QUERIES, k=K), want)
 
 
 def test_graph_edge_helpers_match_reference():

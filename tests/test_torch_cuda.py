@@ -25,7 +25,11 @@ bit-exact against its own ``search_ref`` and against a CPU index carried
 from the same arrays, also after ingest; a CUDA Flat index at n = 300000
 (retry past k = 4096) against the numpy loop; a container round trip
 onto the card.  k-means on the card must give bitwise-equal centroids
-from run to run.  Whether a card is present is decided inside the
+from run to run.  Graphs: the occlusion prune, HNSW's reverse edges and
+``np_sum_f32`` on the card equal the CPU's, ``l2_dist`` at the beam
+steps' tiles stays inside ``rescore_eps``, and a CUDA ``NSG12,ids=roc``
+index equals its ``search_ref``, also after ``add`` and a save/load round
+trip.  Whether a card is present is decided inside the
 fixture, so every worker collects the same tests.
 """
 
@@ -597,3 +601,113 @@ def test_cuda_container_round_trip(dev):
     d2, i2, _ = cpu.search(queries, k=10, nprobe=8)
     np.testing.assert_array_equal(i2, i0)
     np.testing.assert_array_equal(d2, d0)
+
+
+# ---------------------------------------------------------------------------
+# graph indexes on the card
+# ---------------------------------------------------------------------------
+
+def _graph_data(n=5000, d=32, nq=40, seed=4):
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal((n, d)).astype(np.float32)
+    base[50:53] = base[51]                   # exact ties for the prune
+    queries = rng.standard_normal((nq, d)).astype(np.float32)
+    return base, queries
+
+
+@pytest.mark.parametrize("r,k", [(12, 24), (32, 64), (16, 32)])
+def test_graph_prune_on_the_card_equals_the_cpu(dev, r, k):
+    """The occlusion prune of the same kNN lists on the card and on the
+    CPU: equal kept ids, acceptance order included."""
+    from repro_torch.ann.graph import knn_graph, prune_kept
+
+    base, _ = _graph_data(n=3000, d=128)
+    nn = knn_graph(torch.from_numpy(base).to(dev), k)
+    nodes = np.arange(len(base))
+    card = prune_kept(torch.from_numpy(base).to(dev), nn, nodes, r)
+    cpu = prune_kept(torch.from_numpy(base), nn, nodes, r)
+    np.testing.assert_array_equal(card, cpu)
+
+
+@pytest.mark.parametrize("m", [4, 16])
+def test_hnsw_reverse_edges_on_the_card_equal_the_cpu(dev, m):
+    from repro_torch.ann.graph import hnsw_reverse_edges
+
+    rng = np.random.default_rng(m)
+    n = 4000
+    kept = np.full((n, m), -1, np.int64)
+    for i in range(n):
+        cnt = int(rng.integers(0, m + 1))
+        sel = rng.permutation(np.setdiff1d(rng.integers(0, n, 3 * m), [i]))
+        kept[i, :min(cnt, len(sel))] = sel[:cnt]
+    for a, b in zip(hnsw_reverse_edges(kept, m, device=dev),
+                    hnsw_reverse_edges(kept, m, device="cpu")):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("d", [3, 7, 24, 128, 129, 960])
+def test_np_sum_f32_on_the_card_bit_equal(dev, d):
+    from repro_torch.ann.npsum import np_sum_f32
+
+    rng = np.random.default_rng(d)
+    a = (rng.standard_normal((2048, d)) ** 2
+         * rng.uniform(0.01, 1e4, (2048, 1))).astype(np.float32)
+    got = np_sum_f32(torch.from_numpy(a).to(dev)).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  np.sum(a, axis=1).view(np.int32))
+
+
+@pytest.mark.parametrize("nq,n", [(8, 128), (64, 1024), (16, 4096),
+                                  (64, 2048)])
+def test_l2_dist_at_graph_tiles(dev, nq, n):
+    g = torch.Generator(device=dev)
+    g.manual_seed(nq * n)
+    for kind in ("randn", "sift-int"):
+        q, a = _l2_inputs(kind, nq, n, 128, dev, g)
+        qn = (q.double() ** 2).sum(1, keepdim=True).cpu().numpy()
+        _in_band(l2_dist(q, a), l2_dist_ref(q, a), 128, qn)
+
+
+def test_cuda_graph_index_equals_search_ref(dev):
+    """A CUDA NSG12,ids=roc index over 5000 vectors: search equal to its
+    search_ref (every gate and select mode), after add and after a
+    save/load round trip onto the card; the CPU index carried from the
+    same adjacency gives the same results."""
+    from repro_torch.ann.graph import GraphIndex
+    from repro_torch.api import index_factory, load_index, save_index
+
+    base, queries = _graph_data()
+    idx = index_factory("NSG12,ids=roc", device=dev).build(base[:4500])
+    assert idx.graph.base_dev.is_cuda
+    cpu = GraphIndex(id_codec="roc", device="cpu").build(
+        base[:4500], idx.graph.adj_raw)
+
+    def same(index, ref_index):
+        want = ref_index.graph.search_ref(queries, ef=24, topk=10) if \
+            hasattr(ref_index, "graph") else ref_index.search_ref(
+                queries, ef=24, topk=10)
+        for km in (None, 1, 10**9):
+            for select in ("auto", "host", "device"):
+                reset_launches()
+                ids, dists, st = index.graph.search(
+                    queries, ef=24, topk=10, kernel_min=km, select=select)
+                np.testing.assert_array_equal(ids, want[0])
+                np.testing.assert_array_equal(dists, want[1])
+                assert st.engine == "graph-pallas"
+                if km in (1, 10**9):
+                    assert (launch_counts()["l2_dist"] > 0) == (km == 1)
+        return want
+
+    want = same(idx, idx)
+    np.testing.assert_array_equal(want[0], cpu.search(queries, ef=24,
+                                                      topk=10)[0])
+    idx.add(base[4500:])
+    cpu.add(base[4500:], r=12)
+    for a, b in zip(idx.graph.adj_raw, cpu.adj_raw):
+        np.testing.assert_array_equal(a, b)
+    same(idx, cpu)
+    back = load_index(save_index(idx, graph_codec="rec"), device=dev)
+    assert back.graph.base_dev.is_cuda and back.n_epochs == 2
+    same(back, idx)
+    with pytest.raises(ValueError, match="xla"):
+        idx.search(queries, engine="xla")

@@ -416,8 +416,18 @@ def test_flat_carried_from_arrays(id_map):
 
 @pytest.mark.parametrize("spec", ["NSG16,ids=roc", "HNSW8,ids=ef"])
 def test_unported_structures_raise(spec):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        index_factory(spec, device="cpu")
+    """Graph specs were the last unported structures; they now build the
+    reference's adjacency (``tests/test_torch_graph.py`` holds the rest)."""
+    from repro_torch.api import GraphApiIndex
+
+    base = np.random.default_rng(3).standard_normal((300, 16)).astype(
+        np.float32)
+    port = index_factory(spec, device="cpu")
+    assert isinstance(port, GraphApiIndex) and port.spec == spec
+    ref = ref_factory(spec).build(base)
+    port.build(base)
+    for a, b in zip(port.graph.adj_raw, ref.graph.adj_raw):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("spec", [
@@ -451,6 +461,7 @@ import sys
 import numpy as np
 import repro_torch
 import repro_torch.ann.ivf, repro_torch.ann.scan, repro_torch.ann.kmeans
+import repro_torch.ann.graph, repro_torch.ann.graph_scan, repro_torch.ann.npsum
 import repro_torch.api, repro_torch.serve, repro_torch.core, repro_torch.data
 import repro_torch.kernels, repro_torch.kernels._build
 import repro_torch.kernels.l2_topk, repro_torch.kernels.wt_rank
@@ -476,6 +487,11 @@ for engine in (None, "xla"):
 fsvc = AnnService(load_index(save_index(flat), device="cpu"), topk=3,
                   device="cpu", engine="auto")
 assert fsvc.search(x[4:5])[0][0, 0] == 4
+g = index_factory("HNSW6,ids=roc", device="cpu").build(x)
+g.add(x[:3] + 1.0)
+gsvc = AnnService(load_index(save_index(g, graph_codec="rec"), device="cpu"),
+                  topk=3, device="cpu", ef=8, kernel_min=1)
+assert gsvc.search(x[7:8])[0][0, 0] == 7
 assert l2_top1(torch.from_numpy(x), torch.from_numpy(x[:3]))[0][2] == 2
 words, sup = pack_bits_u32(np.ones(40, np.uint8))
 assert wt_rank(torch.from_numpy(words.view(np.int32)), torch.from_numpy(sup),
