@@ -41,8 +41,9 @@ exits non-zero without the final ``ok`` line:
    PQ encoding through ``l2_top1``) and served through ``AnnService``
    (4-query requests, ``max_batch=64``, ``nprobe=16``, top-10) twice,
    with the decoded-id cache cold and then warm; then an ingest pass: five
-   ``add`` calls of 10,000 new vectors each (five epochs), and the queries
-   served again.  Every kernel's launch count (and the launch shapes:
+   ``add`` calls of 10,000 new vectors each (five epochs; two for the PQ
+   spec, whose Pólya coding runs on the host), and the queries served
+   again.  Every kernel's launch count (and the launch shapes:
    ``seg_topk`` by ``(n, k)``, ``l2_top1`` by ``(K, d, rows)``, the rows
    of ``pq_adc`` and ``l2_dist``) is set to 0 before the build and read
    after the last pass; results must equal ``search_ref`` exactly on the
@@ -58,7 +59,22 @@ exits non-zero without the final ``ok`` line:
    Flat index, with pack and unpack seconds and blob MB; bits per id and
    epochs equal, and search after reload equal to search before over all
    queries (counts set to 0 before the path and read after);
-8. graph paths, on the reference's graph workload (1M ``deep-like``
+8. sharded paths (``repro_torch.shard``), over the indexes built above,
+   each counted on its own: the ``IVF1024,ids=roc`` index after its
+   ingest planned onto 1, 2 and 4 shards by range and 4 by hash and served
+   through ``ShardedAnnService`` cold (the monolith's decoded-id cache
+   budget split across the shards) and warm, ids and dists equal to the
+   monolith's on all queries, with QPS, p50/p99 and the merge share beside
+   the monolith's warm QPS; one routed add of 10,000 vectors to the
+   monolith and to both 4-shard services (every shard's n and epochs equal
+   the monolith's, results equal); ``IVF1024,PQ8x8,ids=roc,codes=polya``
+   over the first 100,000 vectors on 2 shards by hash (a host-bound cut:
+   the planner re-encodes each shard's Pólya codes); Flat on 4 shards by
+   hash, its plan saved and loaded onto the card (pack / unpack seconds,
+   MB), equal before and after; an ``IVF1024,ids=roc`` plan over the first
+   100,000 vectors saved and loaded (the joint ROC streams cost ~1 min at
+   1M on the host), equal;
+9. graph paths, on the reference's graph workload (1M ``deep-like``
    vectors, d = 96, seed 0, and its own 1000 queries): ``NSG32,ids=roc``
    built on the card (kNN through ``l2_dist`` + ``seg_topk``, the
    occlusion prune, the host's ROC coding, each timed; bits per edge, and
@@ -75,7 +91,16 @@ exits non-zero without the final ``ok`` line:
    recall@10 must reach ``GRAPH_NAV_FLOOR``, and warm passes at each
    ``kernel_min`` of ``GRAPH_GATES`` in turns (results equal) give the
    reading behind ``graph_scan.KERNEL_MIN_CUDA`` and every step's tile
-   width.  The card's decisions against the CPU's: the NSG32 and HNSW16
+   width.  That navigable graph on 2 shards (each shard's graph rebuilt
+   on the card), served through ``ShardedAnnService``: each shard equal to
+   its own ``search_ref`` on 64 queries, the merge equal to an independent
+   merge of the shards' results on all queries, the shards' reachable
+   share and recall@10; and over its first 2000 vectors the reference's
+   exhaustive regime (ef = 2048 >= n): the monolith and each shard return
+   the exact top-10 over the nodes reachable from their entries, and the
+   merge equals the monolith on every query whose exact top-10 is
+   reachable in both (the other queries counted).  The card's decisions
+   against the CPU's: the NSG32 and HNSW16
    prunes of the first 20,000 nodes' kNN lists (and NSG32's against the
    lists the 1M build made), HNSW's reverse edges on that subgraph (card,
    CPU and the reference's loop), ``knn_graph`` over 10,000 vectors
@@ -87,18 +112,22 @@ exits non-zero without the final ``ok`` line:
    ~0.1-0.3 ms a node), search equal.  Every ``l2_dist`` tile and
    ``seg_topk`` ``(rows, n, k)`` these paths launched is held against its
    plain version and timed; each path's counts are set to 0 before it and
-   read after;
-9. main-path shapes: ``seg_topk`` at every ``(n, k)`` and ``l2_top1`` at
-   every ``(K, d, rows)`` that phases 5-7 launched (each checked as in
+   read after.  Then the sharded degraded mode, after every counted path
+   and not counted: a dead shard (``stats.partial``, none of its ids
+   served) and a flaky one (full results after one retry);
+10. main-path shapes: ``seg_topk`` at every ``(n, k)`` and ``l2_top1`` at
+   every ``(K, d, rows)`` that phases 5-8 launched (each checked as in
    phase 3; at n = 2^20, Flat's width, the kernel reads its keys from
    global memory on every pass, and it is timed, bounded and set beside
    ``torch.topk`` on the block Flat gives it: the first 64 queries'
    distances to the padded base, lens = n on every row, held bit-equal
    as well), ``pq_adc`` and ``l2_dist`` at the IVF
-   mean arena rows (``l2_dist`` at Flat's 2^20 rows in phase 3); each
+   mean arena rows (``l2_dist`` at Flat's 2^20 rows in phase 3), and
+   ``pq_adc`` / ``l2_dist`` at the sharded paths' mean arena rows and a
+   Flat shard's padded rows; each
    kernel's ``main_path_ms`` is launches x time at the shape launched
-   (the graph paths' launches at their tiles of phase 8 included);
-10. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
+   (the graph paths' launches at their tiles of phase 9 included);
+11. kernel API path: ``wt_rank`` on level 0 of a wavelet tree over the flat
    index's assignment (2^20 positions, the resident route; bit-equal to
    ``BitVector`` and the plain version on a CPU copy) and ``rans_decode``
    on gap_ans-model streams at (128, 8192) and (16, 64) (bit-equal to the
@@ -106,9 +135,9 @@ exits non-zero without the final ``ok`` line:
    their launches (and ``wt_rank``'s routes) are counted here; the
    (1024, 1024) decode is timed in phase 3 and not counted.
 
-The last three lines are the card's name and power limit (as
-``nvidia-smi`` gives them), the ``kernels`` JSON (one entry a kernel) and
-``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports nothing
+The last four lines are the total of the phases' seconds, the card's
+name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
+(one entry a kernel) and ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports nothing
 of JAX or of the JAX package.
 """
 
@@ -144,6 +173,10 @@ NLIST = 1024
 # 128-d rows, and one PQ8x8 subspace (256 centroids of 16 dims)
 TOP1_SHAPES = ((1 << 20, NLIST, 128), (1 << 20, 256, 16))
 INGEST_ADDS, INGEST_ROWS = 5, 10_000
+# the PQ spec is grown by the first two adds only: each add's Pólya coding
+# runs on the host (~20 s at 1M), a cut of depth that keeps the run with
+# its sharded phases near 900 s of phases
+PQ_INGEST_ADDS = 2
 # seg_topk at two row widths and every k the scan's K-doubling retry
 # reaches up to 2048 (and k = 16, the earlier kernel's shape), plus the
 # retry's worst case k = n; the (n, k) the main path launched (at 1M
@@ -195,15 +228,44 @@ NPSUM_DIMS = (7, 24, 128, 129, 960)
 STEP_TILES = tuple((64, n) for n in (128, 256, 512, 1024, 2048, 4096))
 # the most elements of a beam step's l2_dist tile (64 rows x 4096)
 STEP_TILE_MAX = 64 * 4096
+# sharded serving (repro_torch.shard) over the indexes the paths above
+# built: IVF1024,ids=roc after its ingest at 1, 2 and 4 shards by range and
+# 4 by hash, then one routed add of SHARD_ADD_ROWS vectors; PQ over the
+# first SHARD_PQ_N vectors (the planner re-encodes each shard's Pólya
+# codes on the host: at 1M that costs about as much as the PQ build), 2
+# shards by hash; Flat at full size, 4 by hash, its plan saved and loaded
+# onto the card; an IVF plan saved and loaded over the first
+# SHARD_CONTAINER_N vectors (the host's joint ROC streams cost ~1 min at
+# 1M); the navigable NSG32 graph, 2 shards, and the reference's
+# exhaustive regime (ef >= n) over its first SHARD_EXHAUSTIVE_N vectors
+SHARD_IVF = ((1, "range"), (2, "range"), (4, "range"), (4, "hash"))
+SHARD_ADD_ROWS = 10_000
+SHARD_PQ_N = 100_000
+SHARD_CONTAINER_N = 100_000
+SHARD_GRAPH = 2
+SHARD_EXHAUSTIVE_N = 2000
+SHARD_EXHAUSTIVE_EF = 2048
+SHARD_EXHAUSTIVE_Q = 128
+# the time a run of this script may take, kernels' build included
+RUN_LIMIT_S = 1200
 
 
-@contextlib.contextmanager
-def phase(name):
-    """Print a phase's start and, if it raised nothing, its seconds."""
-    t = time.perf_counter()
-    print(f"[phase] {name} ...", flush=True)
-    yield
-    print(f"[phase] {name} ok in {time.perf_counter() - t:.3f} s", flush=True)
+class Phases:
+    """The run's phase timer: ``with phases(name):`` prints the phase's
+    start and, if it raised nothing, its seconds, which ``seconds`` keeps
+    (their sum is the run's total of phase seconds)."""
+
+    def __init__(self):
+        self.seconds = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        t = time.perf_counter()
+        print(f"[phase] {name} ...", flush=True)
+        yield
+        s = time.perf_counter() - t
+        self.seconds.append(s)
+        print(f"[phase] {name} ok in {s:.3f} s", flush=True)
 
 
 def cuda_ms(fn, reps=20, warmup=3, graph=False):
@@ -680,9 +742,34 @@ def serve_pass(svc, queries):
         decodes=st["decodes"], batches=st["batches"],
         mean_batch=st["mean_batch"], device_selects=st["device_selects"],
         host_block_bytes=st["host_block_bytes"])
-    if svc.steps:                    # a graph index's beam steps
+    if getattr(svc, "steps", 0):     # a graph index's beam steps
         report.update(steps=svc.steps, dedup_hits=svc.dedup_hits)
+    if "merge_s" in st:              # a sharded service
+        report.update(merge_s=st["merge_s"],
+                      merge_share=st["merge_s"] / st["search_s"],
+                      shards=st["shards"],
+                      partial_batches=st["partial_batches"])
     return tickets, report
+
+
+def results(tickets):
+    """(ids, dists) of a pass's tickets, in request order."""
+    import numpy as np
+
+    return (np.concatenate([tk.ids for tk in tickets]),
+            np.concatenate([tk.dists for tk in tickets]))
+
+
+def hold_equal(what, got, want):
+    """Ids and dists ``np.array_equal`` (bit for bit), or raise."""
+    import numpy as np
+
+    if not (np.array_equal(got[0], want[0])
+            and np.array_equal(got[1], want[1])):
+        rows = int((~((got[0] == want[0]) & (got[1] == want[1]))).any(1)
+                   .sum())
+        raise AssertionError(f"{what}: differs from the monolith in {rows} "
+                             f"of {len(want[0])} queries")
 
 
 def check_parity(spec, idx, tickets, queries):
@@ -863,9 +950,381 @@ def container_path(name, idx, opts, queries, device):
     return dict(rec, launches=counts), counts, shapes
 
 
+def sharded_service(plan, device, **opts):
+    """A ShardedAnnService over ``plan`` with the main path's batching."""
+    from repro_torch.serve import BatchPolicy
+    from repro_torch.shard import ShardedAnnService
+
+    return ShardedAnnService(plan, topk=TOPK,
+                             policy=BatchPolicy(max_batch=MAX_BATCH),
+                             device=device, **opts)
+
+
+def timed(fn):
+    """(fn(), seconds), the card synchronised before the clock stops."""
+    import torch
+
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def shard_ivf_path(idx, queries, add_x, device):
+    """Sharded serving of the built ``IVF1024,ids=roc`` index (after its
+    ingest): the monolith served warm through AnnService; each plan of
+    SHARD_IVF served cold (the monolith's decoded-id cache budget split
+    across the shards) and warm through ShardedAnnService, ids and dists
+    equal to the monolith's on every query; then one routed add of
+    ``add_x`` to the monolith and to both 4-shard services: every shard's
+    n and epochs equal the monolith's, results equal again.  Counts set to
+    0 before and read after.  Returns (report, counts, shapes)."""
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.serve import AnnService, BatchPolicy
+    from repro_torch.shard import plan_shards
+
+    reset_launches()
+    mono_svc = AnnService(idx, topk=TOPK,
+                          policy=BatchPolicy(max_batch=MAX_BATCH),
+                          device=device, nprobe=NPROBE)
+    mono_t, mono = serve_pass(mono_svc, queries)
+    want = results(mono_t)
+    budget_mb = idx.ivf.decoded_cache.max_bytes / 2**20
+    plans, keep = [], {}
+    for nshards, by in SHARD_IVF:
+        plan, plan_s = timed(lambda: plan_shards(idx, nshards, by=by))
+        svc = sharded_service(plan, device, cache_mb=budget_mb,
+                              nprobe=NPROBE)
+        cold_t, cold = serve_pass(svc, queries)
+        warm_t, warm = serve_pass(svc, queries)
+        for tickets in (cold_t, warm_t):
+            hold_equal(f"{idx.spec} on {nshards} shards by {by}",
+                       results(tickets), want)
+        plans.append(dict(
+            nshards=nshards, by=by, plan_s=plan_s,
+            n_local=[info.n_local for info in plan.shards], cold=cold,
+            warm=warm, warm_qps_over_monolith=warm["qps"] / mono["qps"],
+            equal_on_all_queries=True))
+        if nshards == 4:
+            keep[by] = svc
+        else:
+            svc.close()
+        del plan
+    _, mono_add_s = timed(lambda: mono_svc.add(add_x))
+    grown_t, grown = serve_pass(mono_svc, queries)
+    want = results(grown_t)
+    adds = []
+    for by, svc in keep.items():
+        _, add_s = timed(lambda: svc.add(add_x))
+        got = [(sh.ivf.n, sh.ivf.n_epochs) for sh in svc.plan.indexes]
+        if set(got) != {(idx.ivf.n, idx.ivf.n_epochs)}:
+            raise AssertionError(f"routed add by {by}: shards at (n, "
+                                 f"epochs) {got}, the monolith at "
+                                 f"{(idx.ivf.n, idx.ivf.n_epochs)}")
+        g_t, g = serve_pass(svc, queries)
+        hold_equal(f"{idx.spec} on 4 shards by {by} after a routed add",
+                   results(g_t), want)
+        adds.append(dict(by=by, add_s=add_s, served=g,
+                         equal_on_all_queries=True))
+        svc.close()
+    counts, shapes = launch_counts(), launch_shapes()
+    return dict(
+        spec=idx.spec, cache_mb=budget_mb, monolith_warm=mono, plans=plans,
+        routed_add=dict(rows=len(add_x), monolith_add_s=mono_add_s,
+                        n=int(idx.ivf.n), epochs=idx.ivf.n_epochs,
+                        monolith_served=grown, sharded=adds),
+        launches=counts, shapes=shape_report(counts, shapes)), counts, shapes
+
+
+def shard_pq_path(base, queries, device):
+    """``IVF1024,PQ8x8,ids=roc,codes=polya`` built on the card over the
+    first SHARD_PQ_N vectors, served through AnnService (cold, warm), then
+    planned onto 2 shards by hash (each shard's Pólya codes re-encoded on
+    the host) and served cold and warm through ShardedAnnService, equal to
+    the monolith on every query.  Counts set to 0 before the build and
+    read after.  Returns (report, counts, shapes)."""
+    from repro_torch.api import index_factory
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.serve import AnnService, BatchPolicy
+    from repro_torch.shard import plan_shards
+
+    reset_launches()
+    x = base[:SHARD_PQ_N]
+    idx, build_s = timed(lambda: index_factory(SPECS[1], device=device)
+                         .build(x, seed=1))
+    mono_svc = AnnService(idx, topk=TOPK,
+                          policy=BatchPolicy(max_batch=MAX_BATCH),
+                          device=device, nprobe=NPROBE)
+    serve_pass(mono_svc, queries)
+    mono_t, mono = serve_pass(mono_svc, queries)
+    want = results(mono_t)
+    plan, plan_s = timed(lambda: plan_shards(idx, 2, by="hash"))
+    budget_mb = idx.ivf.decoded_cache.max_bytes / 2**20
+    with sharded_service(plan, device, cache_mb=budget_mb,
+                         nprobe=NPROBE) as svc:
+        cold_t, cold = serve_pass(svc, queries)
+        warm_t, warm = serve_pass(svc, queries)
+    for tickets in (cold_t, warm_t):
+        hold_equal(f"{idx.spec} at n={len(x)} on 2 shards", results(tickets),
+                   want)
+    counts, shapes = launch_counts(), launch_shapes()
+    return dict(
+        spec=idx.spec, n=len(x), build_s=build_s, plan_s=plan_s,
+        bits_per_code=[sh.ivf.code_bits_per_element()
+                       for sh in plan.indexes],
+        monolith_bits_per_code=idx.ivf.code_bits_per_element(),
+        monolith_warm=mono, cold=cold, warm=warm, equal_on_all_queries=True,
+        launches=counts, shapes=shape_report(counts, shapes)), counts, shapes
+
+
+def save_load_plan(plan, device):
+    """``plan.save`` into a temporary directory under the git-ignored
+    ``build/`` and ``ShardPlan.load`` onto ``device``: (loaded plan,
+    pack s, unpack s, MB on disk)."""
+    import tempfile
+
+    from repro_torch.shard import ShardPlan
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        _, pack_s = timed(lambda: plan.save(tmp))
+        mb = sum(f.stat().st_size for f in Path(tmp).iterdir()) / 2**20
+        loaded, unpack_s = timed(lambda: ShardPlan.load(tmp, device=device))
+    return loaded, pack_s, unpack_s, mb
+
+
+def shard_flat_path(idx, queries, device):
+    """The 1M ``Flat`` index on 4 shards by hash: served twice through
+    ShardedAnnService (the first pass uploads each shard's base), equal to
+    the monolith's AnnService pass on every query; the plan saved and
+    loaded onto the card, served again, equal.  Counts set to 0 before and
+    read after.  Returns (report, counts, shapes)."""
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.serve import AnnService, BatchPolicy
+    from repro_torch.shard import plan_shards
+
+    reset_launches()
+    mono_t, mono = serve_pass(AnnService(
+        idx, topk=TOPK, policy=BatchPolicy(max_batch=MAX_BATCH),
+        device=device), queries)
+    want = results(mono_t)
+    plan, plan_s = timed(lambda: plan_shards(idx, 4))
+    with sharded_service(plan, device) as svc:
+        first_t, first = serve_pass(svc, queries)
+        second_t, second = serve_pass(svc, queries)
+    for tickets in (first_t, second_t):
+        hold_equal("Flat on 4 shards", results(tickets), want)
+    loaded, pack_s, unpack_s, mb = save_load_plan(plan, device)
+    del plan
+    with sharded_service(loaded, device) as svc:
+        back_t, back = serve_pass(svc, queries)
+    hold_equal("Flat on 4 shards after save and load", results(back_t), want)
+    counts, shapes = launch_counts(), launch_shapes()
+    return dict(
+        spec="Flat", n=int(idx.n), plan_s=plan_s,
+        n_local=[info.n_local for info in loaded.shards], monolith=mono,
+        first=first, second=second, plan_mb=mb, pack_s=pack_s,
+        unpack_s=unpack_s, after_reload=back, equal_on_all_queries=True,
+        launches=counts, shapes=shape_report(counts, shapes)), counts, shapes
+
+
+def shard_container_path(base, queries, device):
+    """``IVF1024,ids=roc`` built over the first SHARD_CONTAINER_N vectors,
+    planned onto 4 shards by hash, the plan saved and loaded onto the card
+    (pack / unpack seconds, MB), and the loaded plan served equal to the
+    monolith on every query.  Counts set to 0 before and read after.
+    Returns (report, counts, shapes, the loaded plan)."""
+    from repro_torch.api import index_factory
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.shard import plan_shards
+
+    reset_launches()
+    x = base[:SHARD_CONTAINER_N]
+    idx = index_factory(SPECS[0], device=device).build(x, seed=1)
+    d0, i0, _ = idx.search(queries, k=TOPK, nprobe=NPROBE)
+    plan = plan_shards(idx, 4, by="hash")
+    loaded, pack_s, unpack_s, mb = save_load_plan(plan, device)
+    with sharded_service(loaded, device, nprobe=NPROBE) as svc:
+        served_t, served = serve_pass(svc, queries)
+    hold_equal(f"{idx.spec} at n={len(x)} on 4 shards after save and load",
+               results(served_t), (i0, d0))
+    counts, shapes = launch_counts(), launch_shapes()
+    return dict(
+        spec=idx.spec, n=len(x), plan_mb=mb, pack_s=pack_s,
+        unpack_s=unpack_s, served=served, equal_on_all_queries=True,
+        launches=counts, shapes=shape_report(counts, shapes)), counts, \
+        shapes, loaded
+
+
+def merge_by_dist_id(parts, k):
+    """Each query's ``k`` smallest ``(dist, id)`` pairs over the shards'
+    ``(ids, dists)``, one query at a time in Python: the graph shards'
+    merge rule, written independently of the router's."""
+    import numpy as np
+
+    nq = parts[0][0].shape[0]
+    ids = np.zeros((nq, k), np.int64)
+    dists = np.full((nq, k), np.inf, np.float32)
+    for qi in range(nq):
+        pairs = sorted((float(d), int(i)) for ids_s, d_s in parts
+                       for d, i in zip(d_s[qi], ids_s[qi]) if np.isfinite(d))
+        for j, (d, i) in enumerate(pairs[:k]):
+            ids[qi, j], dists[qi, j] = i, d
+    return ids, dists
+
+
+def exact_over(x, nodes, q, k):
+    """The ``k`` smallest ``(dist, id)`` over ``nodes`` (global ids into
+    ``x``) for each query, dists by the graph search's own numpy
+    expression: (ids, dists)."""
+    import numpy as np
+
+    ids = np.zeros((len(q), k), np.int64)
+    dists = np.full((len(q), k), np.inf, np.float32)
+    for qi in range(len(q)):
+        d = np.sum((x[nodes] - q[qi]) ** 2, axis=1)
+        top = np.lexsort((nodes, d))[:k]
+        ids[qi, :len(top)], dists[qi, :len(top)] = nodes[top], d[top]
+    return ids, dists
+
+
+def shard_graph_path(nav_idx, queries, gt, device):
+    """The navigable ``NSG32,ids=roc`` index on SHARD_GRAPH shards by hash
+    (each shard's graph rebuilt on the card), served cold and warm through
+    ShardedAnnService (ef = GRAPH_EF): every shard's results equal its own
+    ``search_ref`` on the first 64 queries, and the merged results equal an
+    independent merge of the shards' results on every query; the shards'
+    reachable share and the merged recall@10.  Then the reference's
+    exhaustive regime over the first SHARD_EXHAUSTIVE_N vectors (ef =
+    SHARD_EXHAUSTIVE_EF >= n): the monolith and every shard return the
+    exact top-10 over the nodes reachable from their entries, the merge
+    equals the merge of the shards, and the merge equals the monolith on
+    every query whose exact top-10 lies inside the nodes reachable in both
+    (the precondition of exhaustive parity; the other queries are
+    counted).  Counts set to 0 before and read after.  Returns (report,
+    counts, shapes)."""
+    import numpy as np
+    from repro_torch.api import index_factory
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.shard import plan_shards
+
+    reset_launches()
+    plan, plan_s = timed(lambda: plan_shards(nav_idx, SHARD_GRAPH, seed=0))
+    with sharded_service(plan, device, ef=GRAPH_EF) as svc:
+        cold_t, cold = serve_pass(svc, queries)
+        warm_t, warm = serve_pass(svc, queries)
+    got = results(warm_t)
+    hold_equal("NSG32 shards, cold against warm", results(cold_t), got)
+    parts, shard_rows = [], []
+    for sh in plan.indexes:
+        g = sh.graph
+        d, i, _ = sh.search(queries, k=TOPK, ef=GRAPH_EF)
+        i_r, d_r, _ = g.search_ref(queries[:64], ef=GRAPH_EF, topk=TOPK)
+        i_r = np.where(np.isfinite(d_r), g.id_map[i_r], 0)
+        hold_equal("an NSG32 shard against its search_ref",
+                   (i[:64], d[:64]), (i_r, d_r))
+        parts.append((i, d))
+        reach = reachable_from_entry(g.adj_raw, g.entry)
+        shard_rows.append(dict(n=int(g.n), reachable_share=reach / g.n,
+                               bits_per_edge=g.bits_per_edge()))
+    hold_equal("NSG32 shards against a merge of the shards' results", got,
+               merge_by_dist_id(parts, TOPK))
+
+    # the exhaustive regime
+    x = nav_idx.graph.x[:SHARD_EXHAUSTIVE_N]
+    q = queries[:SHARD_EXHAUSTIVE_Q]
+    small = index_factory(nav_idx.spec, device=device).build(x)
+    splan = plan_shards(small, SHARD_GRAPH, seed=0)
+    ef = SHARD_EXHAUSTIVE_EF
+    d_m, i_m, _ = small.search(q, k=TOPK, ef=ef)
+    with sharded_service(splan, device, ef=ef) as svc:
+        merged = svc.search(q)
+    reach_m = np.flatnonzero(reachable_mask(small.graph.adj_raw,
+                                            small.graph.entry))
+    hold_equal("exhaustive NSG32 monolith against the exact top-10 over "
+               "its reachable nodes", (i_m, d_m),
+               exact_over(x, reach_m, q, TOPK))
+    sparts, reach_s = [], []
+    for sh in splan.indexes:
+        g = sh.graph
+        d, i, _ = sh.search(q, k=TOPK, ef=ef)
+        r = g.id_map[reachable_mask(g.adj_raw, g.entry)]
+        hold_equal("an exhaustive NSG32 shard against the exact top-10 "
+                   "over its reachable nodes", (i, d),
+                   exact_over(x, r, q, TOPK))
+        sparts.append((i, d))
+        reach_s.append(r)
+    hold_equal("exhaustive NSG32 shards against a merge of the shards",
+               merged, merge_by_dist_id(sparts, TOPK))
+    exact, _ = exact_over(x, np.arange(len(x)), q, TOPK)
+    both = np.intersect1d(reach_m, np.concatenate(reach_s))
+    held = np.isin(exact, both).all(1)
+    hold_equal("exhaustive NSG32 shards against the monolith where every "
+               "exact top-10 node is reachable in both",
+               (merged[0][held], merged[1][held]), (i_m[held], d_m[held]))
+    same = ((merged[0] == i_m) & (merged[1] == d_m)).all(1)
+    counts, shapes = launch_counts(), launch_shapes()
+    return dict(
+        spec=nav_idx.spec, n=int(nav_idx.graph.n), ef=GRAPH_EF,
+        plan_s=plan_s, shards=shard_rows, cold=cold, warm=warm,
+        recall_at_10=recall_at_10(got[0], gt),
+        shards_equal_search_ref_64=True, merge_equal_on_all_queries=True,
+        exhaustive=dict(
+            n=len(x), ef=ef, queries=len(q),
+            reachable=[len(reach_m)] + [len(r) for r in reach_s],
+            precondition_held=int(held.sum()),
+            equal_to_monolith=int(same.sum()),
+            equal_where_held=True),
+        launches=counts, shapes=shape_report(counts, shapes)), counts, shapes
+
+
+def degraded_passes(plan, queries, device):
+    """Not counted, and run after every counted path: ``ScriptedFaults(
+    dead=[1])`` must give ``stats.partial`` with no result id of shard 1,
+    and ``ScriptedFaults(flaky={0: 1})`` the full results after one
+    retry."""
+    import numpy as np
+    from repro_torch.shard import RetryPolicy, ScriptedFaults
+
+    no_sleep = RetryPolicy(sleep=lambda s: None)
+    with sharded_service(plan, device, nprobe=NPROBE) as svc:
+        want = svc.search(queries)
+    with sharded_service(plan, device, nprobe=NPROBE, retry=no_sleep,
+                         fault_policy=ScriptedFaults(dead=[1])) as svc:
+        ids, dists, st = svc.search(queries, with_stats=True)
+    dead = np.concatenate([lst for lst in plan.indexes[1].ivf._lists
+                           if len(lst)])
+    if not (st.partial and st.shards_failed == 1
+            and np.isfinite(dists[:, 0]).all()
+            and not np.isin(ids[np.isfinite(dists)], dead).any()):
+        raise AssertionError(f"dead shard 1: partial={st.partial}, "
+                             f"failed={st.shards_failed}, or its ids served")
+    with sharded_service(plan, device, nprobe=NPROBE, retry=no_sleep,
+                         fault_policy=ScriptedFaults(flaky={0: 1})) as svc:
+        ids_f, dists_f, st_f = svc.search(queries, with_stats=True)
+    if st_f.partial or st_f.retries != 1:
+        raise AssertionError(f"flaky shard 0: partial={st_f.partial}, "
+                             f"retries={st_f.retries}")
+    hold_equal("a flaky shard after its retry", (ids_f, dists_f), want)
+    return dict(dead=dict(shard=1, partial=True, shards_failed=1,
+                          ids_of_dead_shard_served=0),
+                flaky=dict(shard=0, retries=1, partial=False,
+                           equal_to_full=True))
+
+
 def reachable_from_entry(adj, entry):
+    """How many nodes a search can reach from ``entry``."""
+    return int(reachable_mask(adj, entry).sum())
+
+
+def reachable_mask(adj, entry):
     """Nodes a search can reach: those on a directed path from ``entry``
-    (a frontier expansion over the friend lists)."""
+    (a frontier expansion over the friend lists), as a bool mask."""
     import numpy as np
 
     lens = np.fromiter((len(a) for a in adj), np.int64, len(adj))
@@ -881,7 +1340,7 @@ def reachable_from_entry(adj, entry):
         nb = np.unique(flat[pos])
         front = nb[~seen[nb]]
         seen[front] = True
-    return int(seen.sum())
+    return seen
 
 
 def check_graph_parity(spec, idx, tickets, queries):
@@ -1299,6 +1758,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     dev = torch.device("cuda", 0)
+    phase = Phases()
 
     with phase("environment"):
         smi = subprocess.run(
@@ -1363,6 +1823,7 @@ def main(argv=None) -> int:
         new, _ = make_dataset("sift-like", INGEST_ADDS * INGEST_ROWS, 0,
                               seed=1)
         adds = np.split(new, INGEST_ADDS)
+        shard_add, _ = make_dataset("sift-like", SHARD_ADD_ROWS, 0, seed=2)
 
     from repro_torch.ann.kmeans import kmeans
 
@@ -1385,7 +1846,8 @@ def main(argv=None) -> int:
     for spec in SPECS:
         with phase(f"main path {spec}"):
             report, counts, spec_shapes, assignment, idx = serve(
-                spec, base, queries, gt, adds, dev)
+                spec, base, queries, gt,
+                adds[:PQ_INGEST_ADDS] if "PQ" in spec else adds, dev)
             print("  " + json.dumps(report))
             for k, v in counts.items():
                 main_path[k] = main_path.get(k, 0) + v
@@ -1413,6 +1875,36 @@ def main(argv=None) -> int:
         cont_flat, cont_flat_counts, cont_flat_shapes = container_path(
             "Flat", flat_idx, {}, queries, dev)
         print("  " + json.dumps(cont_flat))
+    # sharded serving over the indexes built above, each path counted on
+    # its own (counts set to 0 before it, read after)
+    with phase(f"sharded path {SPECS[0]} at 1, 2 and 4 shards, routed add"):
+        sh_ivf, sh_ivf_counts, sh_ivf_shapes = shard_ivf_path(
+            ivf_idx, queries, shard_add, dev)
+        print("  " + json.dumps(sh_ivf))
+        mono_qps = sh_ivf["monolith_warm"]["qps"]
+        for r in sh_ivf["plans"]:
+            w = r["warm"]
+            print(f"  {r['nshards']} shards by {r['by']}: warm QPS "
+                  f"{w['qps']:.2f} (monolith {mono_qps:.2f}, "
+                  f"{r['warm_qps_over_monolith']:.3f}x), p50/p99 "
+                  f"{w['p50_latency_ms']:.2f}/{w['p99_latency_ms']:.2f} ms, "
+                  f"merge share {w['merge_share']:.4f}; cold QPS "
+                  f"{r['cold']['qps']:.2f}")
+    with phase(f"sharded path {SPECS[1]} n={min(args.n, SHARD_PQ_N)} "
+               "on 2 shards"):
+        sh_pq, sh_pq_counts, sh_pq_shapes = shard_pq_path(base, queries, dev)
+        print("  " + json.dumps(sh_pq))
+    with phase("sharded path Flat on 4 shards, plan saved and loaded"):
+        sh_flat, sh_flat_counts, sh_flat_shapes = shard_flat_path(
+            flat_idx, queries, dev)
+        print("  " + json.dumps(sh_flat))
+    with phase(f"sharded container path {SPECS[0]} "
+               f"n={min(args.n, SHARD_CONTAINER_N)}: plan saved and loaded"):
+        sh_cont, sh_cont_counts, sh_cont_shapes, degraded_plan = \
+            shard_container_path(base, queries, dev)
+        print("  " + json.dumps(sh_cont))
+    sift_queries = queries
+
     # the block Flat's first query block hands seg_topk (its own distances,
     # lens = n on every row), for timing seg_topk at Flat's width; made
     # after every path's counts were read
@@ -1425,7 +1917,9 @@ def main(argv=None) -> int:
     del ivf_idx, flat_idx, flat_q
     paths = dict(main=main_path, flat=flat_counts,
                  container_ivf=cont_ivf_counts,
-                 container_flat=cont_flat_counts)
+                 container_flat=cont_flat_counts,
+                 shard_ivf=sh_ivf_counts, shard_pq=sh_pq_counts,
+                 shard_flat=sh_flat_counts, shard_container=sh_cont_counts)
 
     # the graph paths, each counted on its own; their launches by tile
     l2_tiles, seg_tiles = {}, {}
@@ -1460,9 +1954,9 @@ def main(argv=None) -> int:
 
     nav_n = min(args.n, GRAPH_NAV_N)
     with phase(f"graph path {GRAPH_SPECS[0]} n={nav_n}, navigable"):
+        nav_gt = exact_topk(base_dev[:nav_n], queries_dev, TOPK)
         nav, counts, gshapes, nav_idx, _ = serve_graph(
-            GRAPH_SPECS[0], base[:nav_n], queries,
-            exact_topk(base_dev[:nav_n], queries_dev, TOPK), [], dev,
+            GRAPH_SPECS[0], base[:nav_n], queries, nav_gt, [], dev,
             floor=GRAPH_NAV_FLOOR)
         print("  " + json.dumps(nav))
         graph_path("graph_nsg_nav", counts, gshapes)
@@ -1477,7 +1971,13 @@ def main(argv=None) -> int:
             {"kernel_min_cuda": KERNEL_MIN_CUDA, "step_tiles": {
                 f"{nq}x{n}": c for (nq, n), c in step_tiles_all.items()},
              **{str(g): v for g, v in gates.items()}}))
-        del nav_idx
+    with phase(f"sharded path {GRAPH_SPECS[0]} n={nav_n} on {SHARD_GRAPH} "
+               f"shards, exhaustive at n={SHARD_EXHAUSTIVE_N}"):
+        sh_graph, counts, gshapes = shard_graph_path(nav_idx, queries, nav_gt,
+                                                     dev)
+        print("  " + json.dumps(sh_graph))
+        graph_path("shard_nsg", counts, gshapes)
+    del nav_idx
     with phase("graph decisions: the card against the CPU"):
         decisions = graph_decisions(base, nsg_head, dev)
         print("  " + json.dumps(decisions))
@@ -1492,6 +1992,11 @@ def main(argv=None) -> int:
                                                       dev)
         print("  " + json.dumps(gcont))
         graph_path("graph_container", counts, gshapes)
+    with phase("sharded degraded mode: a dead shard, a flaky shard "
+               "(not counted)"):
+        degraded = degraded_passes(degraded_plan, sift_queries, dev)
+        print("  " + json.dumps(degraded))
+    del degraded_plan, sift_queries, shard_add
     with phase("graph-path shapes"):
         # the tiles of the ingest's blocks reach past n: score them against
         # the base followed by the added rows
@@ -1521,7 +2026,10 @@ def main(argv=None) -> int:
     # every (K, d, rows) it launched, pq_adc and l2_dist at its mean arena
     # rows
     seg_launches, top1 = {}, {}
-    for sh in shapes + [flat_shapes, cont_ivf_shapes, cont_flat_shapes]:
+    shard_shapes = [sh_ivf_shapes, sh_pq_shapes, sh_flat_shapes,
+                    sh_cont_shapes]
+    for sh in shapes + [flat_shapes, cont_ivf_shapes,
+                        cont_flat_shapes] + shard_shapes:
         for key, c in sh["seg_topk"].items():
             seg_launches[key] = seg_launches.get(key, 0) + c
         for key, c in sh["l2_top1"].items():
@@ -1533,6 +2041,22 @@ def main(argv=None) -> int:
     flat_n = flat_shapes["l2_dist"] // flat_counts["l2_dist"]
     l2_at = dict(arena=main_path["l2_dist"] + cont_ivf_counts["l2_dist"],
                  flat=flat_counts["l2_dist"] + cont_flat_counts["l2_dist"])
+    # the sharded paths: l2_dist at the IVF paths' mean arena rows (as the
+    # main path) and at each padded width the Flat path launched (its
+    # shards' and its monolith's), pq_adc at the PQ path's mean arena rows
+    shard_arena = [(sh_ivf_counts, sh_ivf_shapes), (sh_pq_counts, sh_pq_shapes),
+                   (sh_cont_counts, sh_cont_shapes)]
+    arena_launches = sum(c["l2_dist"] for c, _ in shard_arena)
+    shard_l2 = dict(
+        arena=arena_launches,
+        arena_mean_rows=round(sum(sh["l2_dist"] for _, sh in shard_arena)
+                              / max(1, arena_launches)))
+    flat_widths = {}
+    for (_, n), c in sh_flat_shapes["l2_dist_tiles"].items():
+        flat_widths[n] = flat_widths.get(n, 0) + c
+    shard_pq = dict(launches=sh_pq_counts["pq_adc"],
+                    mean_rows=round(sh_pq_shapes["pq_adc"]
+                                    / sh_pq_counts["pq_adc"]))
     with phase("main-path shapes"):
         more = check_seg_topk(dev, gen, [s for s in seg_launches
                                          if s not in seg], flat=flat_block)
@@ -1540,12 +2064,20 @@ def main(argv=None) -> int:
         seg.update(more)
         pq_mean = check_pq_adc(dev, gen, sm_hz, n=mean_rows["pq_adc"])
         l2_mean = check_l2_dist(dev, gen, n=mean_rows["l2_dist"])
+        pq_shard = check_pq_adc(dev, gen, sm_hz, n=shard_pq["mean_rows"])
+        l2_shard = check_l2_dist(dev, gen, n=shard_l2["arena_mean_rows"])
+        # phase 3 timed l2_dist at 2^20 rows, the monolith's width
+        l2_full = next(r for r in results if r["name"] == "l2_dist")
+        l2_flat_width = {n: l2_full if n == 1 << 20
+                         else check_l2_dist(dev, gen, n=n)
+                         for n in sorted(flat_widths)}
         top1_at = {}
         for k, d, rows in sorted(top1):
             r = check_l2_top1(dev, gen, rows, k, d)
             top1_at[(k, d, rows)] = dict(r, name=f"l2_top1(K={k},d={d},"
                                                f"rows={rows})")
-        for r in (*more.values(), pq_mean, l2_mean, *top1_at.values()):
+        for r in (*more.values(), pq_mean, l2_mean, pq_shard, l2_shard,
+                  *l2_flat_width.values(), *top1_at.values()):
             print("  " + json.dumps(r))
         print("  seg_topk launches by (n, k): " + json.dumps(
             {f"n={n},k={k}": c for (n, k), c in sorted(seg_launches.items())}))
@@ -1590,8 +2122,12 @@ def main(argv=None) -> int:
     run_ms = dict(
         l2_dist=(l2_at["arena"] * l2_mean["ms"]
                  + l2_at["flat"] * by_name["l2_dist"]["ms"]
+                 + shard_l2["arena"] * l2_shard["ms"]
+                 + sum(c * l2_flat_width[n]["ms"]
+                       for n, c in flat_widths.items())
                  + graph_ms["l2_dist"]),
-        pq_adc=main_path["pq_adc"] * pq_mean["ms"],
+        pq_adc=(main_path["pq_adc"] * pq_mean["ms"]
+                + shard_pq["launches"] * pq_shard["ms"]),
         seg_topk=(sum(c * seg[s]["ms"] for s, c in seg_launches.items())
                   + graph_ms["seg_topk"]),
         l2_top1=sum(c * top1_at[s]["ms"] for s, c in top1.items()),
@@ -1613,6 +2149,10 @@ def main(argv=None) -> int:
                                        flat_n: l2_at["flat"]},
                      launches_by_path={p: c["l2_dist"]
                                        for p, c in paths.items()},
+                     shard=dict(shard_l2, arena_ms=l2_shard["ms"],
+                                flat_launches_by_rows={
+                                    n: [c, l2_flat_width[n]["ms"]]
+                                    for n, c in sorted(flat_widths.items())}),
                      graph=dict(main_path_ms=graph_ms["l2_dist"],
                                 knn_tile=wide["l2_dist"],
                                 step_tile={key: l2_step[key] for key in (
@@ -1626,6 +2166,9 @@ def main(argv=None) -> int:
                     lookup_ms=by_name["pq_adc"]["lookup_ms"],
                     mean_rows=mean_rows["pq_adc"], mean_rows_ms=pq_mean["ms"],
                     mean_rows_lookup_ms=pq_mean["lookup_ms"],
+                    shard=dict(shard_pq, ms=pq_shard["ms"]),
+                    launches_by_path={p: c["pq_adc"]
+                                      for p, c in paths.items()},
                     m256={key: pq256[key] for key in (
                         "shape", "chunks", "max_abs_err", "ms", "plain_ms",
                         "bound_ms", "bound_by", "library_ms")}),
@@ -1644,7 +2187,8 @@ def main(argv=None) -> int:
                                      sorted(seg_tiles.items())})),
         l2_top1=dict(launches_by_shape={
             f"K={k},d={d},rows={rows}": [c, top1_at[(k, d, rows)]["ms"]]
-            for (k, d, rows), c in sorted(top1.items())}),
+            for (k, d, rows), c in sorted(top1.items())},
+            launches_by_path={p: c["l2_top1"] for p, c in paths.items()}),
         rans_decode=dict(
             step_cycles=by_name["rans_decode"]["step_cycles"],
             shapes={r["name"]: {k: r[k] for k in keep}
@@ -1666,6 +2210,8 @@ def main(argv=None) -> int:
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "bound_f32_ms", "band_use") if key in r} | {
             "main_path_ms": run_ms[name]} | extra.get(name, {}))
+    print(f"phase seconds: {sum(phase.seconds):.3f} in "
+          f"{len(phase.seconds)} phases (limit {RUN_LIMIT_S} s)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

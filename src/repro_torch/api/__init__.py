@@ -18,10 +18,10 @@ the NSG / HNSW graphs.
 from .container import load_index, pack_index, save_index, unpack_index
 from .indexes import (FlatIndex, GraphApiIndex, IVFApiIndex, as_api_index,
                       make_index)
-from .protocol import Index
+from .protocol import Index, IvfBacked
 from .spec import IndexSpec, parse_spec
 
-__all__ = ["Index", "IndexSpec", "parse_spec", "index_factory",
+__all__ = ["Index", "IvfBacked", "IndexSpec", "parse_spec", "index_factory",
            "as_api_index", "FlatIndex", "IVFApiIndex", "GraphApiIndex",
            "pack_index",
            "unpack_index", "save_index", "load_index"]

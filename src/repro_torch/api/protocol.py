@@ -22,7 +22,7 @@ import numpy as np
 
 from ..ann.stats import SearchStats
 
-__all__ = ["Index"]
+__all__ = ["Index", "IvfBacked"]
 
 
 @runtime_checkable
@@ -41,3 +41,17 @@ class Index(Protocol):
 
     def memory_ledger(self) -> Dict[str, float]: ...
 
+
+
+@runtime_checkable
+class IvfBacked(Protocol):
+    """An api index backed by a core ``IVFIndex`` (exposes ``.ivf``).
+
+    The sharded router keys merge behaviour on this: IVF shards return
+    ``(probe_rank << 40) | offset`` merge keys, flat/graph shards merge
+    by global id.  Checking the protocol (instead of ``hasattr`` on the
+    hot path) keeps the seam explicit.
+    """
+
+    @property
+    def ivf(self) -> Any: ...

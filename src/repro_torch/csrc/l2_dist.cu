@@ -99,7 +99,8 @@ cudaError_t launch(const float* q, const float* a, float* out, int nq, int n,
   CUtensorMap q_map = {}, a_map = {};
   cudaError_t err = cudaSuccess;
   if (VEC) {
-    err = make_map(&q_map, q, nq, d, T::BM);
+    err = bind_context();
+    if (err == cudaSuccess) err = make_map(&q_map, q, nq, d, T::BM);
     if (err == cudaSuccess) err = make_map(&a_map, a, n, d, BN);
   }
   if (err == cudaSuccess)

@@ -324,24 +324,47 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
+struct Encoder {
+  EncodeTiled encode = nullptr;
+  cudaError_t err = cudaSuccess;
+};
+
+inline Encoder find_encoder() {
+  Encoder e;
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+  e.err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn,
+                                           12000, cudaEnableDefault, &found);
+#else
+  e.err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                  cudaEnableDefault, &found);
+#endif
+  if (e.err == cudaSuccess &&
+      (found != cudaDriverEntryPointSuccess || fn == nullptr))
+    e.err = cudaErrorNotSupported;
+  if (e.err == cudaSuccess) e.encode = reinterpret_cast<EncodeTiled>(fn);
+  return e;
+}
+
+// make_map's driver call (cuTensorMapEncodeTiled) needs a current context
+// in the calling thread.  The runtime makes the device's primary context
+// current at a thread's first runtime call that needs one, but a thread
+// whose first CUDA call is a launch of these kernels has none yet (the
+// sharded router's workers, say): cudaSetDevice makes it current.
+inline cudaError_t bind_context() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err == cudaSuccess ? cudaSetDevice(dev) : err;
+}
+
 inline cudaError_t make_map(CUtensorMap* map, const float* x, int rows, int d,
                             int box_rows) {
-  static EncodeTiled encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return cudaErrorNotSupported;
-    encode = reinterpret_cast<EncodeTiled>(fn);
-  }
+  // looked up once, by the first call: a function-local static is
+  // initialised exactly once even when several threads launch (C++11)
+  static const Encoder enc = find_encoder();
+  if (enc.err != cudaSuccess) return enc.err;
+  const EncodeTiled encode = enc.encode;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(float)};
   const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};

@@ -128,7 +128,8 @@ cudaError_t launch(const float* q, const float* c, int* idx, float* val,
   CUtensorMap q_map = {}, c_map = {};
   cudaError_t err = cudaSuccess;
   if (VEC) {
-    err = make_map(&q_map, q, nq, d, T::BM);
+    err = bind_context();
+    if (err == cudaSuccess) err = make_map(&q_map, q, nq, d, T::BM);
     if (err == cudaSuccess) err = make_map(&c_map, c, k, d, BN);
   }
   if (err == cudaSuccess)

@@ -378,30 +378,43 @@ pq_adc_kernel(const float* __restrict__ luts,
   }
 }
 
+// the kernel's registers, its shared-memory limit and the SM count
+struct LaunchInfo {
+  int sms = 0, by_regs = 1;
+  cudaError_t err = cudaSuccess;
+};
+
+template <int QT>
+LaunchInfo launch_info() {
+  LaunchInfo info;
+  auto kernel = pq_adc_kernel<QT>;
+  cudaFuncAttributes attr;
+  if ((info.err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
+    return info;
+  info.by_regs = max(1, 65536 / (max(1, attr.numRegs) * THREADS));
+  if ((info.err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX)) !=
+      cudaSuccess)
+    return info;
+  int dev = 0;
+  if ((info.err = cudaGetDevice(&dev)) != cudaSuccess) return info;
+  info.err = cudaDeviceGetAttribute(&info.sms,
+                                    cudaDevAttrMultiProcessorCount, dev);
+  return info;
+}
+
 template <int QT>
 int launch(const float* luts, const uint8_t* codes, float* out, int qb, int n,
            int m, int accumulate, cudaStream_t stream) {
   const size_t smem = smem_bytes(m, QT);
   if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   auto kernel = pq_adc_kernel<QT>;
-  // the kernel's registers, its shared-memory limit and the SM count,
-  // once: no call that stream capture refuses sits between launches
-  static int sms = 0, by_regs = 1;
-  cudaError_t err;
-  if (sms == 0) {
-    cudaFuncAttributes attr;
-    if ((err = cudaFuncGetAttributes(&attr, kernel)) != cudaSuccess)
-      return (int)err;
-    by_regs = max(1, 65536 / (max(1, attr.numRegs) * THREADS));
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (err != cudaSuccess) return (int)err;
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return (int)err;
-  }
+  // read once, by the first launch: a function-local static is initialised
+  // exactly once even when several threads launch at the same time (C++11),
+  // and no call that stream capture refuses sits between launches
+  static const LaunchInfo info = launch_info<QT>();
+  if (info.err != cudaSuccess) return (int)info.err;
+  const int sms = info.sms, by_regs = info.by_regs;
   // one wave (one block an SM at the main path's m, where the tables take
   // most of its shared memory): every query group gets an equal share of
   // the resident blocks, and each block an equal share of the rows

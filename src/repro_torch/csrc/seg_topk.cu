@@ -434,6 +434,26 @@ seg_topk_kernel(const float* __restrict__ d, const int* __restrict__ lens,
   }
 }
 
+// the kernel's shared-memory limit set to the most any launch takes, and
+// the SM count
+struct SmCount {
+  int sms = 0;
+  cudaError_t err = cudaSuccess;
+};
+
+SmCount sm_count() {
+  SmCount info;
+  if ((info.err = cudaFuncSetAttribute(
+           seg_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           STAGE_MAX * 4 + CHUNK * 8)) != cudaSuccess)
+    return info;
+  int dev = 0;
+  if ((info.err = cudaGetDevice(&dev)) != cudaSuccess) return info;
+  info.err = cudaDeviceGetAttribute(&info.sms,
+                                    cudaDevAttrMultiProcessorCount, dev);
+  return info;
+}
+
 }  // namespace
 
 // scratch: (nq, kpad) u64 when kpad > 4096 (kpad = next power of two >= k),
@@ -444,20 +464,13 @@ extern "C" int seg_topk_launch(const void* d, const void* lens, void* vals,
   int kpad = 2;
   while (kpad < k) kpad <<= 1;
   if (kpad > CHUNK && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  // the most any launch takes, and the SM count, once: no call that
+  // the most any launch takes, and the SM count, once, by the first
+  // launch: a function-local static is initialised exactly once even when
+  // several threads launch at the same time (C++11), and no call that
   // stream capture refuses sits between launches
-  static int sms = 0;
-  if (sms == 0) {
-    cudaError_t err = cudaFuncSetAttribute(
-        seg_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        STAGE_MAX * 4 + CHUNK * 8);
-    if (err != cudaSuccess) return (int)err;
-    int dev = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess)
-      return (int)err;
-  }
+  static const SmCount info = sm_count();
+  if (info.err != cudaSuccess) return (int)info.err;
+  const int sms = info.sms;
   // a cluster of blocks a row: enough to stage the row, then doubled
   // while the rows' blocks still fit the SMs in one wave and each keeps
   // SLICE_MIN columns or more (two a row for 64 rows of 16384 or 32768)

@@ -12,6 +12,9 @@ is loaded as is.
 There is no prebuilt binary and no fallback: a missing ``nvcc`` or a
 failed build raises.  Every C entry point returns ``cudaGetLastError()``
 after its launch; :func:`check` turns a non-zero code into an exception.
+Each entry point's ``argtypes`` / ``restype`` (:data:`SIGNATURES`) are set
+once, when its library is loaded: the ``ctypes`` function objects are
+shared by every thread that launches a kernel, so no call writes them.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "library",
-           "build_all", "check", "build_log", "cuda_tool"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "KERNELS", "SIGNATURES",
+           "library", "build_all", "check", "build_log", "cuda_tool"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -35,6 +38,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("l2_dist", "l2_top1", "pq_adc", "seg_topk", "wt_rank",
            "rans_decode")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# {library: {C entry point: argtypes}}; every entry point returns an int
+# (a CUDA error code; wt_rank_route the route)
+SIGNATURES = {
+    "l2_dist": {"l2_dist_launch": [_P] * 3 + [_I] * 3 + [_P]},
+    "l2_top1": {"l2_top1_launch": [_P] * 4 + [_I] * 3 + [_P]},
+    "pq_adc": {"pq_adc_launch": [_P] * 3 + [_I] * 5 + [_P]},
+    "seg_topk": {"seg_topk_launch": [_P] * 5 + [_I] * 3 + [_P]},
+    "wt_rank": {"wt_rank_launch": [_P] * 4 + [_I] * 3 + [_P],
+                "wt_rank_route": [_I] * 3},
+    "rans_decode": {"rans_decode_launch": [_P] * 6 + [_I] * 4 + [_P]},
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -101,17 +116,28 @@ def build_log(name: str) -> Optional[str]:
     return _logs.get(name)
 
 
+def _load(path: Path, name: str) -> ctypes.CDLL:
+    """Load one library and declare its entry points' signatures."""
+    lib = ctypes.CDLL(str(path))
+    lib.error_string.argtypes = [ctypes.c_int]
+    lib.error_string.restype = ctypes.c_char_p
+    for sym, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of kernel ``name`` (built on first use)."""
+    """The loaded shared library of kernel ``name`` (built on first use),
+    its entry points' ``argtypes`` and ``restype`` already set."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             paths = build_all()
             for n, p in paths.items():
                 if n not in _libs:
-                    _libs[n] = ctypes.CDLL(str(p))
-                    _libs[n].error_string.argtypes = [ctypes.c_int]
-                    _libs[n].error_string.restype = ctypes.c_char_p
+                    _libs[n] = _load(p, n)
             lib = _libs[name]
         return lib
 

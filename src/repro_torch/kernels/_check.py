@@ -1,12 +1,19 @@
-"""Argument checks shared by the CUDA kernel wrappers."""
+"""Argument checks and launch bookkeeping shared by the CUDA kernel
+wrappers."""
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
-__all__ = ["cuda_args", "stream_of", "ptr"]
+__all__ = ["cuda_args", "stream_of", "ptr", "COUNT_LOCK"]
+
+# guards every wrapper's launch counters and shape dicts: the sharded
+# router launches kernels from several threads at once, and ``+= 1`` on a
+# function attribute (or a dict's get-then-set) is a read-modify-write
+COUNT_LOCK = threading.Lock()
 
 
 def cuda_args(name: str, *tensors: torch.Tensor) -> None:

@@ -9,12 +9,10 @@ any row counts, so nothing is padded.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
-from .._check import cuda_args, ptr, stream_of
+from .._check import COUNT_LOCK, cuda_args, ptr, stream_of
 from .ref import l2_dist_ref, l2_top1_ref
 
 __all__ = ["l2_dist", "l2_top1"]
@@ -41,14 +39,13 @@ def l2_dist(queries: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
         raise TypeError("l2_dist: kernel takes float32 tensors")
     out = torch.empty((nq, n), dtype=torch.float32, device=queries.device)
     lib = _build.library("l2_dist")
-    fn = lib.l2_dist_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(ptr(queries), ptr(cands), ptr(out), nq, n, d, stream_of(out))
+    rc = lib.l2_dist_launch(ptr(queries), ptr(cands), ptr(out), nq, n, d,
+                            stream_of(out))
     _build.check(lib, rc, "l2_dist")
-    l2_dist.launches += 1
-    l2_dist.rows += n
-    l2_dist.tiles[(nq, n)] = l2_dist.tiles.get((nq, n), 0) + 1
+    with COUNT_LOCK:
+        l2_dist.launches += 1
+        l2_dist.rows += n
+        l2_dist.tiles[(nq, n)] = l2_dist.tiles.get((nq, n), 0) + 1
     return out
 
 
@@ -86,13 +83,12 @@ def l2_top1(queries: torch.Tensor, centroids: torch.Tensor):
     idx = torch.empty(nq, dtype=torch.int32, device=q.device)
     val = torch.empty(nq, dtype=torch.float32, device=q.device)
     lib = _build.library("l2_top1")
-    fn = lib.l2_top1_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(ptr(q), ptr(c), ptr(idx), ptr(val), nq, k, d, stream_of(idx))
+    rc = lib.l2_top1_launch(ptr(q), ptr(c), ptr(idx), ptr(val), nq, k, d,
+                            stream_of(idx))
     _build.check(lib, rc, "l2_top1")
-    l2_top1.launches += 1
-    l2_top1.shapes[(k, d, nq)] = l2_top1.shapes.get((k, d, nq), 0) + 1
+    with COUNT_LOCK:
+        l2_top1.launches += 1
+        l2_top1.shapes[(k, d, nq)] = l2_top1.shapes.get((k, d, nq), 0) + 1
     return idx, val
 
 

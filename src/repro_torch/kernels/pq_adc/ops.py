@@ -8,12 +8,10 @@ whole block of per-query tables against the shared arena.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
-from .._check import cuda_args, ptr, stream_of
+from .._check import COUNT_LOCK, cuda_args, ptr, stream_of
 from .ref import pq_adc_ref
 
 __all__ = ["pq_adc", "tables_per_block", "chunk_plan"]
@@ -120,14 +118,12 @@ def launch(luts: torch.Tensor, codes: torch.Tensor, out: torch.Tensor,
     if n < QT16_MIN_ROWS:
         qt = min(qt, 8)
     lib = _build.library("pq_adc")
-    fn = lib.pq_adc_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(ptr(luts), ptr(codes), ptr(out), qb, n, mc, qt, int(accumulate),
-            stream_of(out))
+    rc = lib.pq_adc_launch(ptr(luts), ptr(codes), ptr(out), qb, n, mc, qt,
+                           int(accumulate), stream_of(out))
     _build.check(lib, rc, "pq_adc")
-    pq_adc.launches += 1
-    pq_adc.rows += n
+    with COUNT_LOCK:
+        pq_adc.launches += 1
+        pq_adc.rows += n
 
 
 pq_adc.launches = 0

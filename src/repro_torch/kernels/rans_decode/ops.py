@@ -15,13 +15,11 @@ the end reads 0 and nothing is padded.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from .. import _build
-from .._check import cuda_args, ptr, stream_of
+from .._check import COUNT_LOCK, cuda_args, ptr, stream_of
 from .ref import rans_decode_ref
 
 __all__ = ["make_tables", "rans_decode"]
@@ -80,13 +78,11 @@ def rans_decode(heads: torch.Tensor, words: torch.Tensor,
                          f"lanes, got {L}")
     out = torch.empty((rows, L), dtype=torch.int32, device=heads.device)
     lib = _build.library("rans_decode")
-    fn = lib.rans_decode_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(*(ptr(t) for t in args), ptr(out), L, words.shape[0], rows, r,
-            stream_of(out))
+    rc = lib.rans_decode_launch(*(ptr(t) for t in args), ptr(out), L,
+                                words.shape[0], rows, r, stream_of(out))
     _build.check(lib, rc, "rans_decode")
-    rans_decode.launches += 1
+    with COUNT_LOCK:
+        rans_decode.launches += 1
     return out
 
 

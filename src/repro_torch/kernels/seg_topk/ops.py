@@ -17,12 +17,10 @@ NaN sorts after ``+inf`` (padding included), every NaN tied by column.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import _build
-from .._check import cuda_args, ptr, stream_of
+from .._check import COUNT_LOCK, cuda_args, ptr, stream_of
 from .ref import seg_topk_ref
 
 __all__ = ["seg_topk"]
@@ -54,16 +52,14 @@ def seg_topk(dists: torch.Tensor, lens: torch.Tensor, k: int):
     scratch = (torch.empty((nq, kpad), dtype=torch.int64, device=dists.device)
                if kpad > SORT_CHUNK else None)
     lib = _build.library("seg_topk")
-    fn = lib.seg_topk_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(ptr(dists), ptr(lens), ptr(vals), ptr(idx),
-            None if scratch is None else ptr(scratch), nq, n, k,
-            stream_of(vals))
+    rc = lib.seg_topk_launch(ptr(dists), ptr(lens), ptr(vals), ptr(idx),
+                             None if scratch is None else ptr(scratch), nq,
+                             n, k, stream_of(vals))
     _build.check(lib, rc, "seg_topk")
-    seg_topk.launches += 1
-    seg_topk.shapes[(n, k)] = seg_topk.shapes.get((n, k), 0) + 1
-    seg_topk.tiles[(nq, n, k)] = seg_topk.tiles.get((nq, n, k), 0) + 1
+    with COUNT_LOCK:
+        seg_topk.launches += 1
+        seg_topk.shapes[(n, k)] = seg_topk.shapes.get((n, k), 0) + 1
+        seg_topk.tiles[(nq, n, k)] = seg_topk.tiles.get((nq, n, k), 0) + 1
     return vals, idx
 
 

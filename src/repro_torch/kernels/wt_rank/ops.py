@@ -11,13 +11,11 @@ the u32 words as **int32 bit patterns** (``words.view(np.int32)`` of
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from .. import _build
-from .._check import cuda_args, ptr, stream_of
+from .._check import COUNT_LOCK, cuda_args, ptr, stream_of
 from .ref import wt_rank_ref
 
 __all__ = ["pack_bits_u32", "wt_rank"]
@@ -75,17 +73,14 @@ def wt_rank(words: torch.Tensor, super_cum: torch.Tensor,
                         "patterns), super_cum and queries")
     out = torch.empty(nq, dtype=torch.int32, device=queries.device)
     lib = _build.library("wt_rank")
-    fn = lib.wt_rank_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    rc = fn(ptr(words), ptr(super_cum), ptr(queries), ptr(out), nq,
-            words.shape[0], super_cum.shape[0], stream_of(out))
+    rc = lib.wt_rank_launch(ptr(words), ptr(super_cum), ptr(queries),
+                            ptr(out), nq, words.shape[0], super_cum.shape[0],
+                            stream_of(out))
     _build.check(lib, rc, "wt_rank")
-    lib.wt_rank_route.argtypes = [ctypes.c_int] * 3
-    lib.wt_rank_route.restype = ctypes.c_int
     route = ROUTES[lib.wt_rank_route(words.shape[0], super_cum.shape[0], nq)]
-    wt_rank.launches += 1
-    wt_rank.routes[route] = wt_rank.routes.get(route, 0) + 1
+    with COUNT_LOCK:
+        wt_rank.launches += 1
+        wt_rank.routes[route] = wt_rank.routes.get(route, 0) + 1
     return out
 
 

@@ -711,3 +711,179 @@ def test_cuda_graph_index_equals_search_ref(dev):
     same(back, idx)
     with pytest.raises(ValueError, match="xla"):
         idx.search(queries, engine="xla")
+
+
+# ---------------------------------------------------------------------------
+# launches from several threads, and sharded serving on the card
+# ---------------------------------------------------------------------------
+
+def test_launch_counts_exact_under_threads(dev):
+    """8 threads x 50 rounds, each round one launch of every kernel on
+    the same (default) stream: every count and shape count is exact, and
+    every result equals the serial one bit for bit."""
+    import sys
+    import threading
+
+    from repro_torch.kernels import launch_shapes
+
+    threads_n, rounds = 8, 50
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    q = torch.randn(16, 32, device=dev, generator=g)
+    a = torch.randn(3000, 32, device=dev, generator=g)
+    lens = torch.full((16,), 3000, dtype=torch.int32, device=dev)
+    luts = torch.rand(16, 8, 256, device=dev, generator=g)
+    codes = torch.randint(0, 256, (3000, 8), dtype=torch.uint8, device=dev,
+                          generator=g)
+    words, sup = pack_bits_u32(np.random.default_rng(0).integers(
+        0, 2, 5000).astype(np.uint8))
+    wt_args = (torch.from_numpy(words.view(np.int32)).to(dev),
+               torch.from_numpy(sup).to(dev),
+               torch.arange(0, 5000, 7, dtype=torch.int32, device=dev))
+    sym, freq, start = (torch.from_numpy(t).to(dev)
+                        for t in make_tables(np.array([3, 5]), 3))
+    heads = torch.full((4,), 1 << 16, dtype=torch.int32, device=dev)
+    words16 = torch.zeros(64, dtype=torch.int32, device=dev)
+
+    def one_round():
+        dm = l2_dist(q, a)
+        return [dm, *seg_topk(dm, lens, 10), pq_adc(luts, codes),
+                *l2_top1(a, q), wt_rank(*wt_args),
+                rans_decode(heads, words16, sym, freq, start, 5, 3)]
+
+    want = [t.clone() for t in one_round()]
+    torch.cuda.synchronize()
+    reset_launches()
+    barrier = threading.Barrier(threads_n)
+    bad = []
+
+    def work():
+        barrier.wait()
+        for _ in range(rounds):
+            got = one_round()
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                bad.append(1)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        pool = [threading.Thread(target=work) for _ in range(threads_n)]
+        for t in pool:
+            t.start()
+        for t in pool:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in pool)
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    total = threads_n * rounds
+    assert not bad
+    assert launch_counts() == {name: total for name in (
+        "l2_dist", "l2_top1", "pq_adc", "seg_topk", "wt_rank",
+        "rans_decode")}
+    shapes = launch_shapes()
+    assert shapes["l2_dist_tiles"] == {(16, 3000): total}
+    assert shapes["seg_topk"] == {(3000, 10): total}
+    assert shapes["seg_topk_tiles"] == {(16, 3000, 10): total}
+    assert shapes["l2_top1"] == {(16, 32, 3000): total}
+    assert shapes["l2_dist"] == shapes["pq_adc"] == 3000 * total
+    assert sum(shapes["wt_rank"].values()) == total
+
+
+@pytest.mark.parametrize("kernel", ["l2_dist", "l2_top1"])
+def test_tma_kernel_as_a_fresh_threads_first_cuda_call(dev, kernel):
+    """A thread whose first CUDA call is a launch of a TMA kernel (the
+    tensor map is encoded by a driver call, which needs a current
+    context) launches it and gets the main thread's result."""
+    import threading
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    q = torch.randn(16, 32, device=dev, generator=g)
+    a = torch.randn(500, 32, device=dev, generator=g)
+    fn = l2_dist if kernel == "l2_dist" else l2_top1
+    want = fn(q, a)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    got, errors = [], []
+
+    def work():
+        try:
+            got.append(fn(q, a))
+        except RuntimeError as e:
+            errors.append(repr(e))
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join(timeout=60)
+    assert not t.is_alive() and not errors, errors
+    out = got[0] if isinstance(got[0], tuple) else (got[0],)
+    assert len(out) == len(want)
+    assert all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+@pytest.mark.parametrize("by", ["range", "hash"])
+@pytest.mark.parametrize("payload", ["flat", "pq8"])
+def test_cuda_sharded_ivf_equals_monolith(dev, payload, by):
+    """A CUDA IVF64 index served by 4 shards on the card: merged ids and
+    dists equal the CUDA monolith's, also after a routed add (every
+    shard's n and epochs equal the monolith's); the scan kernels ran."""
+    from repro_torch.api import index_factory
+    from repro_torch.shard import ShardedAnnService, plan_shards
+
+    rng = np.random.default_rng(12)
+    base = rng.standard_normal((8000, 32)).astype(np.float32)
+    base[100:104] = base[7]                    # exact ties across clusters
+    queries = rng.standard_normal((50, 32)).astype(np.float32)
+    spec = "IVF64,ids=roc" + (",PQ8x8" if payload == "pq8" else "")
+    mono = index_factory(spec, device=dev).build(base, seed=2)
+    d0, i0, _ = mono.search(queries, k=10, nprobe=8)
+    plan = plan_shards(mono, 4, by=by)
+    assert all(i.ivf.payload_dev.is_cuda for i in plan.indexes)
+    with ShardedAnnService(plan, topk=10, device=dev, nprobe=8) as svc:
+        reset_launches()
+        ids, dists, st = svc.search(queries, with_stats=True)
+        counts = launch_counts()
+        np.testing.assert_array_equal(ids, i0)
+        np.testing.assert_array_equal(dists, d0)
+        assert st.engine == "pallas" and st.shards == 4 and not st.partial
+        assert counts["seg_topk"] > 0
+        assert counts["pq_adc" if payload == "pq8" else "l2_dist"] > 0
+        extra = rng.standard_normal((700, 32)).astype(np.float32)
+        reset_launches()
+        svc.add(extra)
+        assert launch_counts()["l2_top1"] >= 1     # the routed assignment
+        mono.add(extra)
+        d1, i1, _ = mono.search(queries, k=10, nprobe=8)
+        got = svc.search(queries)
+        np.testing.assert_array_equal(got[0], i1)
+        np.testing.assert_array_equal(got[1], d1)
+        for w in svc._workers:
+            assert w.index.ivf.n == mono.ivf.n
+            assert w.index.ivf.n_epochs == mono.ivf.n_epochs == 2
+
+
+def test_cuda_sharded_flat_equals_monolith(dev, tmp_path):
+    """A CUDA Flat index served by 4 hash shards on the card equals the
+    CUDA monolith, also after the plan is saved and loaded onto the
+    card."""
+    from repro_torch.api import index_factory
+    from repro_torch.shard import ShardedAnnService, ShardPlan, plan_shards
+
+    rng = np.random.default_rng(13)
+    base = rng.standard_normal((20000, 32)).astype(np.float32)
+    base[5000:5010] = base[3]
+    queries = rng.standard_normal((40, 32)).astype(np.float32)
+    queries[0] = base[3]
+    mono = index_factory("Flat", device=dev).build(base)
+    d0, i0, _ = mono.search(queries, k=10)
+    plan = plan_shards(mono, 4)
+    plan.save(tmp_path)
+    for shards in (plan, ShardPlan.load(tmp_path, device=dev)):
+        with ShardedAnnService(shards, topk=10, device=dev) as svc:
+            reset_launches()
+            ids, dists, st = svc.search(queries, with_stats=True)
+            assert launch_counts()["l2_dist"] >= 4
+        assert st.engine == "flat-pallas"
+        np.testing.assert_array_equal(ids, i0)
+        np.testing.assert_array_equal(dists, d0)

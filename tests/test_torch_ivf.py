@@ -467,6 +467,8 @@ import repro_torch.kernels, repro_torch.kernels._build
 import repro_torch.kernels.l2_topk, repro_torch.kernels.wt_rank
 import repro_torch.kernels.rans_decode
 import repro_torch.api.container, repro_torch.core.container
+import repro_torch.shard, repro_torch.shard.faults, repro_torch.shard.plan
+import repro_torch.shard.service
 import torch
 from repro_torch.api import index_factory, load_index, save_index
 from repro_torch.kernels import (l2_top1, make_tables, pack_bits_u32,
@@ -492,6 +494,14 @@ g.add(x[:3] + 1.0)
 gsvc = AnnService(load_index(save_index(g, graph_codec="rec"), device="cpu"),
                   topk=3, device="cpu", ef=8, kernel_min=1)
 assert gsvc.search(x[7:8])[0][0, 0] == 7
+from repro_torch.shard import ScriptedFaults, ShardedAnnService, plan_shards
+with ShardedAnnService(plan_shards(idx, 2, by="hash"), topk=3, device="cpu",
+                       nprobe=2) as ssvc:
+    assert np.array_equal(ssvc.search(x[:2])[0], ids)
+    ssvc.add(x[5:9])
+with ShardedAnnService(plan_shards(flat, 2), topk=3, device="cpu",
+                       fault_policy=ScriptedFaults(dead=[1])) as fsh:
+    assert fsh.search(x[:2], with_stats=True)[2].partial
 assert l2_top1(torch.from_numpy(x), torch.from_numpy(x[:3]))[0][2] == 2
 words, sup = pack_bits_u32(np.ones(40, np.uint8))
 assert wt_rank(torch.from_numpy(words.view(np.int32)), torch.from_numpy(sup),
@@ -518,7 +528,8 @@ def test_import_guard_subprocess():
 @pytest.mark.parametrize("pkg", ["repro_torch.api", "repro_torch.serve",
                                  "repro_torch.kernels", "repro_torch.core",
                                  "repro_torch.api.container",
-                                 "repro_torch.core.container"])
+                                 "repro_torch.core.container",
+                                 "repro_torch.shard"])
 def test_public_surface_documented(pkg):
     import importlib
     import inspect
