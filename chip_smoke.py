@@ -37,10 +37,12 @@ exits non-zero without the final ``ok`` line:
 4. determinism: k-means (1024 centroids, 8 iterations) twice on the base
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
-   built on the card from 1M ``sift-like`` vectors (k-means assignment and
-   PQ encoding through ``l2_top1``) and served through ``AnnService``
-   (4-query requests, ``max_batch=64``, ``nprobe=16``, top-10) twice,
-   with the decoded-id cache cold and then warm; then an ingest pass: five
+   built on the card from 1M ``sift-like`` vectors (the PQ spec from the
+   first ``PQ_MAIN_N``, 500,000: its Pólya coding runs on the host;
+   k-means assignment and PQ encoding through ``l2_top1``) and served
+   through ``AnnService`` (4-query requests, ``max_batch=64``,
+   ``nprobe=16``, top-10) twice, with the decoded-id cache cold and then
+   warm; then an ingest pass: five
    ``add`` calls of 10,000 new vectors each (five epochs; two for the PQ
    spec, whose Pólya coding runs on the host), and the queries served
    again.  Every kernel's launch count (and the launch shapes:
@@ -133,7 +135,27 @@ exits non-zero without the final ``ok`` line:
    on gap_ans-model streams at (128, 8192) and (16, 64) (bit-equal to the
    encoded symbols and the plain version).  No engine calls these two, so
    their launches (and ``wt_rank``'s routes) are counted here; the
-   (1024, 1024) decode is timed in phase 3 and not counted.
+   (1024, 1024) decode is timed in phase 3 and not counted;
+12. LM serving (``repro_torch.launch.serve``, counts set to 0 before the
+   phase and read after): gemma3-1b at full width (26 layers, d_model
+   1152, vocab 262,144, window 512) from the port's own init (seed 0),
+   ``count_params`` equal to the reference's 999,812,736; in f32, the
+   decode of 2 prompts of 600 tokens (every local layer's ring wraps)
+   against ``make_prefill_step``'s last position, and one local/global
+   super-block (6 layers, full width) on the card against a CPU copy of
+   its weights (prefill logits within ``LM_TOL``, 16 greedy tokens
+   equal); the serving loop twice in bf16 with its retrieval side-car
+   (``IVF64,ids=roc`` over 20,000 deep-like vectors: ``l2_top1`` in
+   k-means, ``l2_dist`` + ``seg_topk`` in the scan), tokens equal, with
+   tokens/s, ms a decode step against the bf16 weight-read bound, bits
+   per id and ms a lookup; the decode step with a bf16 cache, traced by
+   ``torch.profiler`` (host ops and kernels a step, the card's idle
+   share); then ``embed_corpus`` over 4096 documents of 128 random
+   tokens in bf16, indexed as ``IVF64,ids=roc`` on the card:
+   self-retrieval >= 0.9 on 256 documents and equal to ``search_ref`` on
+   64 queries.  Every ``l2_top1``, ``seg_topk`` and ``l2_dist`` shape
+   the phase launched is held against its plain version and timed, and
+   added to ``main_path_ms`` (``lm_serving_ms`` on its own).
 
 The last four lines are the total of the phases' seconds, the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
@@ -173,9 +195,12 @@ NLIST = 1024
 # 128-d rows, and one PQ8x8 subspace (256 centroids of 16 dims)
 TOP1_SHAPES = ((1 << 20, NLIST, 128), (1 << 20, 256, 16))
 INGEST_ADDS, INGEST_ROWS = 5, 10_000
-# the PQ spec is grown by the first two adds only: each add's Pólya coding
-# runs on the host (~20 s at 1M), a cut of depth that keeps the run with
-# its sharded phases near 900 s of phases
+# the PQ spec is built over the first PQ_MAIN_N vectors and grown by the
+# first two adds only: its Pólya coding runs on the host (the build took
+# 218.7-290 s at 1M, each add ~20 s), cuts of depth that keep the run with
+# its sharded and LM phases well inside RUN_LIMIT_S (1034.3 s of phases
+# with the PQ build at 1M)
+PQ_MAIN_N = 500_000
 PQ_INGEST_ADDS = 2
 # seg_topk at two row widths and every k the scan's K-doubling retry
 # reaches up to 2048 (and k = 16, the earlier kernel's shape), plus the
@@ -248,6 +273,30 @@ SHARD_EXHAUSTIVE_EF = 2048
 SHARD_EXHAUSTIVE_Q = 128
 # the time a run of this script may take, kernels' build included
 RUN_LIMIT_S = 1200
+# LM serving (repro_torch.launch.serve) at gemma3-1b's full width: f32
+# decode against prefill over LM_PREFILL (prompts, tokens), past the
+# 512-token window so every local layer's ring wraps; the card against
+# the CPU at LM_CPU_LAYERS (one local/global super-block) over a
+# LM_CPU_PROMPT-token prompt and LM_CPU_GEN greedy tokens; the serving
+# loop twice (bf16, with the retrieval side-car); then the model's own
+# embeddings of LM_DOCS documents of LM_DOC_LEN random tokens (batches of
+# LM_DOC_BATCH) indexed as IVF64,ids=roc.  LM_TOL: logits agree within
+# atol = LM_TOL * max(1, max|logits|) and rtol = LM_TOL.  On the CPU the
+# reduced gemma3 (14 layers, 80 tokens past a window of 64) puts decode
+# within 2.1e-6 of prefill at a logit scale of 4.4 (5e-7 of it); full
+# width sums 18x longer rows through twice the depth, which would grow
+# that to ~1e-5 of the scale: LM_TOL leaves a margin of ~10 over it
+LM_ARCH = "gemma3-1b"
+LM_PARAMS = 999_812_736
+LM_PREFILL = (2, 600)
+LM_CPU_LAYERS, LM_CPU_PROMPT, LM_CPU_GEN = 6, 64, 16
+LM_SERVE_ARGV = ["--arch", LM_ARCH, "--batch", "8", "--prompt-len", "32",
+                 "--gen", "32", "--retrieval"]
+LM_BF16_CACHE_STEPS = 64
+LM_DOCS, LM_DOC_LEN, LM_DOC_BATCH = 4096, 128, 16
+LM_SELF_CHECK, LM_SELF_FLOOR, LM_REF_QUERIES = 256, 0.9, 64
+LM_TOL = 1e-4
+LM_TRACE_STEPS = 4
 
 
 class Phases:
@@ -1735,6 +1784,283 @@ def shape_report(counts, shapes):
                  in sorted(shapes["l2_top1"].items())})
 
 
+def lm_close(what, got, want):
+    """Raise unless ``got`` agrees with ``want`` within LM_TOL (see there);
+    returns the largest difference and the logit scale."""
+    import torch
+
+    got, want = got.double().cpu(), want.double().cpu()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    tol = LM_TOL * max(1.0, scale) + LM_TOL * want.abs()
+    if not (bool(torch.isfinite(got).all()) and bool((err <= tol).all())):
+        raise AssertionError(f"{what}: max |err| {float(err.max())} at a "
+                             f"logit scale {scale} (tolerance {LM_TOL} of it)")
+    return dict(max_abs_err=float(err.max()), logit_scale=scale,
+                argmax_equal=bool(torch.equal(got.argmax(-1),
+                                              want.argmax(-1))))
+
+
+def lm_decode(model, params, tokens, gen=0):
+    """Feed ``tokens`` (B, P) one at a time through ``model.decode_step``
+    from a fresh f32 cache, then ``gen`` greedy steps.  Returns the logits
+    after the last prompt token and the greedy tokens (B, gen)."""
+    import torch
+
+    B, P = tokens.shape
+    cache = model.init_cache(B, P + gen, dtype=torch.float32)
+    out = []
+    with torch.no_grad():
+        for i in range(P):
+            logits, cache = model.decode_step(params, cache,
+                                              token=tokens[:, i:i + 1])
+        last = logits[:, -1]
+        tok = torch.argmax(last, -1).to(torch.int32)
+        for _ in range(gen):
+            out.append(tok)
+            logits, cache = model.decode_step(params, cache,
+                                              token=tok[:, None])
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+    return last, torch.stack(out, 1) if out else None
+
+
+def lm_stats(ms):
+    import numpy as np
+
+    ms = np.asarray(ms)
+    return dict(mean_ms=float(ms.mean()), p50_ms=float(np.percentile(ms, 50)),
+                p99_ms=float(np.percentile(ms, 99)))
+
+
+def lm_trace(step, steps=LM_TRACE_STEPS):
+    """``steps`` calls of a decode ``step`` under ``torch.profiler``: the
+    host's top-level aten ops and the card's kernels a step, the kernels'
+    busy milliseconds a step and the card's idle share of the wall time
+    (None where the trace holds no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.name.startswith("aten::")
+           and (e.cpu_parent is None
+                or not e.cpu_parent.name.startswith("aten::"))]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+    return dict(steps=steps, wall_ms=wall_ms, host_ops=len(ops) / steps,
+                kernels=len(kernels) / steps,
+                busy_ms=busy_ms if kernels else None,
+                idle_share=1.0 - busy_ms / wall_ms if kernels else None)
+
+
+def lm_serving(dev):
+    """The LM serving path at gemma3-1b's full width (module docstring,
+    phase 12).  Every kernel count is set to 0 before it; returns the
+    report, the counts and launch shapes after it, and the shapes after
+    the serving loop's runs (whose side-car has d = 96; the embedding
+    index after them has d = 64)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.launch import serve as lm_serve
+    from repro_torch.models import count_params
+    from repro_torch.models.transformer import Decoder, init_decoder
+    from repro_torch.retrieval import RetrievalIndex, embed_corpus
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rng = np.random.default_rng(0)
+    cfg = get_config(LM_ARCH)
+    rep = {}
+    reset_launches()
+
+    # 1. the model at full width from the port's own init
+    t = time.perf_counter()
+    params = init_decoder(0, cfg, dev)
+    torch.cuda.synchronize()
+    n = count_params(cfg)
+    held = sum(p.numel() for p in params.parameters())
+    if not n == held == LM_PARAMS:
+        raise AssertionError(f"{LM_ARCH}: count_params {n}, the module holds "
+                             f"{held}, the reference counts {LM_PARAMS}")
+    rep["model"] = dict(
+        arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab_size, window=cfg.sliding_window, params=n,
+        f32_weight_bytes=4 * held, init_s=time.perf_counter() - t)
+
+    # 2. f32: decode against prefill across the ring
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    _, prefill = make_prefill_step(cfg32, device=dev)
+    model32, _ = make_serve_step(cfg32, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, LM_PREFILL)
+                            .astype(np.int32)).to(dev)
+    t = time.perf_counter()
+    want = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    t = time.perf_counter()
+    got, _ = lm_decode(model32, params, toks)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    rep["f32_decode_vs_prefill"] = dict(
+        prompts=LM_PREFILL[0], tokens=LM_PREFILL[1], prefill_s=prefill_s,
+        decode_s=decode_s, decode_ms_per_step=1e3 * decode_s / LM_PREFILL[1],
+        tolerance=LM_TOL, **lm_close("decode against prefill", got, want))
+    del want, got, toks
+
+    # 3. f32: the card against the CPU, one local/global super-block
+    cfg6 = dataclasses.replace(cfg32, n_layers=LM_CPU_LAYERS)
+    p6 = init_decoder(1, cfg6, dev)
+    p6_cpu = Decoder(cfg6, device="cpu")
+    p6_cpu.load_state_dict(p6.state_dict())
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (2, LM_CPU_PROMPT)).astype(np.int32)
+    outs = {}
+    for where, p in (("card", p6), ("cpu", p6_cpu)):
+        d = dev if where == "card" else torch.device("cpu")
+        _, pre = make_prefill_step(cfg6, device=d)
+        m6, _ = make_serve_step(cfg6, device=d)
+        tk = torch.from_numpy(prompt).to(d)
+        t = time.perf_counter()
+        logits = pre(p, {"tokens": tk})
+        _, greedy = lm_decode(m6, p, tk, LM_CPU_GEN)
+        outs[where] = (logits.cpu(), greedy.cpu(), time.perf_counter() - t)
+    if not torch.equal(outs["card"][1], outs["cpu"][1]):
+        raise AssertionError(f"greedy tokens differ, card {outs['card'][1]} "
+                             f"against the CPU {outs['cpu'][1]}")
+    rep["card_vs_cpu"] = dict(
+        layers=LM_CPU_LAYERS, prompt=LM_CPU_PROMPT, greedy=LM_CPU_GEN,
+        tokens_equal=True, card_s=outs["card"][2], cpu_s=outs["cpu"][2],
+        tolerance=LM_TOL,
+        **lm_close("card against CPU prefill", outs["card"][0],
+                   outs["cpu"][0]))
+    del p6, p6_cpu, outs
+
+    # 4. bf16 serving at the config's dtype with the side-car, twice
+    args = lm_serve.parse_args(LM_SERVE_ARGV)
+    runs = [lm_serve.run(args, params=params) for _ in range(2)]
+    for r in runs:
+        if not ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all():
+            raise AssertionError("serving loop: a token outside the vocab")
+    if not np.array_equal(runs[0].tokens, runs[1].tokens):
+        raise AssertionError("serving loop: two runs gave other tokens")
+    bf16_bytes = 2 * held
+    bound = 1e3 * bf16_bytes / PEAK_BYTES_S
+    warm = runs[1]
+    serve_shapes = launch_shapes()
+    rep["serve"] = dict(
+        argv=" ".join(LM_SERVE_ARGV), tokens_equal=True,
+        tokens_per_s=[r.tokens_per_s for r in runs],
+        prompt_s=[r.prompt_s for r in runs], **lm_stats(warm.step_ms),
+        first_run=lm_stats(runs[0].step_ms), bf16_weight_bytes=bf16_bytes,
+        weight_read_bound_ms=bound,
+        bound_share=bound / lm_stats(warm.step_ms)["mean_ms"],
+        f32_weight_read_bound_ms=2 * bound,
+        bits_per_id=warm.bits_per_id,
+        search_ms_per_lookup=float(np.mean(warm.search_ms)),
+        lookups=len(warm.search_ms))
+
+    # 4b. the decode step with a bf16 cache: the config's dtype throughout
+    model16, step16 = make_serve_step(cfg, device=dev)
+    state = dict(cache=model16.init_cache(
+        8, LM_BF16_CACHE_STEPS + LM_TRACE_STEPS, dtype=torch.bfloat16),
+        tok=torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 1))
+                             .astype(np.int32)).to(dev))
+
+    def decode_one():
+        nxt, state["cache"] = step16(params, state["cache"],
+                                     {"token": state["tok"]})
+        state["tok"] = nxt[:, None]
+
+    ms = []
+    for _ in range(LM_BF16_CACHE_STEPS):
+        t = time.perf_counter()
+        decode_one()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    st = lm_stats(ms[LM_BF16_CACHE_STEPS // 4:])
+    rep["decode_bf16_cache"] = dict(
+        batch=8, steps=LM_BF16_CACHE_STEPS, **st,
+        weight_read_bound_ms=bound, bound_share=bound / st["mean_ms"],
+        trace=lm_trace(decode_one))
+    del state, model16
+
+    # 5. retrieval over the model's own embeddings
+    docs = rng.integers(0, cfg.vocab_size,
+                        (LM_DOCS, LM_DOC_LEN)).astype(np.int32)
+    qdocs = rng.integers(0, cfg.vocab_size,
+                         (LM_REF_QUERIES, LM_DOC_LEN)).astype(np.int32)
+    t = time.perf_counter()
+    emb = embed_corpus(cfg, params, np.split(docs, LM_DOCS // LM_DOC_BATCH))
+    embed_s = time.perf_counter() - t
+    queries = embed_corpus(cfg, params,
+                           np.split(qdocs, LM_REF_QUERIES // LM_DOC_BATCH))
+    if not (np.isfinite(emb).all() and emb.shape == (LM_DOCS, 64)):
+        raise AssertionError(f"embeddings: shape {emb.shape} or not finite")
+    t = time.perf_counter()
+    ri = RetrievalIndex(nlist=64, id_codec="roc", device=dev).build(emb)
+    build_s = time.perf_counter() - t
+    ids, _, _ = ri.search(emb[:LM_SELF_CHECK], topk=10, nprobe=8)
+    self_rate = float(np.mean(ids[:, 0] == np.arange(LM_SELF_CHECK)))
+    if self_rate < LM_SELF_FLOOR:
+        raise AssertionError(f"self-retrieval {self_rate} < {LM_SELF_FLOOR}")
+    t = time.perf_counter()
+    ids, dists, _ = ri.search(queries, topk=10, nprobe=8)
+    search_s = time.perf_counter() - t
+    ref_ids, ref_dists, _ = ri.search_ref(queries, nprobe=8, topk=10)
+    hold_equal("embedding index against search_ref", (ids, dists),
+               (ref_ids, ref_dists))
+    rep["embedding_index"] = dict(
+        docs=LM_DOCS, doc_len=LM_DOC_LEN, batch=LM_DOC_BATCH,
+        embed_s=embed_s, docs_per_s=LM_DOCS / embed_s, build_s=build_s,
+        self_retrieval=self_rate, self_checked=LM_SELF_CHECK,
+        search_ref_equal_queries=LM_REF_QUERIES,
+        qps=LM_REF_QUERIES / search_s,
+        bits_per_id=ri.stats()["bits_per_id"])
+    return rep, launch_counts(), launch_shapes(), serve_shapes
+
+
+def lm_kernel_shapes(dev, gen, shapes, serve_shapes):
+    """Each shape the LM path launched, held against its plain version and
+    timed: ``l2_top1`` at its (K, d, rows), ``seg_topk`` at its (n, k),
+    ``l2_dist`` at its (NQ, N) tiles (d = 96 for the serving loop's
+    side-car, 64 for the embedding index).  Returns ({kernel: ms a run},
+    the records)."""
+    recs, run_ms = [], dict(l2_top1=0.0, seg_topk=0.0, l2_dist=0.0)
+    for (k, d, rows), c in sorted(shapes["l2_top1"].items()):
+        r = dict(check_l2_top1(dev, gen, rows, k, d),
+                 name=f"l2_top1(K={k},d={d},rows={rows})", launches=c)
+        run_ms["l2_top1"] += c * r["ms"]
+        recs.append(r)
+    seg = check_seg_topk(dev, gen, list(shapes["seg_topk"]))
+    for key, c in sorted(shapes["seg_topk"].items()):
+        run_ms["seg_topk"] += c * seg[key]["ms"]
+        recs.append(dict(seg[key], launches=c))
+    before = serve_shapes["l2_dist_tiles"]
+    for (nq, n), c in sorted(shapes["l2_dist_tiles"].items()):
+        for d, launches in ((96, before.get((nq, n), 0)),
+                            (64, c - before.get((nq, n), 0))):
+            if launches:
+                r = dict(check_l2_dist(dev, gen, n=n, qb=nq, d=d),
+                         name=f"l2_dist({nq}x{n},d={d})", launches=launches)
+                run_ms["l2_dist"] += launches * r["ms"]
+                recs.append(r)
+    return run_ms, recs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -1844,9 +2170,13 @@ def main(argv=None) -> int:
     main_path, shapes = {}, []
     cluster_of = ivf_idx = None
     for spec in SPECS:
-        with phase(f"main path {spec}"):
+        n_spec = min(args.n, PQ_MAIN_N) if "PQ" in spec else args.n
+        with phase(f"main path {spec} n={n_spec}"):
+            spec_gt = gt if n_spec == args.n else exact_topk(
+                torch.from_numpy(base[:n_spec]).to(dev),
+                torch.from_numpy(queries).to(dev), TOPK)
             report, counts, spec_shapes, assignment, idx = serve(
-                spec, base, queries, gt,
+                spec, base[:n_spec], queries, spec_gt,
                 adds[:PQ_INGEST_ADDS] if "PQ" in spec else adds, dev)
             print("  " + json.dumps(report))
             for k, v in counts.items():
@@ -2109,6 +2439,22 @@ def main(argv=None) -> int:
         print(f"  launches: {json.dumps(api_path)}, wt_rank by route: "
               f"{json.dumps(api_routes)}")
 
+    with phase(f"LM serving: {LM_ARCH} at full width with the retrieval "
+               "side-car"):
+        lm, lm_counts, lm_shapes, lm_serve_shapes = lm_serving(dev)
+        for key, r in lm.items():
+            print(f"  {key}: " + json.dumps(r))
+        missing = [k for k in ("l2_top1", "l2_dist", "seg_topk")
+                   if lm_counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"the LM path launched no {missing}")
+        lm_ms, lm_recs = lm_kernel_shapes(dev, gen, lm_shapes,
+                                          lm_serve_shapes)
+        for r in lm_recs:
+            print("  " + json.dumps(r))
+        print(f"  LM launches: {json.dumps(lm_counts)}")
+    paths["lm_serving"] = lm_counts
+
     on_api = ("wt_rank", "rans_decode")
     totals = {k: api_path[k] if k in on_api else
               sum(path[k] for path in paths.values()) for k in main_path}
@@ -2125,12 +2471,13 @@ def main(argv=None) -> int:
                  + shard_l2["arena"] * l2_shard["ms"]
                  + sum(c * l2_flat_width[n]["ms"]
                        for n, c in flat_widths.items())
-                 + graph_ms["l2_dist"]),
+                 + graph_ms["l2_dist"] + lm_ms["l2_dist"]),
         pq_adc=(main_path["pq_adc"] * pq_mean["ms"]
                 + shard_pq["launches"] * pq_shard["ms"]),
         seg_topk=(sum(c * seg[s]["ms"] for s, c in seg_launches.items())
-                  + graph_ms["seg_topk"]),
-        l2_top1=sum(c * top1_at[s]["ms"] for s, c in top1.items()),
+                  + graph_ms["seg_topk"] + lm_ms["seg_topk"]),
+        l2_top1=(sum(c * top1_at[s]["ms"] for s, c in top1.items())
+                 + lm_ms["l2_top1"]),
         wt_rank=api_path["wt_rank"] * by_name["wt_rank"]["ms"],
         rans_decode=sum(r["ms"] for r in results
                         if r["name"].startswith("rans_decode")))
@@ -2209,7 +2556,9 @@ def main(argv=None) -> int:
             "launches": totals[name]} | {key: r[key] for key in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "bound_f32_ms", "band_use") if key in r} | {
-            "main_path_ms": run_ms[name]} | extra.get(name, {}))
+            "main_path_ms": run_ms[name]} | (
+            {"lm_serving_ms": lm_ms[name]} if name in lm_ms else {})
+            | extra.get(name, {}))
     print(f"phase seconds: {sum(phase.seconds):.3f} in "
           f"{len(phase.seconds)} phases (limit {RUN_LIMIT_S} s)")
     print(smi)

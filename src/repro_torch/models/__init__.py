@@ -1,0 +1,6 @@
+"""The port's models: the dense decoder families (``repro.models``)."""
+
+from .convert import params_from_jax
+from .model import Model, build, count_params, model_flops
+
+__all__ = ["Model", "build", "count_params", "model_flops", "params_from_jax"]

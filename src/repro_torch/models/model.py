@@ -1,0 +1,82 @@
+"""Model facade: ``build(cfg) -> Model(init/apply/decode_step/init_cache)``.
+
+The port of ``repro.models.model`` for the decoder families whose blocks
+are ported (the dense ones: ``dense_block``, ``local_only``,
+``local_global``).  Parameters are a :class:`~.transformer.Decoder`
+module, passed to ``apply`` / ``decode_step`` as the reference passes its
+pytree.  The encoder-decoder branch and the dry-run's input specs come in
+later slices (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from ..configs.base import ModelConfig, ShapeSpec
+from ..device import resolve_device
+from . import transformer as _tf
+
+__all__ = ["Model", "build", "count_params", "model_flops"]
+
+
+class Model(NamedTuple):
+    cfg: ModelConfig
+    init: Callable[..., Any]           # (seed or generator) -> params
+    apply: Callable[..., Any]          # (params, **batch) -> (logits, aux)
+    decode_step: Callable[..., Any]    # (params, cache, **inputs) -> (logits, cache)
+    init_cache: Callable[..., Any]     # (batch, max_len, dtype) -> cache
+
+
+def build(cfg: ModelConfig, device="cuda") -> Model:
+    """The model of ``cfg`` on ``device`` (default ``"cuda"``; raises when
+    no CUDA device is present, pass ``device="cpu"`` for the CPU)."""
+    device = resolve_device(device)
+    if cfg.encoder_decoder:
+        raise _tf._not_ported("encdec")
+    for kind, _, _ in _tf.segments_for(cfg):
+        if kind not in ("dense_block", "local_only", "local_global"):
+            raise _tf._not_ported(kind)
+
+    def init_fn(gen=0):
+        return _tf.init_decoder(gen, cfg, device)
+
+    def apply_fn(params, tokens=None, embeddings=None, positions=None,
+                 remat=True, unroll=False, **_):
+        return _tf.decoder_apply(params, cfg, tokens=tokens,
+                                 embeddings=embeddings, positions=positions,
+                                 remat=remat, unroll=unroll)
+
+    def decode_fn(params, cache, token=None, embedding=None, unroll=False,
+                  **_):
+        return _tf.decoder_decode(params, cfg, cache, token=token,
+                                  embedding=embedding, unroll=unroll)
+
+    def cache_fn(batch, max_len, dtype=torch.bfloat16, **_):
+        return _tf.init_decoder_cache(batch, max_len, cfg, dtype, device)
+
+    return Model(cfg, init_fn, apply_fn, decode_fn, cache_fn)
+
+
+# ---------------------------------------------------------------------------
+# parameter / FLOP accounting (for rooflines)
+# ---------------------------------------------------------------------------
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact count from the parameter shapes of the model built on the
+    ``meta`` device (no allocation).  For the dense families every
+    parameter is active, so ``active_only`` counts the same."""
+    return sum(p.numel() for p in _tf.Decoder(cfg, device="meta").parameters())
+
+
+def model_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:
+    """MODEL_FLOPS = 6*N*D (train) / 2*N*D (inference)."""
+    n = count_params(cfg, active_only=bool(cfg.n_experts))
+    if shape.kind == "decode":
+        tokens = shape.global_batch  # one new token per sequence
+    else:
+        tokens = shape.global_batch * shape.seq_len
+    if shape.kind == "train":
+        return 6.0 * n * tokens
+    return 2.0 * n * tokens  # inference: forward only

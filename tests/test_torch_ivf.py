@@ -509,6 +509,15 @@ assert wt_rank(torch.from_numpy(words.view(np.int32)), torch.from_numpy(sup),
 tabs = [torch.from_numpy(t) for t in make_tables(np.array([2, 2]), 2)]
 assert rans_decode(torch.full((3,), 1 << 16, dtype=torch.int32),
                    torch.zeros(0, dtype=torch.int32), *tabs, 2, 2).shape == (2, 3)
+import repro_torch.configs, repro_torch.models, repro_torch.train.step
+import repro_torch.launch.serve, repro_torch.retrieval.index
+from repro_torch.launch.serve import main as serve_main
+toks = serve_main(["--arch", "gemma3-1b", "--reduced", "--batch", "2",
+                   "--prompt-len", "2", "--gen", "3", "--device", "cpu"])
+assert toks.shape == (3, 2)
+from repro_torch.retrieval.index import RetrievalIndex
+ri = RetrievalIndex(nlist=4, device="cpu").build(x)
+assert ri.search(x[:2], topk=3, nprobe=2)[0][0, 0] == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 assert not bad, bad
@@ -529,7 +538,8 @@ def test_import_guard_subprocess():
                                  "repro_torch.kernels", "repro_torch.core",
                                  "repro_torch.api.container",
                                  "repro_torch.core.container",
-                                 "repro_torch.shard"])
+                                 "repro_torch.shard", "repro_torch.models",
+                                 "repro_torch.retrieval"])
 def test_public_surface_documented(pkg):
     import importlib
     import inspect
