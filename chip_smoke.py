@@ -155,7 +155,36 @@ exits non-zero without the final ``ok`` line:
    self-retrieval >= 0.9 on 256 documents and equal to ``search_ref`` on
    64 queries.  Every ``l2_top1``, ``seg_topk`` and ``l2_dist`` shape
    the phase launched is held against its plain version and timed, and
-   added to ``main_path_ms`` (``lm_serving_ms`` on its own).
+   added to ``main_path_ms`` (``lm_serving_ms`` on its own);
+13. LM serving, MoE (counts set to 0 before the phase and read after):
+   olmoe-1b-7b at full width and depth (16 layers, d_model 2048, 64
+   experts top-8, vocab 50,304; seed 0), ``count_params`` and the active
+   count equal to the reference's (6,816,073,728 and 1,178,929,152;
+   llama4-scout's 106,735,375,360 and 16,138,408,960 on the meta device);
+   in f32 with ``capacity_factor = E / k`` (capacity T: nothing dropped)
+   the decode of 2 x 256 tokens against the prefill at every position;
+   the first 2 layers on the card against a CPU copy (2 x 64 tokens,
+   capacity 20: assignments dropped, counted), each layer's routing of
+   the card's router logits bit-equal on both devices (expert ids, order,
+   keep, slot, counts; with each side's smallest gap at the k-th edge),
+   prefill and decode logits within ``LM_TOL``, 16 greedy tokens equal;
+   the serving loop twice in bf16 with its side-car, tokens equal, ms a
+   step against the all-expert and the active weight-read bounds, a
+   decode step traced; then llama4-scout-17b-a16e at full width (d_model
+   5120, 16 experts top-1, a shared expert) cut to 2 of 48 layers, served
+   twice (batch 8, 8 + 8 tokens).  The side-car's shapes are held and
+   timed as in phase 12;
+14. LM serving, Mamba2 hybrid: zamba2-2.7b at full width and depth (9 x
+   (6 Mamba2 + the shared attention block)), ``lora_b`` drawn non-zero,
+   ``count_params`` 2,346,365,088; f32 decode of 2 x 512 tokens (two
+   256-token SSD chunks) against the prefill at every position; one
+   super-block on the card against the CPU; the serving loop twice in
+   bf16 (no side-car: no kernel of this repo is on the path);
+15. LM serving, xLSTM: xlstm-1.3b at full width and depth (8 x (5 mLSTM
+   + 1 sLSTM)), ``count_params`` 1,144,129,856; one super-block on the
+   card against the CPU, prefill and 64 decode steps (each form against
+   its own counterpart: the reference's two mLSTM forms differ); the
+   serving loop twice in bf16.  Each model is freed before the next.
 
 The last four lines are the total of the phases' seconds, the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
@@ -297,6 +326,42 @@ LM_DOCS, LM_DOC_LEN, LM_DOC_BATCH = 4096, 128, 16
 LM_SELF_CHECK, LM_SELF_FLOOR, LM_REF_QUERIES = 256, 0.9, 64
 LM_TOL = 1e-4
 LM_TRACE_STEPS = 4
+# The other decoder-only families at their published widths (random
+# weights from a seed), each held to LM_TOL as above.  MoE: olmoe-1b-7b at
+# full depth (decode against prefill over MOE_PREFILL with a capacity
+# that drops nothing; the card against the CPU over its first
+# MOE_CPU_LAYERS layers, where 2 x 64 tokens overflow the capacity of 20;
+# the serving loop with its side-car), then llama4-scout cut to
+# SCOUT_LAYERS of 48 layers (~22 GB in f32), the only top-1 routing with
+# a shared expert.  Hybrid: zamba2-2.7b at full depth, lora_b drawn from
+# N(0, HYBRID_LORA_STD^2) (zero at init would leave the adapter
+# unchecked), decode against prefill over HYBRID_PREFILL (two 256-token
+# SSD chunks).  xLSTM: xlstm-1.3b at full depth; the card against the CPU
+# over one super-block, the decode over XLSTM_DECODE_STEPS steps (its
+# stabilised decode is not the prefill's form, so each is held against
+# its own counterpart).
+MOE_ARCH = "olmoe-1b-7b"
+MOE_PARAMS, MOE_ACTIVE = 6_816_073_728, 1_178_929_152
+MOE_PREFILL = (2, 256)
+MOE_CPU_LAYERS, MOE_CPU_PROMPT, MOE_CPU_GEN = 2, 64, 16
+MOE_SERVE_ARGV = ["--arch", MOE_ARCH, "--batch", "8", "--prompt-len", "32",
+                  "--gen", "32", "--retrieval"]
+SCOUT_ARCH = "llama4-scout-17b-a16e"
+SCOUT_PARAMS, SCOUT_ACTIVE = 106_735_375_360, 16_138_408_960
+SCOUT_LAYERS = 2
+SCOUT_SERVE_ARGV = ["--arch", SCOUT_ARCH, "--batch", "8", "--prompt-len",
+                    "8", "--gen", "8"]
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_PARAMS = 2_346_365_088
+HYBRID_PREFILL = (2, 512)
+HYBRID_LORA_STD = 0.01
+HYBRID_SERVE_ARGV = ["--arch", HYBRID_ARCH, "--batch", "8", "--prompt-len",
+                     "32", "--gen", "32"]
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_PARAMS = 1_144_129_856
+XLSTM_DECODE_STEPS = 64
+XLSTM_SERVE_ARGV = ["--arch", XLSTM_ARCH, "--batch", "8", "--prompt-len",
+                    "32", "--gen", "32"]
 
 
 class Phases:
@@ -1801,21 +1866,24 @@ def lm_close(what, got, want):
                                               want.argmax(-1))))
 
 
-def lm_decode(model, params, tokens, gen=0):
+def lm_decode(model, params, tokens, gen=0, every=False):
     """Feed ``tokens`` (B, P) one at a time through ``model.decode_step``
     from a fresh f32 cache, then ``gen`` greedy steps.  Returns the logits
-    after the last prompt token and the greedy tokens (B, gen)."""
+    after the last prompt token (with ``every``, after each prompt token:
+    (B, P, V)) and the greedy tokens (B, gen)."""
     import torch
 
     B, P = tokens.shape
     cache = model.init_cache(B, P + gen, dtype=torch.float32)
-    out = []
+    out, steps = [], []
     with torch.no_grad():
         for i in range(P):
             logits, cache = model.decode_step(params, cache,
                                               token=tokens[:, i:i + 1])
-        last = logits[:, -1]
-        tok = torch.argmax(last, -1).to(torch.int32)
+            if every:
+                steps.append(logits[:, -1])
+        last = torch.stack(steps, 1) if every else logits[:, -1]
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
         for _ in range(gen):
             out.append(tok)
             logits, cache = model.decode_step(params, cache,
@@ -2059,6 +2127,438 @@ def lm_kernel_shapes(dev, gen, shapes, serve_shapes):
                 run_ms["l2_dist"] += launches * r["ms"]
                 recs.append(r)
     return run_ms, recs
+
+
+def lm_free():
+    """Return the card's cached blocks after a model is dropped."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_check_count(cfg, params, want, want_active=None):
+    """``count_params`` (and the active count) against the reference's,
+    and the module holding the total; returns the report."""
+    from repro_torch.models import count_params
+
+    n = count_params(cfg)
+    active = count_params(cfg, active_only=True)
+    held = sum(p.numel() for p in params.parameters())
+    if not n == held == want or (want_active is not None
+                                 and active != want_active):
+        raise AssertionError(
+            f"{cfg.name}: count_params {n} (active {active}), the module "
+            f"holds {held}, the reference counts {want} (active "
+            f"{want_active})")
+    return dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                vocab=cfg.vocab_size, params=n, active_params=active,
+                f32_weight_bytes=4 * held)
+
+
+def lm_full_logits(cfg, params, tokens):
+    """The whole sequence's logits of ``model.apply`` (no autograd)."""
+    import torch
+    from repro_torch.models import build
+
+    with torch.no_grad():
+        return build(cfg, device=tokens.device).apply(params,
+                                                       tokens=tokens)[0]
+
+
+def lm_decode_vs_prefill(cfg, params, tokens, around=None):
+    """Each position's decode logits (the prompt fed one token at a time
+    from an empty f32 cache) against the prefill's, within LM_TOL; the
+    prefill runs inside the context ``around`` where one is given."""
+    import torch
+    from repro_torch.train.step import make_serve_step
+
+    t = time.perf_counter()
+    with around or contextlib.nullcontext():
+        want = lm_full_logits(cfg, params, tokens)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    model, _ = make_serve_step(cfg, device=tokens.device)
+    t = time.perf_counter()
+    got, _ = lm_decode(model, params, tokens, every=True)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    B, P = tokens.shape
+    return dict(prompts=B, tokens=P, prefill_s=prefill_s, decode_s=decode_s,
+                decode_ms_per_step=1e3 * decode_s / P, tolerance=LM_TOL,
+                **lm_close("decode against prefill", got, want))
+
+
+def lm_card_vs_cpu(cfg, p_card, prompt, gen, around_prefill=None):
+    """The model ``p_card`` on the card against a CPU copy of its weights:
+    the prefill's logits, each prompt step's decode logits and ``gen``
+    greedy tokens.  ``around_prefill(where)`` may give a context to run
+    each side's prefill in.  Returns the report."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import Decoder
+    from repro_torch.train.step import make_serve_step
+
+    p_cpu = Decoder(cfg, device="cpu")
+    p_cpu.load_state_dict(p_card.state_dict())
+    outs = {}
+    for where, p in (("card", p_card), ("cpu", p_cpu)):
+        d = next(p.parameters()).device
+        tk = torch.from_numpy(prompt).to(d)
+        t = time.perf_counter()
+        with (around_prefill(where) if around_prefill
+              else contextlib.nullcontext()):
+            pre = lm_full_logits(cfg, p, tk)
+        model, _ = make_serve_step(cfg, device=d)
+        steps, greedy = lm_decode(model, p, tk, gen, every=True)
+        outs[where] = (pre.cpu(), steps.cpu(), greedy.cpu(),
+                       time.perf_counter() - t)
+    del p_cpu
+    card, cpu = outs["card"], outs["cpu"]
+    if not torch.equal(card[2], cpu[2]):
+        raise AssertionError(f"greedy tokens differ, card {card[2]} "
+                             f"against the CPU {cpu[2]}")
+    return dict(
+        layers=cfg.n_layers, prompt=prompt.shape[1], greedy=gen,
+        tokens_equal=True, card_s=card[3], cpu_s=cpu[3], tolerance=LM_TOL,
+        prefill=lm_close("card against CPU prefill", card[0], cpu[0]),
+        decode=lm_close("card against CPU decode", card[1], cpu[1]),
+        greedy_tokens=np.asarray(card[2]).tolist())
+
+
+def lm_step_trace(cfg, params, batch=8, warm=8):
+    """The serving loop's decode step (f32 cache, as the loop's), traced
+    by ``torch.profiler`` after ``warm`` steps (see ``lm_trace``)."""
+    import numpy as np
+    import torch
+    from repro_torch.train.step import make_serve_step
+
+    dev = next(params.parameters()).device
+    model, step = make_serve_step(cfg, device=dev)
+    state = dict(cache=model.init_cache(batch, warm + LM_TRACE_STEPS,
+                                        dtype=torch.float32),
+                 tok=torch.from_numpy(np.random.default_rng(3).integers(
+                     0, cfg.vocab_size, (batch, 1)).astype(np.int32)).to(dev))
+
+    def decode_one():
+        nxt, state["cache"] = step(params, state["cache"],
+                                   {"token": state["tok"]})
+        state["tok"] = nxt[:, None]
+
+    for _ in range(warm):
+        decode_one()
+    return lm_trace(decode_one)
+
+
+def lm_serve_twice(argv, params, bounds):
+    """The serving loop (``launch.serve.run``) twice on ``params``: tokens
+    inside the vocab and equal, tokens/s and ms a step against each
+    weight-read bound of ``bounds`` ({name: bytes}), the side-car's
+    lookups, and a traced decode step.  The loop's cache is f32, as the
+    reference's: where an attention layer's f32 output joins the bf16
+    residual stream the rest of the step runs in f32 (JAX's promotion),
+    so a step past an attention layer reads f32 weights; the f32 bounds
+    say what that costs."""
+    import numpy as np
+    from repro_torch.launch import serve as lm_serve
+
+    cfg = params.cfg
+    args = lm_serve.parse_args(argv)
+    runs = [lm_serve.run(args, params=params) for _ in range(2)]
+    for r in runs:
+        if not ((r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all():
+            raise AssertionError(f"{cfg.name} serving loop: a token outside "
+                                 "the vocab")
+    if not np.array_equal(runs[0].tokens, runs[1].tokens):
+        raise AssertionError(f"{cfg.name} serving loop: two runs gave other "
+                             "tokens")
+    warm = runs[1]
+    st = lm_stats(warm.step_ms)
+    rep = dict(argv=" ".join(argv), layers=cfg.n_layers, tokens_equal=True,
+               tokens_per_s=[r.tokens_per_s for r in runs],
+               prompt_s=[r.prompt_s for r in runs], **st,
+               first_run=lm_stats(runs[0].step_ms))
+    for name, nbytes in bounds.items():
+        b = 1e3 * nbytes / PEAK_BYTES_S
+        rep[name] = dict(bytes=nbytes, bound_ms=b,
+                         bound_share=b / st["mean_ms"])
+    if warm.search_ms:
+        rep.update(bits_per_id=warm.bits_per_id,
+                   search_ms_per_lookup=float(np.mean(warm.search_ms)),
+                   lookups=len(warm.search_ms))
+    rep["trace"] = lm_step_trace(cfg, params, batch=args.batch)
+    return rep
+
+
+@contextlib.contextmanager
+def recording_routes(seen):
+    """Append ``(logits, k, capacity)`` of every ``moe_route`` call made
+    inside the context to ``seen``."""
+    from repro_torch.models import moe
+
+    inner = moe.moe_route
+
+    def record(logits, k, capacity):
+        seen.append((logits.detach().clone(), k, capacity))
+        return inner(logits, k, capacity)
+
+    moe.moe_route = record
+    try:
+        yield seen
+    finally:
+        moe.moe_route = inner
+
+
+def edge_gap(logits, k):
+    """The smallest gap between the k-th and (k+1)-th probability of any
+    token (0.0: a tie at the edge of the top k)."""
+    import torch
+
+    p = torch.softmax(logits.float(), -1).sort(-1, descending=True).values
+    return float((p[:, k - 1] - p[:, k]).min())
+
+
+def moe_routing_check(card_seen, cpu_seen):
+    """Each layer's routing of the card's router logits, on the card and
+    on a CPU copy, bit-equal (expert ids, order, keep, slot, counts); the
+    drops and the smallest k-th edge gap of each side's own logits."""
+    import torch
+    from repro_torch.models.moe import moe_route
+
+    layers = []
+    for (lg, k, c), (lg_cpu, _, _) in zip(card_seen, cpu_seen):
+        on_card = moe_route(lg, k, c)
+        on_cpu = moe_route(lg.cpu(), k, c)
+        for name in ("expert_ids", "order", "keep", "slot", "counts"):
+            if not torch.equal(getattr(on_card, name).cpu(),
+                               getattr(on_cpu, name)):
+                raise AssertionError(f"routing of the same logits: {name} "
+                                     "differs between the card and the CPU")
+        own_cpu = moe_route(lg_cpu, k, c)
+        layers.append(dict(
+            tokens=lg.shape[0], capacity=c,
+            dropped_card=int((~on_card.keep).sum()),
+            dropped_cpu=int((~own_cpu.keep).sum()),
+            edge_gap_card=edge_gap(lg, k), edge_gap_cpu=edge_gap(lg_cpu, k),
+            max_abs_logit_err=float((lg.cpu() - lg_cpu).abs().max())))
+    if not layers:
+        raise AssertionError("the MoE check recorded no routing")
+    return dict(same_logits_bit_equal=True, layers=layers)
+
+
+def moe_serving(dev, gen):
+    """Phase 13 (module docstring): olmoe-1b-7b at full width and depth,
+    then llama4-scout at full width cut in depth.  Every kernel count is
+    set to 0 before it; returns the report, the counts, the side-car's
+    kernel shapes held and timed ({kernel: ms a run}, records)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.models import count_params
+    from repro_torch.models.moe import moe_route
+    from repro_torch.models.transformer import Decoder, init_decoder
+
+    rng = np.random.default_rng(13)
+    cfg = get_config(MOE_ARCH)
+    E, k = cfg.n_experts, cfg.experts_per_token
+    rep = {}
+    reset_launches()
+
+    # (a) the parameter counts; the model at full width and depth
+    t = time.perf_counter()
+    params = init_decoder(0, cfg, dev)
+    torch.cuda.synchronize()
+    rep["model"] = dict(lm_check_count(cfg, params, MOE_PARAMS, MOE_ACTIVE),
+                        experts=E, top_k=k, init_s=time.perf_counter() - t)
+    scout = get_config(SCOUT_ARCH)
+    counts = (count_params(scout), count_params(scout, active_only=True))
+    if counts != (SCOUT_PARAMS, SCOUT_ACTIVE):
+        raise AssertionError(f"{SCOUT_ARCH}: count_params {counts}, the "
+                             f"reference {SCOUT_PARAMS, SCOUT_ACTIVE}")
+    rep["scout_counts"] = dict(params=counts[0], active_params=counts[1])
+
+    # (b) f32 decode against prefill with a capacity that drops nothing
+    cfg_nodrop = dataclasses.replace(cfg, dtype="float32",
+                                     capacity_factor=E / k)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, MOE_PREFILL)
+                            .astype(np.int32)).to(dev)
+    seen = []
+    try:
+        held = lm_decode_vs_prefill(cfg_nodrop, params, toks,
+                                    recording_routes(seen))
+    except AssertionError as e:
+        raise AssertionError(
+            f"{e}; the prefill's smallest k-th edge gap "
+            f"{min(edge_gap(lg, k) for lg, _, _ in seen)}") from e
+    dropped = sum(int((~moe_route(lg, k, c).keep).sum())
+                  for lg, k, c in seen)
+    if dropped or len(seen) != cfg.n_layers:
+        raise AssertionError(f"capacity T dropped {dropped} assignments "
+                             f"over {len(seen)} layers")
+    rep["f32_decode_vs_prefill"] = dict(
+        capacity_factor=E / k, capacity=seen[0][2], dropped=0,
+        edge_gap=min(edge_gap(lg, k) for lg, _, _ in seen), **held)
+    del toks, seen
+    lm_free()
+
+    # (c) f32, the card against the CPU over the first layers (drops)
+    cfg_cut = dataclasses.replace(cfg, dtype="float32",
+                                  n_layers=MOE_CPU_LAYERS)
+    p_cut = Decoder(cfg_cut, device=dev)
+    keep = set(p_cut.state_dict())
+    p_cut.load_state_dict({n: v for n, v in params.state_dict().items()
+                           if n in keep})
+    seen = dict(card=[], cpu=[])
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (2, MOE_CPU_PROMPT)).astype(np.int32)
+    rep["card_vs_cpu"] = lm_card_vs_cpu(
+        cfg_cut, p_cut, prompt, MOE_CPU_GEN,
+        around_prefill=lambda where: recording_routes(seen[where]))
+    rep["card_vs_cpu"]["routing"] = moe_routing_check(seen["card"],
+                                                      seen["cpu"])
+    del p_cut, seen
+    lm_free()
+
+    # (d) the serving loop in bf16 with the side-car, twice
+    rep["serve"] = lm_serve_twice(MOE_SERVE_ARGV, params, dict(
+        all_experts_bound=2 * MOE_PARAMS, active_bound=2 * MOE_ACTIVE,
+        all_experts_f32_bound=4 * MOE_PARAMS,
+        active_f32_bound=4 * MOE_ACTIVE))
+    serve_shapes = launch_shapes()
+    counts = launch_counts()
+    del params
+    lm_free()
+
+    # (e) llama4-scout at full width, cut in depth: top-1 routing and a
+    # shared expert
+    cfg_s = dataclasses.replace(scout, n_layers=SCOUT_LAYERS)
+    t = time.perf_counter()
+    p_s = init_decoder(0, cfg_s, dev)
+    torch.cuda.synchronize()
+    held = sum(p.numel() for p in p_s.parameters())
+    rep["scout"] = dict(
+        layers=SCOUT_LAYERS, d_model=cfg_s.d_model, experts=cfg_s.n_experts,
+        top_k=cfg_s.experts_per_token, shared_expert=cfg_s.shared_expert,
+        params=held, f32_weight_bytes=4 * held,
+        init_s=time.perf_counter() - t,
+        serve=lm_serve_twice(SCOUT_SERVE_ARGV, p_s, dict(
+            all_experts_bound=2 * held,
+            active_bound=2 * count_params(cfg_s, active_only=True),
+            all_experts_f32_bound=4 * held)))
+    del p_s
+    lm_free()
+    after = launch_counts()
+    if after != counts:
+        raise AssertionError(f"llama4-scout's run launched kernels: "
+                             f"{after} after {counts}")
+    missing = [n for n in ("l2_top1", "l2_dist", "seg_topk")
+               if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"the MoE path launched no {missing}")
+    ms, recs = lm_kernel_shapes(dev, gen, serve_shapes, serve_shapes)
+    return rep, counts, ms, recs
+
+
+def hybrid_serving(dev):
+    """Phase 14 (module docstring): zamba2-2.7b at full width and depth,
+    ``lora_b`` drawn non-zero.  Counts set to 0 before, read after."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.transformer import init_decoder
+
+    rng = np.random.default_rng(14)
+    cfg = get_config(HYBRID_ARCH)
+    rep = {}
+    reset_launches()
+    t = time.perf_counter()
+    params = init_decoder(0, cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for sup in params.segments[0]:
+            sup.lora_b.normal_(generator=g).mul_(HYBRID_LORA_STD)
+    torch.cuda.synchronize()
+    rep["model"] = dict(lm_check_count(cfg, params, HYBRID_PARAMS),
+                        lora_b_std=HYBRID_LORA_STD,
+                        init_s=time.perf_counter() - t)
+
+    # (b) f32 decode against prefill across the SSD chunk boundary
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, HYBRID_PREFILL)
+                            .astype(np.int32)).to(dev)
+    rep["f32_decode_vs_prefill"] = lm_decode_vs_prefill(cfg32, params, toks)
+    del toks
+    lm_free()
+
+    # (c) one super-block at full width, the card against the CPU
+    per = cfg.hybrid_attn_every
+    cfg1 = dataclasses.replace(cfg32, n_layers=per)
+    p1 = init_decoder(2, cfg1, dev)
+    with torch.no_grad():
+        p1.segments[0][0].lora_b.normal_(generator=g).mul_(HYBRID_LORA_STD)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (2, LM_CPU_PROMPT)).astype(np.int32)
+    rep["card_vs_cpu"] = lm_card_vs_cpu(cfg1, p1, prompt, LM_CPU_GEN)
+    del p1
+    lm_free()
+
+    # (d) the serving loop in bf16, twice
+    rep["serve"] = lm_serve_twice(HYBRID_SERVE_ARGV, params, dict(
+        weight_read_bound=2 * HYBRID_PARAMS,
+        f32_weight_read_bound=4 * HYBRID_PARAMS))
+    del params
+    lm_free()
+    return rep, launch_counts()
+
+
+def xlstm_serving(dev):
+    """Phase 15 (module docstring): xlstm-1.3b at full width and depth.
+    Counts set to 0 before, read after."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.transformer import init_decoder
+
+    rng = np.random.default_rng(15)
+    cfg = get_config(XLSTM_ARCH)
+    rep = {}
+    reset_launches()
+    t = time.perf_counter()
+    params = init_decoder(0, cfg, dev)
+    torch.cuda.synchronize()
+    rep["model"] = dict(lm_check_count(cfg, params, XLSTM_PARAMS),
+                        init_s=time.perf_counter() - t)
+
+    # (b) one super-block at full width, the card against the CPU: the
+    # prefill and the decode each against its own counterpart
+    cfg1 = dataclasses.replace(cfg, dtype="float32",
+                               n_layers=cfg.mlstm_slstm_pattern + 1)
+    p1 = init_decoder(2, cfg1, dev)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (2, XLSTM_DECODE_STEPS)).astype(np.int32)
+    rep["card_vs_cpu"] = lm_card_vs_cpu(cfg1, p1, prompt, LM_CPU_GEN)
+    del p1
+    lm_free()
+
+    # (c) the serving loop in bf16, twice
+    rep["serve"] = lm_serve_twice(XLSTM_SERVE_ARGV, params, dict(
+        weight_read_bound=2 * XLSTM_PARAMS,
+        f32_weight_read_bound=4 * XLSTM_PARAMS))
+    del params
+    lm_free()
+    return rep, launch_counts()
 
 
 def main(argv=None) -> int:
@@ -2454,6 +2954,26 @@ def main(argv=None) -> int:
             print("  " + json.dumps(r))
         print(f"  LM launches: {json.dumps(lm_counts)}")
     paths["lm_serving"] = lm_counts
+    # the other decoder-only families, each path counted on its own
+    with phase(f"LM serving: {MOE_ARCH} at full width and depth with the "
+               f"side-car, {SCOUT_ARCH} at full width on {SCOUT_LAYERS} "
+               "layers"):
+        moe, paths["lm_moe"], moe_ms, moe_recs = moe_serving(dev, gen)
+        for key, r in moe.items():
+            print(f"  {key}: " + json.dumps(r))
+        for r in moe_recs:
+            print("  " + json.dumps(r))
+        print(f"  MoE launches: {json.dumps(paths['lm_moe'])}")
+        for key, v in moe_ms.items():
+            lm_ms[key] += v
+    with phase(f"LM serving: {HYBRID_ARCH} at full width and depth"):
+        hybrid, paths["lm_hybrid"] = hybrid_serving(dev)
+        for key, r in hybrid.items():
+            print(f"  {key}: " + json.dumps(r))
+    with phase(f"LM serving: {XLSTM_ARCH} at full width and depth"):
+        xl, paths["lm_xlstm"] = xlstm_serving(dev)
+        for key, r in xl.items():
+            print(f"  {key}: " + json.dumps(r))
 
     on_api = ("wt_rank", "rans_decode")
     totals = {k: api_path[k] if k in on_api else

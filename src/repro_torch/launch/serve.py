@@ -14,9 +14,13 @@ includes the device's).  With ``--retrieval`` a ``RetrievalIndex`` over
 and searched every 8 steps.  The cache is f32, as in the reference, so a
 bf16 config's attention scores against it in f32 (JAX's promotion).
 
-Parameters come from the port's own init (``torch.Generator``, seed 0)
-unless ``main``/``run`` are handed a :class:`Decoder` (``params=``, e.g.
-the reference's weights through ``params_from_jax``).
+Every decoder-only family serves: dense, local/global (gemma3), MoE
+(olmoe, llama4-scout), the Mamba2 hybrid (zamba2) and xLSTM.  Parameters
+come from the port's own init (``torch.Generator``, seed 0) unless
+``main``/``run`` are handed a :class:`Decoder` (``params=``, e.g. the
+reference's weights through ``params_from_jax``); its own config is then
+the model's (``--arch`` must name it), so a model cut in depth serves as
+it was built.
 """
 
 from __future__ import annotations
@@ -66,9 +70,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def run(args: argparse.Namespace, params=None) -> ServeRun:
     """Serve one batch as ``args`` say; returns the tokens and timings."""
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = reduced(cfg)
+    if params is not None:
+        cfg = params.cfg
+        if cfg.name != args.arch:
+            raise ValueError(f"--arch {args.arch} but the parameters are "
+                             f"{cfg.name}'s")
+    else:
+        cfg = get_config(args.arch)
+        if args.reduced:
+            cfg = reduced(cfg)
     if cfg.encoder_decoder:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder serving is not ported to "

@@ -1,4 +1,4 @@
-"""The port's models: the dense decoder families (``repro.models``)."""
+"""The port's models: the decoder-only families (``repro.models``)."""
 
 from .convert import params_from_jax
 from .model import Model, build, count_params, model_flops

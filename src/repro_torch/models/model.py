@@ -1,11 +1,11 @@
 """Model facade: ``build(cfg) -> Model(init/apply/decode_step/init_cache)``.
 
-The port of ``repro.models.model`` for the decoder families whose blocks
-are ported (the dense ones: ``dense_block``, ``local_only``,
-``local_global``).  Parameters are a :class:`~.transformer.Decoder`
-module, passed to ``apply`` / ``decode_step`` as the reference passes its
-pytree.  The encoder-decoder branch and the dry-run's input specs come in
-later slices (ROADMAP.md, queue 1).
+The port of ``repro.models.model`` for the decoder-only families (dense,
+local/global, MoE, Mamba2-hybrid, xLSTM).  Parameters are a
+:class:`~.transformer.Decoder` module, passed to ``apply`` /
+``decode_step`` as the reference passes its pytree.  The encoder-decoder
+branch and the dry-run's input specs come in later slices (ROADMAP.md,
+queue 1).
 """
 
 from __future__ import annotations
@@ -35,9 +35,6 @@ def build(cfg: ModelConfig, device="cuda") -> Model:
     device = resolve_device(device)
     if cfg.encoder_decoder:
         raise _tf._not_ported("encdec")
-    for kind, _, _ in _tf.segments_for(cfg):
-        if kind not in ("dense_block", "local_only", "local_global"):
-            raise _tf._not_ported(kind)
 
     def init_fn(gen=0):
         return _tf.init_decoder(gen, cfg, device)
@@ -65,13 +62,24 @@ def build(cfg: ModelConfig, device="cuda") -> Model:
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
     """Exact count from the parameter shapes of the model built on the
-    ``meta`` device (no allocation).  For the dense families every
-    parameter is active, so ``active_only`` counts the same."""
-    return sum(p.numel() for p in _tf.Decoder(cfg, device="meta").parameters())
+    ``meta`` device (no allocation).  ``active_only`` counts the reference's
+    way: a parameter under ``moe`` with an expert axis (``shape[-3] ==
+    n_experts``) counts ``k / E`` of its size."""
+    total = expert = 0
+    for name, p in _tf.Decoder(cfg, device="meta").named_parameters():
+        total += p.numel()
+        if ("moe" in name.split(".") and p.dim() >= 3
+                and p.shape[-3] == cfg.n_experts):
+            expert += p.numel()
+    if active_only and cfg.n_experts:
+        total -= expert
+        total += int(expert * cfg.experts_per_token / cfg.n_experts)
+    return total
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:
-    """MODEL_FLOPS = 6*N*D (train) / 2*N*D (inference)."""
+    """MODEL_FLOPS = 6*N*D (train) / 2*N*D (inference), N the active
+    parameters for MoE."""
     n = count_params(cfg, active_only=bool(cfg.n_experts))
     if shape.kind == "decode":
         tokens = shape.global_batch  # one new token per sequence

@@ -1,20 +1,26 @@
-"""Decoder-stack assembly: the dense decoder families.
+"""Decoder-stack assembly for the decoder-only families.
 
 The port of ``repro.models.transformer``.  Layer stacks are grouped into
 *segments* of identical repeating "super-blocks", as in the reference::
 
     gemma3-1b   [(5 local + 1 global) x 4, local x 2]
+    zamba2-2.7b [(6 mamba + shared attn) x 9]   (shared weights + LoRA)
+    xlstm-1.3b  [(5 mLSTM + 1 sLSTM) x 8]
+    moe archs   [moe-block x L]
     dense       [block x L]
 
 The reference scans stacked params with ``lax.scan``; here a
 :class:`Decoder` module holds each segment as a list of super-blocks and
 loops over them in the reference's layer order (``unroll=`` and
-``remat=`` are accepted and change no result).  Decode threads a cache
-per super-block through the same loop; a windowed layer's cache is a ring
-of ``min(max_len, window)`` slots.
+``remat=`` are accepted and change no result).  zamba2's shared
+attention block is held once, by the :class:`Decoder`
+(``shared_attn.block``), and handed to each hybrid super-block, as the
+reference hands ``shared``.  Decode threads a cache per super-block
+through the same loop: a KV cache for attention (a windowed layer's is a
+ring of ``min(max_len, window)`` slots), the f32 recurrent state of a
+Mamba2, mLSTM or sLSTM layer.
 
-The MoE, Mamba2-hybrid and xLSTM super-blocks (``moe_block``,
-``mamba_hybrid``, ``xlstm_super``) are not ported yet and raise
+The encoder-decoder family (whisper) is not ported yet and raises
 ``NotImplementedError`` (ROADMAP.md, queue 1).
 """
 
@@ -34,18 +40,33 @@ from .attention import (
     decode_attention,
     init_cache,
 )
-from .layers import MLP, Embedding, RMSNorm, embed, rms_norm, unembed
+from .layers import MLP, Embedding, RMSNorm, _he, cast, embed, rms_norm, \
+    unembed
+from .moe import MoE, moe_apply
+from .ssm import Mamba, init_mamba_cache, mamba_apply, mamba_decode
+from .xlstm import (
+    MLstm,
+    SLstm,
+    init_mlstm_cache,
+    init_slstm_cache,
+    mlstm_apply,
+    mlstm_decode,
+    slstm_apply,
+    slstm_decode,
+)
 
 __all__ = ["segments_for", "Decoder", "DenseBlock", "LocalGlobal",
-           "init_decoder", "decoder_apply", "decoder_decode",
-           "init_decoder_cache"]
+           "MoEBlock", "MambaBlock", "MambaHybrid", "XLstmBlock",
+           "XLstmSuper", "init_decoder",
+           "decoder_apply", "decoder_decode", "init_decoder_cache"]
+
+_LORA_RANK = 128
 
 
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
-        f"super-block {kind!r} is not ported to repro_torch yet (ROADMAP.md, "
-        "queue 1: the MoE, Mamba2-hybrid, xLSTM and encoder-decoder "
-        "families come in later slices)")
+        f"{kind!r} is not ported to repro_torch yet (ROADMAP.md, queue 1: "
+        "the encoder-decoder family, whisper, comes in a later slice)")
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +100,11 @@ def segments_for(cfg: ModelConfig) -> List[Tuple[str, int, int]]:
 # blocks and super-blocks
 # ---------------------------------------------------------------------------
 
+def _init_all(gen: torch.Generator, *modules) -> None:
+    for m in modules:
+        m.init_(gen)
+
+
 class DenseBlock(nn.Module):
     """Pre-norm attention + SwiGLU MLP, residual around each."""
 
@@ -90,8 +116,7 @@ class DenseBlock(nn.Module):
         self.mlp = MLP(cfg.d_model, cfg.d_ff, device=device)
 
     def init_(self, gen: torch.Generator) -> None:
-        for m in (self.ln1, self.attn, self.ln2, self.mlp):
-            m.init_(gen)
+        _init_all(gen, self.ln1, self.attn, self.ln2, self.mlp)
 
 
 class LocalGlobal(nn.Module):
@@ -104,8 +129,81 @@ class LocalGlobal(nn.Module):
         self.global_ = DenseBlock(cfg, device)
 
     def init_(self, gen: torch.Generator) -> None:
-        for m in (*self.locals, self.global_):
-            m.init_(gen)
+        _init_all(gen, *self.locals, self.global_)
+
+
+class MoEBlock(nn.Module):
+    """Pre-norm attention + a mixture of experts, residual around each."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.ln1 = RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg, device=device)
+        self.ln2 = RMSNorm(cfg.d_model, device=device)
+        self.moe = MoE(cfg, device=device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        _init_all(gen, self.ln1, self.attn, self.ln2, self.moe)
+
+
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 mixer, residual around it."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, device=device)
+        self.mixer = Mamba(cfg, device=device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        _init_all(gen, self.ln, self.mixer)
+
+
+class XLstmBlock(nn.Module):
+    """Pre-norm xLSTM cell (an :class:`MLstm` or :class:`SLstm`),
+    residual around it."""
+
+    def __init__(self, cfg, core: nn.Module, device=None):
+        super().__init__()
+        self.ln = RMSNorm(cfg.d_model, device=device)
+        self.core = core
+
+    def init_(self, gen: torch.Generator) -> None:
+        _init_all(gen, self.ln, self.core)
+
+
+class MambaHybrid(nn.Module):
+    """zamba2's super-block: ``per`` Mamba2 blocks, then the shared
+    attention block (held by the :class:`Decoder`, not here) on an input
+    adapted by this super-block's LoRA ``lora_a @ lora_b`` (rank 128;
+    ``lora_b`` is zero at init, as in the reference)."""
+
+    def __init__(self, cfg, per: int, device=None):
+        super().__init__()
+        self.mambas = nn.ModuleList(MambaBlock(cfg, device)
+                                    for _ in range(per))
+        self.lora_a = nn.Parameter(torch.empty(cfg.d_model, _LORA_RANK,
+                                               device=device))
+        self.lora_b = nn.Parameter(torch.zeros(_LORA_RANK, cfg.d_model,
+                                               device=device))
+
+    def init_(self, gen: torch.Generator) -> None:
+        _init_all(gen, *self.mambas)
+        _he(gen, self.lora_a, self.lora_a.shape[0])
+        with torch.no_grad():
+            self.lora_b.zero_()
+
+
+class XLstmSuper(nn.Module):
+    """xlstm's super-block: ``per - 1`` mLSTM blocks, then one sLSTM."""
+
+    def __init__(self, cfg, per: int, device=None):
+        super().__init__()
+        self.mlstms = nn.ModuleList(XLstmBlock(cfg, MLstm(cfg, device), device)
+                                    for _ in range(per - 1))
+        self.slstm = XLstmBlock(cfg, SLstm(cfg, device), device)
+
+    def init_(self, gen: torch.Generator) -> None:
+        _init_all(gen, *self.mlstms, self.slstm)
 
 
 def _make_super(kind: str, cfg, per: int, device) -> nn.Module:
@@ -113,7 +211,13 @@ def _make_super(kind: str, cfg, per: int, device) -> nn.Module:
         return DenseBlock(cfg, device)
     if kind == "local_global":
         return LocalGlobal(cfg, per, device)
-    raise _not_ported(kind)
+    if kind == "moe_block":
+        return MoEBlock(cfg, device)
+    if kind == "mamba_hybrid":
+        return MambaHybrid(cfg, per, device)
+    if kind == "xlstm_super":
+        return XLstmSuper(cfg, per, device)
+    raise ValueError(kind)
 
 
 def _dense_block(params: DenseBlock, x, positions, cfg, window: int = 0):
@@ -131,19 +235,57 @@ def _dense_block_decode(params: DenseBlock, x, cache: KVCache, cfg,
     return h + params.mlp(rms_norm(h, params.ln2.scale, cfg.norm_eps)), cache
 
 
-def _apply_super(kind, params, x, positions, cfg):
-    """Forward one super-block."""
+def _moe_block(params: MoEBlock, x, positions, cfg):
+    h = x + attention(params.attn, rms_norm(x, params.ln1.scale, cfg.norm_eps),
+                      positions, cfg)
+    y, aux = moe_apply(params.moe, rms_norm(h, params.ln2.scale,
+                                            cfg.norm_eps), cfg)
+    return h + y, aux
+
+
+def _moe_block_decode(params: MoEBlock, x, cache: KVCache, cfg):
+    a, cache = decode_attention(
+        params.attn, rms_norm(x, params.ln1.scale, cfg.norm_eps), cache, cfg)
+    h = x + a
+    y, _ = moe_apply(params.moe, rms_norm(h, params.ln2.scale, cfg.norm_eps),
+                     cfg)
+    return h + y, cache
+
+
+def _lora(params: MambaHybrid, x):
+    """The shared block's input adapter ``(x @ lora_a) @ lora_b``."""
+    return (x @ cast(params.lora_a, x.dtype)) @ cast(params.lora_b, x.dtype)
+
+
+def _apply_super(kind, params, x, positions, cfg, shared=None):
+    """Forward one super-block; returns (x, aux_loss or None)."""
     if kind in ("dense_block", "local_only"):
         w = cfg.sliding_window if (
             kind == "local_only"
             or (kind == "dense_block" and cfg.sliding_window
                 and not cfg.local_global_ratio)) else 0
-        return _dense_block(params, x, positions, cfg, window=w)
+        return _dense_block(params, x, positions, cfg, window=w), None
+    if kind == "moe_block":
+        return _moe_block(params, x, positions, cfg)
     if kind == "local_global":
         for p in params.locals:
             x = _dense_block(p, x, positions, cfg, window=cfg.sliding_window)
-        return _dense_block(params.global_, x, positions, cfg, window=0)
-    raise _not_ported(kind)
+        return _dense_block(params.global_, x, positions, cfg, window=0), None
+    if kind == "mamba_hybrid":
+        for p in params.mambas:
+            x = x + mamba_apply(p.mixer, rms_norm(x, p.ln.scale, cfg.norm_eps),
+                                cfg)
+        # shared attention block with per-use LoRA input adaptation
+        return _dense_block(shared, x + _lora(params, x), positions,
+                            cfg), None
+    if kind == "xlstm_super":
+        for p in params.mlstms:
+            x = x + mlstm_apply(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
+                                cfg)
+        p = params.slstm
+        return x + slstm_apply(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
+                               cfg), None
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +294,9 @@ def _apply_super(kind, params, x, positions, cfg):
 
 class Decoder(nn.Module):
     """The decoder's parameters: ``embed`` (tied logits head), one list of
-    super-blocks per segment of :func:`segments_for`, ``final_norm``.
-    ``forward`` is :func:`decoder_apply` under the module's own config."""
+    super-blocks per segment of :func:`segments_for`, for the hybrid
+    family the one ``shared_attn.block``, ``final_norm``.  ``forward`` is
+    :func:`decoder_apply` under the module's own config."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -165,15 +308,25 @@ class Decoder(nn.Module):
             nn.ModuleList(_make_super(kind, cfg, per, device)
                           for _ in range(n_iter))
             for kind, n_iter, per in segments_for(cfg))
+        self.shared_attn = nn.ModuleDict(
+            {"block": DenseBlock(cfg, device)}) \
+            if cfg.family == "hybrid" else None
         self.final_norm = RMSNorm(cfg.d_model, device=device)
+
+    @property
+    def shared(self):
+        """The shared attention block (hybrid family), else None."""
+        return None if self.shared_attn is None else self.shared_attn["block"]
 
     def init_(self, gen: torch.Generator) -> None:
         """Fill every weight from ``gen`` (He-normal kernels and tables,
-        zero norm scales and biases), in layer order."""
+        zero norm scales and biases, zero ``lora_b``), in layer order."""
         self.embed.init_(gen)
         for seg in self.segments:
             for sup in seg:
                 sup.init_(gen)
+        if self.shared is not None:
+            self.shared.init_(gen)
         self.final_norm.init_(gen)
 
     def forward(self, tokens=None, embeddings=None, positions=None):
@@ -199,7 +352,8 @@ def _dtype(cfg) -> torch.dtype:
 def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
                   embeddings=None, positions=None, remat: bool = True,
                   unroll: bool = False):
-    """Forward pass -> (logits (B,S,V), aux_loss)."""
+    """Forward pass -> (logits (B,S,V), aux_loss): the MoE blocks' Switch
+    losses summed over layers (0 for the other families)."""
     if embeddings is None:
         x = embed(params.embed.table, tokens).to(_dtype(cfg))
         B, S = tokens.shape
@@ -210,18 +364,21 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
         base = torch.arange(S, device=x.device)[None].expand(B, S)
         positions = (base[None].expand(3, B, S)
                      if cfg.mrope_sections is not None else base)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, _, _), seg in zip(segments_for(cfg), params.segments):
         for p in seg:
-            x = _apply_super(kind, p, x, positions, cfg)
+            x, aux = _apply_super(kind, p, x, positions, cfg, params.shared)
+            if aux is not None:
+                aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
     logits = unembed(params.embed.table, x)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total
 
 
 # -- decode -------------------------------------------------------------------
 
 def _init_super_cache(kind, batch, max_len, cfg, per, dtype, device):
-    if kind in ("dense_block", "local_only"):
+    if kind in ("dense_block", "local_only", "moe_block"):
         w = cfg.sliding_window if kind == "local_only" else 0
         eff = min(max_len, w) if w else max_len
         return init_cache(batch, eff, cfg, dtype, device)
@@ -232,23 +389,43 @@ def _init_super_cache(kind, batch, max_len, cfg, per, dtype, device):
                        for _ in range(per - 1)],
             "global": init_cache(batch, max_len, cfg, dtype, device),
         }
-    raise _not_ported(kind)
+    # the recurrent states are f32 whatever ``dtype`` the KV caches take
+    if kind == "mamba_hybrid":
+        return {
+            "mambas": [init_mamba_cache(batch, cfg, device=device)
+                       for _ in range(per)],
+            "attn": init_cache(batch, max_len, cfg, dtype, device),
+        }
+    if kind == "xlstm_super":
+        return {
+            "mlstms": [init_mlstm_cache(batch, cfg, device=device)
+                       for _ in range(per - 1)],
+            "slstm": init_slstm_cache(batch, cfg, device=device),
+        }
+    raise ValueError(kind)
 
 
 def init_decoder_cache(batch: int, max_len: int, cfg: ModelConfig,
                        dtype=torch.bfloat16, device="cuda") -> List[Any]:
     """One cache per super-block, per segment: a :class:`KVCache` for a
-    block, ``{"locals": [...], "global": ...}`` for a local/global one."""
+    block, ``{"locals": [...], "global": ...}`` for a local/global one,
+    ``{"mambas": [MambaCache...], "attn": KVCache}`` for a hybrid one and
+    ``{"mlstms": [MLstmCache...], "slstm": SLstmCache}`` for an xLSTM
+    one."""
     device = resolve_device(device)
+    if cfg.encoder_decoder:
+        raise _not_ported("encdec")
     return [[_init_super_cache(kind, batch, max_len, cfg, per, dtype, device)
              for _ in range(n_iter)]
             for kind, n_iter, per in segments_for(cfg)]
 
 
-def _decode_super(kind, params, x, cache, cfg):
+def _decode_super(kind, params, x, cache, cfg, shared=None):
     if kind in ("dense_block", "local_only"):
         w = cfg.sliding_window if kind == "local_only" else 0
         return _dense_block_decode(params, x, cache, cfg, window=w)
+    if kind == "moe_block":
+        return _moe_block_decode(params, x, cache, cfg)
     if kind == "local_global":
         lc = []
         for p, c in zip(params.locals, cache["locals"]):
@@ -256,13 +433,35 @@ def _decode_super(kind, params, x, cache, cfg):
             lc.append(c)
         x, gc = _dense_block_decode(params.global_, x, cache["global"], cfg)
         return x, {"locals": lc, "global": gc}
-    raise _not_ported(kind)
+    if kind == "mamba_hybrid":
+        mc = []
+        for p, c in zip(params.mambas, cache["mambas"]):
+            y, c = mamba_decode(p.mixer, rms_norm(x, p.ln.scale, cfg.norm_eps),
+                                c, cfg)
+            x = x + y
+            mc.append(c)
+        x, ac = _dense_block_decode(shared, x + _lora(params, x),
+                                    cache["attn"], cfg)
+        return x, {"mambas": mc, "attn": ac}
+    if kind == "xlstm_super":
+        mc = []
+        for p, c in zip(params.mlstms, cache["mlstms"]):
+            y, c = mlstm_decode(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
+                                c, cfg)
+            x = x + y
+            mc.append(c)
+        p = params.slstm
+        y, sc = slstm_decode(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
+                             cache["slstm"], cfg)
+        return x + y, {"mlstms": mc, "slstm": sc}
+    raise ValueError(kind)
 
 
 def decoder_decode(params: Decoder, cfg: ModelConfig, cache, token=None,
                    embedding=None, unroll: bool = False):
-    """One-token decode step -> (logits (B,1,V), new_cache).  The cache's
-    tensors are written in place; the lengths advance in the new cache."""
+    """One-token decode step -> (logits (B,1,V), new_cache).  A KV cache's
+    tensors are written in place and its length advances in the new
+    cache; the recurrent states are new tensors."""
     if embedding is None:
         x = embed(params.embed.table, token).to(_dtype(cfg))
     else:
@@ -272,7 +471,7 @@ def decoder_decode(params: Decoder, cfg: ModelConfig, cache, token=None,
                                             params.segments, cache):
         new_cache = []
         for p, c in zip(seg, seg_cache):
-            x, c = _decode_super(kind, p, x, c, cfg)
+            x, c = _decode_super(kind, p, x, c, cfg, params.shared)
             new_cache.append(c)
         new_segs.append(new_cache)
     x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
