@@ -184,7 +184,22 @@ exits non-zero without the final ``ok`` line:
    + 1 sLSTM)), ``count_params`` 1,144,129,856; one super-block on the
    card against the CPU, prefill and 64 decode steps (each form against
    its own counterpart: the reference's two mLSTM forms differ); the
-   serving loop twice in bf16.  Each model is freed before the next.
+   serving loop twice in bf16.  Each model is freed before the next;
+16. LM serving, encoder-decoder (counts set to 0 before the phase and
+   read after): whisper-medium at full width and depth (24 encoder + 24
+   decoder layers, d_model 1024, vocab 51,865 padded to 51,968; frames
+   in, the audio frontend a stub; seed 0), ``count_params`` 959,309,824
+   and ``model_flops`` of decode_32k and train_4k equal to the
+   reference's; in f32 the decode of 2 x 128 tokens over a memory of 1500
+   frames (Whisper's 30-second window) against the prefill at every
+   position, and of 2 x 32 tokens over 3000 frames (the prefill's encoder
+   and cross-attention past the block threshold of 2048); 2 encoder + 2
+   decoder layers on the card against a CPU copy (prefill over 1500
+   frames, decode, 16 greedy tokens equal); the serving loop twice in
+   bf16 with its side-car (batch 8, 1500 frames, 32 tokens), tokens
+   equal, ms a step against the decoder's weight-read bounds and the f32
+   memory read, a decode step traced; the side-car's shapes held and
+   timed as in phase 12.
 
 The last four lines are the total of the phases' seconds, the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
@@ -362,6 +377,26 @@ XLSTM_PARAMS = 1_144_129_856
 XLSTM_DECODE_STEPS = 64
 XLSTM_SERVE_ARGV = ["--arch", XLSTM_ARCH, "--batch", "8", "--prompt-len",
                     "32", "--gen", "32"]
+# The encoder-decoder at full width and depth (24 + 24 layers, d_model
+# 1024; the audio frontend a stub: frames in).  ENCDEC_FRAMES = 1500
+# encoder positions is Whisper's 30-second window; f32 decode of
+# ENCDEC_DECODE tokens against the prefill over it, and of
+# ENCDEC_BLOCKED_DECODE tokens over ENCDEC_BLOCKED_FRAMES, past the
+# attention's block threshold of 2048 (the prefill's encoder and
+# cross-attention take the blocked path, a one-token decode's does not);
+# the card against the CPU on ENCDEC_CPU_LAYERS encoder and decoder
+# layers; the serving loop twice with its side-car over ENCDEC_FRAMES.
+# The reference's own decode and prefill agree for whisper on the CPU
+# (tools/lm_forms.py, reduced: 2.15e-6 at a logit scale of 3.50 over 24
+# frames, 1.79e-6 at 4.15 over 2100), so the decode is held against the
+# prefill within LM_TOL.
+ENCDEC_ARCH = "whisper-medium"
+ENCDEC_PARAMS = 959_309_824
+ENCDEC_FRAMES, ENCDEC_DECODE = 1500, (2, 128)
+ENCDEC_BLOCKED_FRAMES, ENCDEC_BLOCKED_DECODE = 3000, (2, 32)
+ENCDEC_CPU_LAYERS, ENCDEC_CPU_PROMPT, ENCDEC_CPU_GEN = 2, 32, 16
+ENCDEC_SERVE_ARGV = ["--arch", ENCDEC_ARCH, "--batch", "8", "--prompt-len",
+                     str(ENCDEC_FRAMES), "--gen", "32", "--retrieval"]
 
 
 class Phases:
@@ -1866,15 +1901,29 @@ def lm_close(what, got, want):
                                               want.argmax(-1))))
 
 
-def lm_decode(model, params, tokens, gen=0, every=False):
+def lm_cache(model, params, batch, max_len, frames=None):
+    """A fresh f32 decode cache of ``max_len`` tokens; for the
+    encoder-decoder, holding the encoder memory of ``frames`` (B, T, d)."""
+    import torch
+    from repro_torch.models.encdec import encdec_prefill_memory
+
+    if frames is None:
+        return model.init_cache(batch, max_len, dtype=torch.float32)
+    cache = model.init_cache(batch, max_len, dtype=torch.float32,
+                             mem_len=frames.shape[1])
+    return encdec_prefill_memory(params, model.cfg, frames, cache)
+
+
+def lm_decode(model, params, tokens, gen=0, every=False, frames=None):
     """Feed ``tokens`` (B, P) one at a time through ``model.decode_step``
-    from a fresh f32 cache, then ``gen`` greedy steps.  Returns the logits
+    from a fresh f32 cache (``lm_cache``: the encoder-decoder's holds the
+    memory of ``frames``), then ``gen`` greedy steps.  Returns the logits
     after the last prompt token (with ``every``, after each prompt token:
     (B, P, V)) and the greedy tokens (B, gen)."""
     import torch
 
     B, P = tokens.shape
-    cache = model.init_cache(B, P + gen, dtype=torch.float32)
+    cache = lm_cache(model, params, B, P + gen, frames)
     out, steps = [], []
     with torch.no_grad():
         for i in range(P):
@@ -2158,61 +2207,68 @@ def lm_check_count(cfg, params, want, want_active=None):
                 f32_weight_bytes=4 * held)
 
 
-def lm_full_logits(cfg, params, tokens):
-    """The whole sequence's logits of ``model.apply`` (no autograd)."""
+def lm_full_logits(cfg, params, tokens, frames=None):
+    """The whole sequence's logits of ``model.apply`` (no autograd); the
+    encoder-decoder's over the memory of ``frames``."""
     import torch
     from repro_torch.models import build
 
+    inputs = (dict(tokens=tokens) if frames is None
+              else dict(frames=frames, dec_tokens=tokens))
     with torch.no_grad():
-        return build(cfg, device=tokens.device).apply(params,
-                                                       tokens=tokens)[0]
+        return build(cfg, device=tokens.device).apply(params, **inputs)[0]
 
 
-def lm_decode_vs_prefill(cfg, params, tokens, around=None):
+def lm_decode_vs_prefill(cfg, params, tokens, around=None, frames=None):
     """Each position's decode logits (the prompt fed one token at a time
     from an empty f32 cache) against the prefill's, within LM_TOL; the
-    prefill runs inside the context ``around`` where one is given."""
+    prefill runs inside the context ``around`` where one is given.  For
+    the encoder-decoder, both over the memory of ``frames``, whose
+    encoder pass the decode's seconds include."""
     import torch
     from repro_torch.train.step import make_serve_step
 
     t = time.perf_counter()
     with around or contextlib.nullcontext():
-        want = lm_full_logits(cfg, params, tokens)
+        want = lm_full_logits(cfg, params, tokens, frames)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     model, _ = make_serve_step(cfg, device=tokens.device)
     t = time.perf_counter()
-    got, _ = lm_decode(model, params, tokens, every=True)
+    got, _ = lm_decode(model, params, tokens, every=True, frames=frames)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t
     B, P = tokens.shape
     return dict(prompts=B, tokens=P, prefill_s=prefill_s, decode_s=decode_s,
                 decode_ms_per_step=1e3 * decode_s / P, tolerance=LM_TOL,
+                **({} if frames is None else dict(frames=frames.shape[1])),
                 **lm_close("decode against prefill", got, want))
 
 
-def lm_card_vs_cpu(cfg, p_card, prompt, gen, around_prefill=None):
+def lm_card_vs_cpu(cfg, p_card, prompt, gen, around_prefill=None,
+                   frames=None):
     """The model ``p_card`` on the card against a CPU copy of its weights:
     the prefill's logits, each prompt step's decode logits and ``gen``
-    greedy tokens.  ``around_prefill(where)`` may give a context to run
-    each side's prefill in.  Returns the report."""
+    greedy tokens (the encoder-decoder's over the memory of ``frames``,
+    numpy).  ``around_prefill(where)`` may give a context to run each
+    side's prefill in.  Returns the report."""
     import numpy as np
     import torch
-    from repro_torch.models.transformer import Decoder
     from repro_torch.train.step import make_serve_step
 
-    p_cpu = Decoder(cfg, device="cpu")
+    p_cpu = type(p_card)(cfg, device="cpu")
     p_cpu.load_state_dict(p_card.state_dict())
     outs = {}
     for where, p in (("card", p_card), ("cpu", p_cpu)):
         d = next(p.parameters()).device
         tk = torch.from_numpy(prompt).to(d)
+        fr = None if frames is None else torch.from_numpy(frames).to(d)
         t = time.perf_counter()
         with (around_prefill(where) if around_prefill
               else contextlib.nullcontext()):
-            pre = lm_full_logits(cfg, p, tk)
+            pre = lm_full_logits(cfg, p, tk, fr)
         model, _ = make_serve_step(cfg, device=d)
-        steps, greedy = lm_decode(model, p, tk, gen, every=True)
+        steps, greedy = lm_decode(model, p, tk, gen, every=True, frames=fr)
         outs[where] = (pre.cpu(), steps.cpu(), greedy.cpu(),
                        time.perf_counter() - t)
     del p_cpu
@@ -2228,18 +2284,23 @@ def lm_card_vs_cpu(cfg, p_card, prompt, gen, around_prefill=None):
         greedy_tokens=np.asarray(card[2]).tolist())
 
 
-def lm_step_trace(cfg, params, batch=8, warm=8):
-    """The serving loop's decode step (f32 cache, as the loop's), traced
-    by ``torch.profiler`` after ``warm`` steps (see ``lm_trace``)."""
+def lm_step_trace(cfg, params, batch=8, warm=8, frames_len=None):
+    """The serving loop's decode step (f32 cache, as the loop's; the
+    encoder-decoder's over the memory of ``frames_len`` random frames),
+    traced by ``torch.profiler`` after ``warm`` steps (see ``lm_trace``)."""
     import numpy as np
     import torch
     from repro_torch.train.step import make_serve_step
 
     dev = next(params.parameters()).device
     model, step = make_serve_step(cfg, device=dev)
-    state = dict(cache=model.init_cache(batch, warm + LM_TRACE_STEPS,
-                                        dtype=torch.float32),
-                 tok=torch.from_numpy(np.random.default_rng(3).integers(
+    rng = np.random.default_rng(3)
+    frames = None if frames_len is None else torch.from_numpy(
+        rng.standard_normal((batch, frames_len, cfg.d_model))
+        .astype(np.float32)).to(dev)
+    state = dict(cache=lm_cache(model, params, batch, warm + LM_TRACE_STEPS,
+                                frames),
+                 tok=torch.from_numpy(rng.integers(
                      0, cfg.vocab_size, (batch, 1)).astype(np.int32)).to(dev))
 
     def decode_one():
@@ -2288,7 +2349,9 @@ def lm_serve_twice(argv, params, bounds):
         rep.update(bits_per_id=warm.bits_per_id,
                    search_ms_per_lookup=float(np.mean(warm.search_ms)),
                    lookups=len(warm.search_ms))
-    rep["trace"] = lm_step_trace(cfg, params, batch=args.batch)
+    rep["trace"] = lm_step_trace(
+        cfg, params, batch=args.batch,
+        frames_len=args.prompt_len if cfg.encoder_decoder else None)
     return rep
 
 
@@ -2559,6 +2622,106 @@ def xlstm_serving(dev):
     del params
     lm_free()
     return rep, launch_counts()
+
+
+def encdec_serving(dev, gen):
+    """Phase 16 (module docstring): whisper-medium at full width and
+    depth.  Every kernel count is set to 0 before it; returns the report,
+    the counts and the side-car's kernel shapes held and timed ({kernel:
+    ms a run}, records)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import (launch_counts, launch_shapes,
+                                     reset_launches)
+    from repro_torch.models import model_flops
+    from repro_torch.models.encdec import dec_len_for, init_encdec
+
+    rng = np.random.default_rng(16)
+    cfg = get_config(ENCDEC_ARCH)
+    rep = {}
+    reset_launches()
+
+    # (a) the counts; the model at full width and depth
+    t = time.perf_counter()
+    params = init_encdec(0, cfg, dev)
+    torch.cuda.synchronize()
+    rep["model"] = dict(lm_check_count(cfg, params, ENCDEC_PARAMS),
+                        encoder_layers=cfg.n_encoder_layers,
+                        init_s=time.perf_counter() - t)
+    flops = {}
+    for name in ("decode_32k", "train_4k"):
+        sh = SHAPES[name]
+        want = (2.0 * ENCDEC_PARAMS * sh.global_batch if sh.kind == "decode"
+                else 6.0 * ENCDEC_PARAMS * sh.global_batch
+                * dec_len_for(sh.seq_len))
+        flops[name] = model_flops(cfg, sh)
+        if flops[name] != want:
+            raise AssertionError(f"model_flops({name}) {flops[name]}, the "
+                                 f"reference's formula {want}")
+    rep["model"]["model_flops"] = flops
+
+    # (b) f32 decode against prefill over Whisper's window, then past the
+    # block threshold
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    for key, n_frames, shape in (
+            ("f32_decode_vs_prefill", ENCDEC_FRAMES, ENCDEC_DECODE),
+            ("f32_decode_vs_prefill_blocked", ENCDEC_BLOCKED_FRAMES,
+             ENCDEC_BLOCKED_DECODE)):
+        frames = torch.from_numpy(rng.standard_normal(
+            (shape[0], n_frames, cfg.d_model)).astype(np.float32)).to(dev)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
+                                .astype(np.int32)).to(dev)
+        rep[key] = lm_decode_vs_prefill(cfg32, params, toks, frames=frames)
+        del frames, toks
+        lm_free()
+
+    # (c) f32, the card against the CPU on the first layers at full width
+    cfg_cut = dataclasses.replace(cfg32, n_layers=ENCDEC_CPU_LAYERS,
+                                  n_encoder_layers=ENCDEC_CPU_LAYERS)
+    p_cut = init_encdec(1, cfg_cut, dev)
+    frames = rng.standard_normal(
+        (2, ENCDEC_FRAMES, cfg.d_model)).astype(np.float32)
+    prompt = rng.integers(0, cfg.vocab_size,
+                          (2, ENCDEC_CPU_PROMPT)).astype(np.int32)
+    rep["card_vs_cpu"] = dict(
+        encoder_layers=ENCDEC_CPU_LAYERS, frames=ENCDEC_FRAMES,
+        **lm_card_vs_cpu(cfg_cut, p_cut, prompt, ENCDEC_CPU_GEN,
+                         frames=frames))
+    del p_cut
+    lm_free()
+
+    # (d) the serving loop in bf16 with the side-car, twice.  A step reads
+    # the decoder's weights (not the cross keys/values' projections: their
+    # products are the cache's memory), the tied table, and the f32
+    # memory of every decoder layer
+    step_params = sum(
+        p.numel() for name, p in params.named_parameters()
+        if not name.startswith(("enc_blocks.", "enc_norm."))
+        and ".cross.wk." not in name and ".cross.wv." not in name)
+    args_batch = int(ENCDEC_SERVE_ARGV[ENCDEC_SERVE_ARGV.index("--batch")
+                                       + 1])
+    memory_bytes = (2 * 4 * cfg.n_layers * args_batch * ENCDEC_FRAMES
+                    * cfg.n_kv_heads * cfg.head_dim_)
+    rep["serve"] = lm_serve_twice(ENCDEC_SERVE_ARGV, params, dict(
+        weight_read_bound=2 * step_params,
+        f32_weight_read_bound=4 * step_params,
+        f32_memory_read_bound=memory_bytes,
+        f32_step_read_bound=4 * step_params + memory_bytes))
+    rep["serve"]["step_params"] = step_params
+    serve_shapes = launch_shapes()
+    counts = launch_counts()
+    del params
+    lm_free()
+    missing = [n for n in ("l2_top1", "l2_dist", "seg_topk")
+               if counts[n] <= 0]
+    if missing:
+        raise AssertionError(f"the encoder-decoder path launched no "
+                             f"{missing}")
+    ms, recs = lm_kernel_shapes(dev, gen, serve_shapes, serve_shapes)
+    return rep, counts, ms, recs
 
 
 def main(argv=None) -> int:
@@ -2974,6 +3137,16 @@ def main(argv=None) -> int:
         xl, paths["lm_xlstm"] = xlstm_serving(dev)
         for key, r in xl.items():
             print(f"  {key}: " + json.dumps(r))
+    with phase(f"LM serving: {ENCDEC_ARCH} at full width and depth with the "
+               "side-car"):
+        ed, paths["lm_encdec"], ed_ms, ed_recs = encdec_serving(dev, gen)
+        for key, r in ed.items():
+            print(f"  {key}: " + json.dumps(r))
+        for r in ed_recs:
+            print("  " + json.dumps(r))
+        print(f"  encoder-decoder launches: {json.dumps(paths['lm_encdec'])}")
+        for key, v in ed_ms.items():
+            lm_ms[key] += v
 
     on_api = ("wt_rank", "rans_decode")
     totals = {k: api_path[k] if k in on_api else

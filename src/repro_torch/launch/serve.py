@@ -6,7 +6,11 @@
 The port of ``repro.launch.serve``, same CLI and loop, plus ``--device``
 (default ``cuda``; raises where no CUDA device is present).  The prompt
 is fed token by token through the one-token decode step
-(``make_serve_step``) against a KV cache, then ``--gen`` greedy steps
+(``make_serve_step``) against a KV cache; for the encoder-decoder
+(whisper) the prompt is ``--prompt-len`` frames of ``d_model`` (the first
+draw of ``default_rng(0)``, as in the reference) run once through the
+encoder into the cache's memory, and decoding starts from token 0.  Then
+``--gen`` greedy steps
 follow (first maximum wins) and tokens/s is reported, with each step's
 milliseconds (every step copies its tokens to the host, so a step's time
 includes the device's).  With ``--retrieval`` a ``RetrievalIndex`` over
@@ -14,11 +18,12 @@ includes the device's).  With ``--retrieval`` a ``RetrievalIndex`` over
 and searched every 8 steps.  The cache is f32, as in the reference, so a
 bf16 config's attention scores against it in f32 (JAX's promotion).
 
-Every decoder-only family serves: dense, local/global (gemma3), MoE
-(olmoe, llama4-scout), the Mamba2 hybrid (zamba2) and xLSTM.  Parameters
-come from the port's own init (``torch.Generator``, seed 0) unless
-``main``/``run`` are handed a :class:`Decoder` (``params=``, e.g. the
-reference's weights through ``params_from_jax``); its own config is then
+Every family serves: dense, local/global (gemma3), MoE (olmoe,
+llama4-scout), the Mamba2 hybrid (zamba2), xLSTM and the
+encoder-decoder (whisper).  Parameters come from the port's own init
+(``torch.Generator``, seed 0) unless ``main``/``run`` are handed a
+:class:`Decoder` or :class:`EncDec` (``params=``, e.g. the reference's
+weights through ``params_from_jax``); its own config is then
 the model's (``--arch`` must name it), so a model cut in depth serves as
 it was built.
 """
@@ -35,6 +40,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import encdec_prefill_memory
 from repro_torch.train.step import make_serve_step
 
 __all__ = ["ServeRun", "parse_args", "run", "main"]
@@ -46,7 +52,7 @@ RETRIEVAL_EVERY = 8
 class ServeRun:
     tokens: np.ndarray              # (gen, batch) greedy tokens
     step_ms: List[float]            # each generation step, host clock
-    prompt_s: float                 # feeding the prompt
+    prompt_s: float                 # feeding the prompt (or the frames)
     wall_s: float                   # the generation loop
     bits_per_id: Optional[float] = None
     search_ms: List[float] = dataclasses.field(default_factory=list)
@@ -79,10 +85,6 @@ def run(args: argparse.Namespace, params=None) -> ServeRun:
         cfg = get_config(args.arch)
         if args.reduced:
             cfg = reduced(cfg)
-    if cfg.encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder serving is not ported to "
-            "repro_torch yet (ROADMAP.md, queue 1)")
     device = resolve_device(args.device)
     if device.type == "cuda":
         # bf16 GEMMs reduce in f32, as the reference's dots accumulate
@@ -91,12 +93,20 @@ def run(args: argparse.Namespace, params=None) -> ServeRun:
     model, serve_step = make_serve_step(cfg, device=device)
     if params is None:
         params = model.init(0)
+    cache_kw = {"mem_len": args.prompt_len} if cfg.encoder_decoder else {}
     cache = model.init_cache(args.batch, args.prompt_len + args.gen,
-                             dtype=torch.float32)
+                             dtype=torch.float32, **cache_kw)
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    if cfg.frontend == "vision":
+    if cfg.encoder_decoder:
+        frames = rng.standard_normal((args.batch, args.prompt_len,
+                                      cfg.d_model)).astype(np.float32)
+        cache = encdec_prefill_memory(params, cfg,
+                                      torch.from_numpy(frames).to(device),
+                                      cache)
+        tok = torch.zeros((args.batch, 1), dtype=torch.int32, device=device)
+    elif cfg.frontend == "vision":
         tok = None
     else:
         # prefill by feeding prompt tokens one at a time (decode path)
@@ -106,7 +116,8 @@ def run(args: argparse.Namespace, params=None) -> ServeRun:
             tok, cache = serve_step(params, cache,
                                     {"token": prompt[:, i:i + 1]})
         tok = tok[:, None]
-        tok.cpu()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
     prompt_s = time.perf_counter() - t0
 
     ri = None

@@ -1,6 +1,9 @@
-"""The port's models: the decoder-only families (``repro.models``)."""
+"""The port's models (``repro.models``): the decoder-only families and
+the encoder-decoder (whisper)."""
 
 from .convert import params_from_jax
+from .encdec import EncDec, EncDecCache
 from .model import Model, build, count_params, model_flops
 
-__all__ = ["Model", "build", "count_params", "model_flops", "params_from_jax"]
+__all__ = ["EncDec", "EncDecCache", "Model", "build", "count_params",
+           "model_flops", "params_from_jax"]

@@ -2,7 +2,12 @@
 
 ``params_from_jax(cfg, tree)`` takes the pytree of the reference's
 ``repro.models.transformer.init_decoder`` as numpy arrays (``jax.tree.map
-(np.asarray, params)``) and loads it into a :class:`~.transformer.Decoder`.
+(np.asarray, params)``) and loads it into a :class:`~.transformer.Decoder`;
+for an encoder-decoder config, the tree of ``repro.models.encdec.
+init_encdec`` into an :class:`~.encdec.EncDec` (``enc_blocks`` and
+``dec_blocks`` stacked on axis 0, the block's keys its module names:
+``dec_blocks.<i>.cross.wk.kernel`` is ``tree["dec_blocks"]["cross"]["wk"]
+["kernel"][i]``).
 The reference stacks each segment's super-blocks on a leading axis, and
 the blocks a super-block repeats on a second: a block's leaves are
 ``(n_iter, ...)``; a ``local_global`` super-block's ``locals``, a hybrid
@@ -22,6 +27,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from .encdec import EncDec
 from .transformer import Decoder
 
 __all__ = ["params_from_jax"]
@@ -40,34 +46,55 @@ def _load(module: torch.nn.Module, tree, index=()) -> int:
             if part.isdigit():
                 at.append(int(part))
             else:
-                leaf = leaf[_TREE_KEY.get(part, part)]
-        src = np.asarray(leaf)[tuple(at)]
-        if src.shape != tuple(p.shape):
-            raise ValueError(f"{name}: tree leaf {src.shape}, parameter "
-                             f"{tuple(p.shape)}")
+                leaf = _sub(leaf, _TREE_KEY.get(part, part))
+        src = np.asarray(leaf)
+        if src.ndim < len(at) or any(
+                i >= n for i, n in zip(at, src.shape)) or \
+                src[tuple(at)].shape != tuple(p.shape):
+            raise ValueError(f"{name}[{at}]: tree leaf {src.shape}, "
+                             f"parameter {tuple(p.shape)}: the tree's "
+                             "layout is not this config's")
+        src = src[tuple(at)]
         p.copy_(torch.from_numpy(np.array(src, np.float32)))
         n += src.size
     return n
 
 
-def params_from_jax(cfg: ModelConfig, tree, device="cuda") -> Decoder:
+def params_from_jax(cfg: ModelConfig, tree, device="cuda"):
     """The reference's ``init_decoder`` pytree (numpy leaves) as the port's
-    :class:`Decoder` on ``device``."""
+    :class:`Decoder` on ``device``, or its ``init_encdec`` pytree as an
+    :class:`EncDec` for an encoder-decoder config."""
     device = resolve_device(device)
-    params = Decoder(cfg, device=device)
+    n = 0
     with torch.no_grad():
-        n = _load(params.embed, tree["embed"])
-        n += _load(params.final_norm, tree["final_norm"])
-        if params.shared_attn is not None:
-            n += _load(params.shared_attn, tree["shared_attn"])
-        for seg, seg_tree in zip(params.segments, tree["segments"]):
-            for i, sup in enumerate(seg):
-                n += _load(sup, seg_tree, (i,))
+        if cfg.encoder_decoder:
+            params = EncDec(cfg, device=device)
+            for key in ("enc_blocks", "dec_blocks"):
+                for i, block in enumerate(getattr(params, key)):
+                    n += _load(block, _sub(tree, key), (i,))
+            rest = ("embed", "enc_norm", "final_norm")
+        else:
+            params = Decoder(cfg, device=device)
+            rest = ("embed", "final_norm") + (
+                ("shared_attn",) if params.shared_attn is not None else ())
+            for seg, seg_tree in zip(params.segments, _sub(tree, "segments")):
+                for i, sup in enumerate(seg):
+                    n += _load(sup, seg_tree, (i,))
+        for key in rest:
+            n += _load(getattr(params, key), _sub(tree, key))
     leaves = sum(np.asarray(a).size for a in _leaves(tree))
     if n != leaves:
         raise ValueError(f"the tree holds {leaves} values, the model "
                          f"{n}: its layout is not this config's")
     return params
+
+
+def _sub(tree, key):
+    """``tree[key]``, or a ValueError naming the missing key."""
+    if not isinstance(tree, dict) or key not in tree:
+        raise ValueError(f"the tree has no {key!r}: its layout is not this "
+                         "config's")
+    return tree[key]
 
 
 def _leaves(tree):

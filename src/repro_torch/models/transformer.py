@@ -20,8 +20,7 @@ through the same loop: a KV cache for attention (a windowed layer's is a
 ring of ``min(max_len, window)`` slots), the f32 recurrent state of a
 Mamba2, mLSTM or sLSTM layer.
 
-The encoder-decoder family (whisper) is not ported yet and raises
-``NotImplementedError`` (ROADMAP.md, queue 1).
+The encoder-decoder family (whisper) is :class:`~.encdec.EncDec`.
 """
 
 from __future__ import annotations
@@ -63,10 +62,9 @@ __all__ = ["segments_for", "Decoder", "DenseBlock", "LocalGlobal",
 _LORA_RANK = 128
 
 
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kind!r} is not ported to repro_torch yet (ROADMAP.md, queue 1: "
-        "the encoder-decoder family, whisper, comes in a later slice)")
+def _encdec_refused(cfg: ModelConfig) -> ValueError:
+    return ValueError(f"{cfg.name} is an encoder-decoder: its parameters "
+                      "are an encdec.EncDec")
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +218,10 @@ def _make_super(kind: str, cfg, per: int, device) -> nn.Module:
     raise ValueError(kind)
 
 
-def _dense_block(params: DenseBlock, x, positions, cfg, window: int = 0):
+def _dense_block(params: DenseBlock, x, positions, cfg, window: int = 0,
+                 causal: bool = True):
     h = x + attention(params.attn, rms_norm(x, params.ln1.scale, cfg.norm_eps),
-                      positions, cfg, window=window)
+                      positions, cfg, causal=causal, window=window)
     return h + params.mlp(rms_norm(h, params.ln2.scale, cfg.norm_eps))
 
 
@@ -301,7 +300,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         if cfg.encoder_decoder:
-            raise _not_ported("encdec")
+            raise _encdec_refused(cfg)
         self.cfg = cfg
         self.embed = Embedding(cfg.padded_vocab, cfg.d_model, device=device)
         self.segments = nn.ModuleList(
@@ -414,7 +413,7 @@ def init_decoder_cache(batch: int, max_len: int, cfg: ModelConfig,
     one."""
     device = resolve_device(device)
     if cfg.encoder_decoder:
-        raise _not_ported("encdec")
+        raise _encdec_refused(cfg)
     return [[_init_super_cache(kind, batch, max_len, cfg, per, dtype, device)
              for _ in range(n_iter)]
             for kind, n_iter, per in segments_for(cfg)]

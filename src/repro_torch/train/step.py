@@ -2,8 +2,13 @@
 
 ``make_prefill_step``: forward only, returns the last position's logits.
 ``make_serve_step``: one greedy decode step against a KV cache.
-Both run without autograd.  ``loss_fn`` and ``make_train_step`` come
-with the optimizer in the training slice (ROADMAP.md, queue 1).
+Both run without autograd and hand their inputs to the model unchanged:
+``tokens`` (or ``embeddings`` / ``positions``) and ``token`` for the
+decoder-only families, ``frames`` / ``dec_tokens`` and ``token`` for the
+encoder-decoder (whose decode cache holds the encoder memory, from
+``models.encdec.encdec_prefill_memory``).  ``loss_fn`` and
+``make_train_step`` come with the optimizer in the training slice
+(ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations

@@ -4,9 +4,8 @@ Inputs come from numpy seeds; the reference's weights from its own
 initialisers.  Tolerances: rtol = atol = 1e-5 for norms, MLP, RoPE /
 M-RoPE and attention (f32 products summed in another order); ``embed``
 and the masks exactly; parameter counts (total and active) exactly for
-the nine decoder-only configs.  Also the family not ported yet (the
-encoder-decoder whisper raises, naming the roadmap) and the device rule
-(the entry points default to CUDA and raise without a card).
+the ten configs.  Also the device rule (the entry points default to
+CUDA and raise without a card).
 """
 
 import dataclasses
@@ -33,7 +32,6 @@ DENSE = ["gemma3-1b", "granite-20b", "minitron-4b", "qwen2-72b",
          "qwen2-vl-7b"]
 DECODER_ONLY = DENSE + ["zamba2-2.7b", "xlstm-1.3b", "llama4-scout-17b-a16e",
                         "olmoe-1b-7b"]
-NOT_PORTED = ["whisper-medium"]
 
 
 def _t(a):
@@ -68,7 +66,7 @@ def test_registry_and_shapes_equal_the_reference():
         PC.get_config("gpt-5")
 
 
-@pytest.mark.parametrize("arch", DECODER_ONLY)
+@pytest.mark.parametrize("arch", DECODER_ONLY + ["whisper-medium"])
 def test_count_params_equals_the_reference(arch):
     """Both count without allocating: the reference by ``eval_shape``, the
     port on the meta device; the active count (the experts' k/E share for
@@ -88,15 +86,6 @@ def test_gemma3_1b_has_its_published_size_and_flops():
     train = PC.SHAPES["train_4k"]
     assert model_flops(cfg, train) == \
         6.0 * 999_812_736 * train.global_batch * train.seq_len
-
-
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_families_not_ported_yet_raise(arch):
-    cfg = PC.reduced(PC.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        count_params(cfg)
 
 
 # -- layers ----------------------------------------------------------------

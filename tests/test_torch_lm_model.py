@@ -238,9 +238,3 @@ def test_serving_loop_own_init_is_deterministic():
     argv = ["--arch", "gemma3-1b"] + SERVE_ARGS + ["--device", "cpu"]
     a, b = serve_main(argv), serve_main(argv)
     assert a.shape == (6, 2) and np.array_equal(a, b)
-
-
-def test_serving_loop_encoder_decoder_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve_main(["--arch", "whisper-medium"] + SERVE_ARGS
-                   + ["--device", "cpu"])
