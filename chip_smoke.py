@@ -38,12 +38,12 @@ exits non-zero without the final ``ok`` line:
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
    built on the card from 1M ``sift-like`` vectors (the PQ spec from the
-   first ``PQ_MAIN_N``, 500,000: its Pólya coding runs on the host;
+   first ``PQ_MAIN_N``, 250,000: its Pólya coding runs on the host;
    k-means assignment and PQ encoding through ``l2_top1``) and served
    through ``AnnService`` (4-query requests, ``max_batch=64``,
    ``nprobe=16``, top-10) twice, with the decoded-id cache cold and then
    warm; then an ingest pass: five
-   ``add`` calls of 10,000 new vectors each (five epochs; two for the PQ
+   ``add`` calls of 10,000 new vectors each (five epochs; one for the PQ
    spec, whose Pólya coding runs on the host), and the queries served
    again.  Every kernel's launch count (and the launch shapes:
    ``seg_topk`` by ``(n, k)``, ``l2_top1`` by ``(K, d, rows)``, the rows
@@ -54,8 +54,8 @@ exits non-zero without the final ``ok`` line:
    1M vectors, serving the same queries through ``AnnService`` twice (the
    first pass uploads the base); every kernel's launch count set to 0
    before the build and read after; ids and dists equal to a CPU
-   ``FlatIndex`` (the numpy loop) on the first 64 queries, and recall@10
-   1.0 against exact search;
+   ``FlatIndex`` (the numpy loop, its queries split over host threads) on
+   the first 64 queries, and recall@10 1.0 against exact search;
 7. container path: ``save_index`` and ``load_index(device="cuda")`` of
    the ``IVF1024,ids=roc`` index after its ingest (six epochs) and of the
    Flat index, with pack and unpack seconds and blob MB; bits per id and
@@ -70,7 +70,7 @@ exits non-zero without the final ``ok`` line:
    the monolith's warm QPS; one routed add of 10,000 vectors to the
    monolith and to both 4-shard services (every shard's n and epochs equal
    the monolith's, results equal); ``IVF1024,PQ8x8,ids=roc,codes=polya``
-   over the first 100,000 vectors on 2 shards by hash (a host-bound cut:
+   over the first 50,000 vectors on 2 shards by hash (a host-bound cut:
    the planner re-encodes each shard's Pólya codes); Flat on 4 shards by
    hash, its plan saved and loaded onto the card (pack / unpack seconds,
    MB), equal before and after; an ``IVF1024,ids=roc`` plan over the first
@@ -199,7 +199,22 @@ exits non-zero without the final ``ok`` line:
    bf16 with its side-car (batch 8, 1500 frames, 32 tokens), tokens
    equal, ms a step against the decoder's weight-read bounds and the f32
    memory read, a decode step traced; the side-car's shapes held and
-   timed as in phase 12.
+   timed as in phase 12;
+17. LM training (``repro_torch.train``, ``launch.train``; counts set to 0
+   before the phase and read after: no kernel of the port is on the
+   path): gemma3-1b at full width and depth (seed 0, bf16 activations,
+   f32 weights and AdamW moments), 20 steps of ``make_train_step`` on
+   ``TokenPipeline`` batches of 4 x 512 tokens at lr 1e-3 (warmup 1),
+   the loss falling by more than 0.3; ms a step (mean, p50, p99),
+   tokens/s and the share of the 6 N D bound at the bf16 peak; the
+   optimizer alone against its 28 bytes a weight; one step traced by
+   ``torch.profiler``; ``save_checkpoint`` / ``restore_checkpoint`` of
+   (params, OptState), 12.0 GB, with seconds, the restored state training
+   on to the same next two losses; one super-block (6 layers, f32) on the
+   card against a CPU copy (loss, every gradient, the update, at the CPU
+   tests' bounds); crash and resume through ``launch.train.main`` on
+   reduced gemma3 (resumed losses within 1e-4 of the unbroken run's), and
+   whether two runs and the resumed one are equal bit for bit.
 
 The last four lines are the total of the phases' seconds, the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
@@ -228,6 +243,8 @@ SRC = ROOT / "src"
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 PEAK_TF32_S = 494.7e12
+# the dense bf16 tensor-core rate, for the 6 N D bound of an LM train step
+PEAK_BF16_S = 989e12
 TF32_PRODUCTS = 3
 # SASS mnemonics of the tensor-core MMA instructions (wgmma, mma.sync)
 TENSOR_CORE_SASS = ("HGMMA", "HMMA")
@@ -240,12 +257,17 @@ NLIST = 1024
 TOP1_SHAPES = ((1 << 20, NLIST, 128), (1 << 20, 256, 16))
 INGEST_ADDS, INGEST_ROWS = 5, 10_000
 # the PQ spec is built over the first PQ_MAIN_N vectors and grown by the
-# first two adds only: its Pólya coding runs on the host (the build took
-# 218.7-290 s at 1M, each add ~20 s), cuts of depth that keep the run with
-# its sharded and LM phases well inside RUN_LIMIT_S (1034.3 s of phases
-# with the PQ build at 1M)
-PQ_MAIN_N = 500_000
-PQ_INGEST_ADDS = 2
+# first add only: its Pólya coding runs on the host (the build took
+# 218.7-290 s at 1M, each add ~20-43 s), cuts of depth that keep the run
+# with its sharded, LM serving and LM training phases inside RUN_LIMIT_S
+# (1034.3 s of phases with the PQ build at 1M; 1069.2 and 1302.7 s on two
+# hosts with it at 500,000, two adds and the training phase)
+PQ_MAIN_N = 250_000
+PQ_INGEST_ADDS = 1
+# Flat's results are held against the CPU's numpy loop over 1M vectors on
+# the first 64 queries, split over FLAT_LOOP_THREADS host threads (~0.5-0.7
+# s a query on one; 64 took 46 s)
+FLAT_LOOP_THREADS = 8
 # seg_topk at two row widths and every k the scan's K-doubling retry
 # reaches up to 2048 (and k = 16, the earlier kernel's shape), plus the
 # retry's worst case k = n; the (n, k) the main path launched (at 1M
@@ -309,7 +331,7 @@ STEP_TILE_MAX = 64 * 4096
 # exhaustive regime (ef >= n) over its first SHARD_EXHAUSTIVE_N vectors
 SHARD_IVF = ((1, "range"), (2, "range"), (4, "range"), (4, "hash"))
 SHARD_ADD_ROWS = 10_000
-SHARD_PQ_N = 100_000
+SHARD_PQ_N = 50_000
 SHARD_CONTAINER_N = 100_000
 SHARD_GRAPH = 2
 SHARD_EXHAUSTIVE_N = 2000
@@ -398,6 +420,32 @@ ENCDEC_CPU_LAYERS, ENCDEC_CPU_PROMPT, ENCDEC_CPU_GEN = 2, 32, 16
 ENCDEC_SERVE_ARGV = ["--arch", ENCDEC_ARCH, "--batch", "8", "--prompt-len",
                      str(ENCDEC_FRAMES), "--gen", "32", "--retrieval"]
 
+
+# LM training (repro_torch.train, launch.train) at gemma3-1b's full width
+# and depth: TRAIN_STEPS steps of make_train_step on TokenPipeline batches
+# of TRAIN_BATCH (B, S) in bf16 activations with f32 weights and moments,
+# lr TRAIN_LR with warmup 1; the loss must fall by more than
+# TRAIN_LOSS_DROP (the reference's test).  Time a step against 6 N D at
+# the bf16 tensor-core peak, the optimizer alone (TRAIN_OPT_REPS calls)
+# against the 28 bytes a weight AdamW moves.  The card against the CPU
+# over one super-block (LM_CPU_LAYERS layers, f32) on a TRAIN_CPU_BATCH
+# batch, at the CPU tests' bounds (tests/_torch_train.py): loss, ce and
+# grad_norm within TRAIN_LOSS_TOL relative, gradients within
+# TRAIN_GRAD_TOL of each tensor's max, updates within lr *
+# TRAIN_UPDATE_TOL.  Crash and resume through launch.train.main on reduced
+# gemma3 as the reference's test runs it (TRAIN_RESUME_ARGV), the resumed
+# losses within TRAIN_RESUME_RTOL (the reference's rtol).
+TRAIN_BATCH = (4, 512)
+TRAIN_STEPS = 20
+TRAIN_LR = 1e-3
+TRAIN_LOSS_DROP = 0.3
+TRAIN_OPT_REPS = 3
+TRAIN_CPU_BATCH = (1, 64)
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-5, 1e-4, 1e-2
+TRAIN_RESUME_ARGV = ["--arch", LM_ARCH, "--reduced", "--batch", "4",
+                     "--seq", "32", "--ckpt-every", "10", "--steps", "30",
+                     "--log-every", "100", "--device", "cuda"]
+TRAIN_RESUME_RTOL = 1e-4
 
 class Phases:
     """The run's phase timer: ``with phases(name):`` prints the phase's
@@ -1007,6 +1055,8 @@ def serve_flat(base, queries, gt, device):
     before the build and read after the second pass.  Results must equal a
     CPU ``FlatIndex`` (the numpy loop) on the first 64 queries and reach
     recall@10 1.0.  Returns (report, counts, shapes, the index)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
     import torch
     from repro_torch.api import make_index
@@ -1026,12 +1076,19 @@ def serve_flat(base, queries, gt, device):
     counts, shapes = launch_counts(), launch_shapes()
     if svc.last_stats.engine != "flat-pallas":
         raise AssertionError(f"Flat served by {svc.last_stats.engine}")
+    # each query's loop is its own, and numpy's scoring and sort release
+    # the GIL: the 64 queries in FLAT_LOOP_THREADS pieces give the same
+    # results as one call
     t = time.perf_counter()
-    d_cpu, ids_cpu, st_cpu = make_index("Flat", device="cpu").build(
-        base).search(queries[:64], k=TOPK)
+    cpu = make_index("Flat", device="cpu").build(base)
+    with ThreadPoolExecutor(FLAT_LOOP_THREADS) as pool:
+        parts = list(pool.map(lambda q: cpu.search(q, k=TOPK), np.array_split(
+            queries[:64], FLAT_LOOP_THREADS)))
     loop_s = time.perf_counter() - t
-    if st_cpu.engine != "flat":
-        raise AssertionError(f"CPU Flat ran {st_cpu.engine}")
+    if {st.engine for _, _, st in parts} != {"flat"}:
+        raise AssertionError("CPU Flat ran another engine than the loop")
+    d_cpu = np.concatenate([d for d, _, _ in parts])
+    ids_cpu = np.concatenate([i for _, i, _ in parts])
     for tickets in (first_t, second_t):
         ids = np.concatenate([tk.ids for tk in tickets])
         dists = np.concatenate([tk.dists for tk in tickets])
@@ -1048,6 +1105,7 @@ def serve_flat(base, queries, gt, device):
         spec="Flat", n=int(base.shape[0]), build_s=build_s,
         recall_at_10=recall, first=first, second=second,
         parity_vs_numpy_loop=True, numpy_loop_s_64_queries=loop_s,
+        numpy_loop_threads=FLAT_LOOP_THREADS,
         launches=counts, shapes=shape_report(counts, shapes)), counts, \
         shapes, idx
 
@@ -2724,6 +2782,270 @@ def encdec_serving(dev, gen):
     return rep, counts, ms, recs
 
 
+def train_close(what, got, want, tol):
+    """Raise unless ``got`` is within ``tol`` relative of ``want``;
+    returns the relative gap."""
+    gap = abs(got - want) / max(abs(want), 1e-30)
+    if not gap <= tol:
+        raise AssertionError(f"{what}: {got} against {want} (relative gap "
+                             f"{gap}, tolerance {tol})")
+    return gap
+
+
+def train_grads(model, params, batch, cfg):
+    """``(loss, {name: gradient})`` of ``train.step.loss_fn``, as the train
+    step takes them."""
+    import torch
+    from repro_torch.train.step import loss_fn
+
+    named = list(params.named_parameters())
+    with torch.enable_grad():
+        loss, _ = loss_fn(model, params, batch, cfg)
+        grads = torch.autograd.grad(loss, [p for _, p in named])
+    return float(loss.detach()), {n: g for (n, _), g in zip(named, grads)}
+
+
+def train_card_vs_cpu(cfg, opt_cfg, dev):
+    """One local/global super-block (LM_CPU_LAYERS layers) at full width in
+    f32: one train step on the card and on a CPU copy of its weights from
+    the same batch.  The loss, ce and grad_norm within TRAIN_LOSS_TOL
+    relative, every gradient within TRAIN_GRAD_TOL of its tensor's
+    max|g| (the CPU tests' bounds), each updated weight within lr *
+    (TRAIN_UPDATE_TOL + du) as tests/_torch_train.py::hold_step holds it:
+    du = |u(g_card) - u(g_cpu)|, u(g) = g / (|g| + eps) the direction of
+    a first Adam step, g the gradient the step used (mu / (1 - b1)): up
+    to 2 only where the two signs differ."""
+    import torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.transformer import Decoder, init_decoder
+    from repro_torch.train.optim import init_opt
+    from repro_torch.train.step import make_train_step
+
+    B, S = TRAIN_CPU_BATCH
+    batch = TokenPipeline(vocab=cfg.vocab_size, batch=B, seq_len=S,
+                          seed=1).batch_at(0)
+    p_card = init_decoder(2, cfg, dev)
+    p_cpu = Decoder(cfg, device="cpu")
+    p_cpu.load_state_dict(p_card.state_dict())
+    out = {}
+    for where, p in (("card", p_card), ("cpu", p_cpu)):
+        d = next(p.parameters()).device
+        model, step = make_train_step(cfg, opt_cfg, device=d)
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        t = time.perf_counter()
+        loss, grads = train_grads(model, p, b, cfg)
+        _, opt, m = step(p, init_opt(p), b)
+        m = {k: float(v) for k, v in m.items()}
+        out[where] = dict(loss=loss, metrics=m, seconds=time.perf_counter()
+                          - t, grads={n: g.cpu() for n, g in grads.items()},
+                          used={n: u.cpu().double() / (1 - opt_cfg.b1)
+                                for n, u in opt.mu.items()},
+                          params={n: q.detach().cpu()
+                                  for n, q in p.named_parameters()})
+    card, cpu = out["card"], out["cpu"]
+    rep = dict(layers=cfg.n_layers, batch=[B, S], card_s=card["seconds"],
+               cpu_s=cpu["seconds"])
+    for key in ("loss", "ce", "grad_norm"):
+        rep[f"{key}_gap"] = train_close(
+            f"card against CPU {key}", card["metrics"][key],
+            cpu["metrics"][key], TRAIN_LOSS_TOL)
+    rep["lr_equal"] = card["metrics"]["lr"] == cpu["metrics"]["lr"]
+    gaps, upd, flips = {}, 0.0, 0
+    lr, eps = cpu["metrics"]["lr"], opt_cfg.eps
+    for n, want in cpu["grads"].items():
+        got = card["grads"][n]
+        scale = max(float(want.abs().max()), 1e-30)
+        gaps[n] = float((got - want).abs().max()) / scale
+        gg, gw = card["used"][n], cpu["used"][n]
+        du = (gg / (gg.abs() + eps) - gw / (gw.abs() + eps)).abs()
+        atol = lr * (TRAIN_UPDATE_TOL + du)
+        flips += int((gg.sign() != gw.sign()).sum())
+        diff = (card["params"][n] - cpu["params"][n]).abs()
+        if bool((diff > atol).any()):
+            raise AssertionError(f"card against CPU: updated {n} differs "
+                                 f"by {float(diff.max())}")
+        upd = max(upd, float(diff.max()))
+    worst = max(gaps, key=gaps.get)
+    if not gaps[worst] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"card against CPU: gradient of {worst} "
+                             f"{gaps[worst]} of its max (tolerance "
+                             f"{TRAIN_GRAD_TOL})")
+    rep.update(grad_gap=gaps[worst], grad_gap_at=worst,
+               update_max_abs=upd, update_sign_flips=flips, tolerance=dict(
+                   loss=TRAIN_LOSS_TOL, grad=TRAIN_GRAD_TOL,
+                   update=lr * TRAIN_UPDATE_TOL), tensors=len(gaps))
+    return rep
+
+
+def train_resume(workdir):
+    """``launch.train.main`` on the card, reduced gemma3 (the reference's
+    crash-and-resume test): the unbroken 30-step run twice, and a run
+    stopped after 20 steps then resumed from its checkpoint; the resumed
+    losses within TRAIN_RESUME_RTOL of the unbroken run's, with whether
+    the runs and their step-30 checkpoints are equal bit for bit."""
+    import shutil
+
+    import numpy as np
+    from repro_torch.launch.train import main as train_main
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    runs = {}
+    t = time.perf_counter()
+    for name in ("a", "b"):
+        runs[name] = train_main(TRAIN_RESUME_ARGV + [
+            "--ckpt-dir", str(workdir / name), "--resume", "never"])
+    first = train_main(TRAIN_RESUME_ARGV + [
+        "--ckpt-dir", str(workdir / "c"), "--resume", "never",
+        "--stop-after", "20"])
+    resumed = train_main(TRAIN_RESUME_ARGV + ["--ckpt-dir",
+                                              str(workdir / "c")])
+    seconds = time.perf_counter() - t
+    full = np.asarray(runs["a"])
+    if len(first) != 20 or len(resumed) != len(full) - 20:
+        raise AssertionError(f"stopped run {len(first)} steps, resumed "
+                             f"{len(resumed)}")
+    np.testing.assert_allclose(resumed, full[20:], rtol=TRAIN_RESUME_RTOL)
+
+    def arrays(name):
+        with np.load(workdir / name / "step_00000030" / "arrays.npz") as z:
+            return {k: z[k] for k in z.files}
+
+    ck = {name: arrays(name) for name in "abc"}
+    same = {f"{x}{y}": all(np.array_equal(ck[x][k], ck[y][k]) for k in ck[x])
+            for x, y in ("ab", "ac")}
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(
+        steps=len(full), seconds=seconds, loss_first=float(full[0]),
+        loss_last=float(full[-1]),
+        resumed_max_rel_gap=float(np.max(np.abs(np.asarray(resumed)
+                                                - full[20:]) / full[20:])),
+        rtol=TRAIN_RESUME_RTOL,
+        two_runs_losses_bitwise_equal=bool(np.array_equal(runs["a"],
+                                                          runs["b"])),
+        two_runs_checkpoints_bitwise_equal=same["ab"],
+        resumed_losses_bitwise_equal=bool(np.array_equal(
+            np.asarray(first + resumed), full)),
+        resumed_checkpoint_bitwise_equal=same["ac"])
+
+
+def lm_training(dev):
+    """Phase 17 (module docstring): gemma3-1b trained at full width and
+    depth.  Counts set to 0 before, read after (no kernel of the port is
+    on the path)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train.optim import AdamWConfig, apply_updates, init_opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(LM_ARCH)
+    B, S = TRAIN_BATCH
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    rep = {}
+    reset_launches()
+    t = time.perf_counter()
+    model, step = make_train_step(cfg, opt_cfg, device=dev)
+    params = init_decoder(0, cfg, dev)
+    state = dict(opt=init_opt(params))
+    torch.cuda.synchronize()
+    rep["model"] = dict(lm_check_count(cfg, params, LM_PARAMS),
+                        dtype=cfg.dtype, init_s=time.perf_counter() - t)
+    pipe = TokenPipeline(vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0)
+
+    def batch_at(i):
+        return {k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(i).items()}
+
+    def train_one(b):
+        _, state["opt"], m = step(params, state["opt"], b)
+        return {k: float(v) for k, v in m.items()}
+
+    # (a) TRAIN_STEPS steps, each synchronised on its metrics
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(TRAIN_STEPS):
+        b = batch_at(i)
+        t = time.perf_counter()
+        m = train_one(b)
+        ms.append(1e3 * (time.perf_counter() - t))
+        losses.append(m["loss"])
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
+            - TRAIN_LOSS_DROP:
+        raise AssertionError(f"the loss did not fall by {TRAIN_LOSS_DROP}: "
+                             f"{losses}")
+    tokens = B * S
+    six_nd_ms = 1e3 * 6 * LM_PARAMS * tokens / PEAK_BF16_S
+    steady = lm_stats(ms[1:])
+    rep["train"] = dict(
+        steps=TRAIN_STEPS, batch=[B, S], lr=TRAIN_LR, losses=losses,
+        loss_drop=losses[0] - losses[-1], first_step_ms=ms[0], **steady,
+        tokens_per_s=1e3 * tokens / steady["mean_ms"],
+        six_nd_bound_ms=six_nd_ms,
+        six_nd_share=six_nd_ms / steady["mean_ms"],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # (b) the optimizer alone, on one step's gradients: against the bytes
+    # AdamW must move (read p, g, m, v; write p, m, v: 28 bytes a weight)
+    _, grads = train_grads(model, params, batch_at(TRAIN_STEPS), cfg)
+    opt_ms = cuda_ms(lambda: apply_updates(params, grads, state["opt"],
+                                           opt_cfg),
+                     reps=TRAIN_OPT_REPS, warmup=1)
+    del grads
+    opt_bound = 1e3 * 28 * LM_PARAMS / PEAK_BYTES_S
+    rep["optimizer"] = dict(ms=opt_ms, byte_bound_ms=opt_bound,
+                            byte_bound_share=opt_bound / opt_ms,
+                            share_of_step=opt_ms / steady["mean_ms"])
+
+    # (c) one step traced
+    b = batch_at(TRAIN_STEPS + 1)
+    rep["trace"] = lm_trace(lambda: train_one(b), steps=1)
+
+    # (d) the checkpoint of (params, OptState) written and read back: the
+    # restored state trains on to the same two next losses
+    ck = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    nxt = [batch_at(TRAIN_STEPS + 2 + i) for i in range(2)]
+    t = time.perf_counter()
+    save_checkpoint(ck, int(state["opt"].step), (params, state["opt"]),
+                    extra={"pipeline": pipe.state()})
+    save_s = time.perf_counter() - t
+    gb = sum(f.stat().st_size for f in ck.rglob("*") if f.is_file()) / 1e9
+    before = [train_one(b)["loss"] for b in nxt]
+    t = time.perf_counter()
+    (_, state["opt"]), manifest = restore_checkpoint(
+        ck, (params, state["opt"]))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    after = [train_one(b)["loss"] for b in nxt]
+    shutil.rmtree(ck, ignore_errors=True)
+    for x, y in zip(after, before):
+        train_close("next loss after restore", x, y, TRAIN_LOSS_TOL)
+    rep["checkpoint"] = dict(
+        step=manifest["step"], keys=len(manifest["keys"]), gb=gb,
+        save_s=save_s, restore_s=restore_s, save_gb_s=gb / save_s,
+        restore_gb_s=gb / restore_s, next_losses=before,
+        next_losses_bitwise_equal=after == before)
+    del params, state
+    lm_free()
+
+    # (e) one super-block at full width in f32, the card against the CPU
+    cfg6 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, dtype="float32")
+    rep["card_vs_cpu"] = train_card_vs_cpu(cfg6, opt_cfg, dev)
+    lm_free()
+
+    # (f) crash and resume through launch.train.main, reduced
+    rep["resume"] = train_resume(ROOT / "build" / "train_resume")
+    return rep, launch_counts()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -3147,6 +3469,11 @@ def main(argv=None) -> int:
         print(f"  encoder-decoder launches: {json.dumps(paths['lm_encdec'])}")
         for key, v in ed_ms.items():
             lm_ms[key] += v
+    with phase(f"LM training: {LM_ARCH} at full width and depth"):
+        tr, paths["lm_training"] = lm_training(dev)
+        for key, r in tr.items():
+            print(f"  {key} ({smi}): " + json.dumps(r))
+        print(f"  training launches: {json.dumps(paths['lm_training'])}")
 
     on_api = ("wt_rank", "rans_decode")
     totals = {k: api_path[k] if k in on_api else

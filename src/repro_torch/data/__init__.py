@@ -1,5 +1,7 @@
-"""Synthetic datasets (numpy, seeded) — copies of the reference presets."""
+"""Synthetic datasets and the token pipeline (numpy, seeded) — copies of
+the reference's ``repro.data``."""
 
-from .synthetic import PRESETS, make_dataset
+from .pipeline import TokenPipeline
+from .synthetic import PRESETS, make_dataset, make_tokens
 
-__all__ = ["PRESETS", "make_dataset"]
+__all__ = ["PRESETS", "TokenPipeline", "make_dataset", "make_tokens"]

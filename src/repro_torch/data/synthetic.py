@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_dataset", "PRESETS"]
+__all__ = ["make_dataset", "make_tokens", "PRESETS"]
 
 PRESETS = {
     "sift-like": dict(d=128, n_modes=2048, concentration=0.25, block=8, heavy=False),
@@ -52,3 +52,10 @@ def make_dataset(preset: str, n: int, n_queries: int = 1000, seed: int = 0):
         return pts + p["concentration"] * noise
 
     return sample(n), sample(n_queries)
+
+
+def make_tokens(n_tokens: int, vocab: int, seed: int = 0, zipf_a: float = 1.2):
+    """Zipfian token stream for LM training examples."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(zipf_a, size=n_tokens)
+    return np.minimum(ranks - 1, vocab - 1).astype(np.int32)

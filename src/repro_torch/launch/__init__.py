@@ -1,1 +1,3 @@
-"""Entry points of the port (``repro.launch``): serving so far."""
+"""Entry points of the port (``repro.launch``): the serving and training
+drivers (the mesh, dry-run and hill-climb come with the distributed
+slice)."""

@@ -18,6 +18,13 @@ parameter names are the tree's keys (``ln1.scale``, ``attn.wq.kernel``,
 indexes the stacked axis, ``global_`` is the tree's ``global``.  The
 hybrid family's ``shared_attn`` is one unstacked block.  Every leaf of
 the tree must land in exactly one parameter.
+
+``params_to_jax(cfg, params)`` is the exact inverse: the module as the
+reference's pytree of numpy arrays (stacked axes, ``global``, the
+unstacked ``shared_attn``), which the checkpoint writes under the
+reference's keys.  ``tree_of`` builds that layout from any mapping of
+parameter names to arrays (the optimizer's moments), ``tree_path`` gives
+one parameter's place in it.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ from ..device import resolve_device
 from .encdec import EncDec
 from .transformer import Decoder
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "tree_of", "tree_path"]
 
 # module attribute -> the reference tree's key, where they differ
 _TREE_KEY = {"global_": "global"}
@@ -106,3 +113,72 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def tree_path(name: str):
+    """``(keys, at)`` of the parameter ``name`` of a :class:`Decoder` or
+    :class:`EncDec`: the reference tree's keys down to its leaf (an int
+    key indexes the list ``segments``) and the index on the leaf's
+    stacked axes."""
+    parts = name.split(".")
+    keys, at = [], []
+    if parts[0] == "segments":
+        keys, at, parts = ["segments", int(parts[1])], [int(parts[2])], \
+            parts[3:]
+    elif parts[0] in ("enc_blocks", "dec_blocks"):
+        keys, at, parts = [parts[0]], [int(parts[1])], parts[2:]
+    for part in parts:
+        if part.isdigit():
+            at.append(int(part))
+        else:
+            keys.append(_TREE_KEY.get(part, part))
+    return tuple(keys), tuple(at)
+
+
+def tree_of(named) -> dict:
+    """The reference's pytree (numpy leaves) of ``named``, a mapping of a
+    module's parameter names to tensors or arrays of the parameters'
+    shapes: each leaf stacks its parameters on the axes
+    :func:`tree_path` gives."""
+    leaves = {}
+    for name, value in named.items():
+        keys, at = tree_path(name)
+        value = (value.detach().cpu().numpy() if isinstance(value,
+                                                             torch.Tensor)
+                 else np.asarray(value))
+        leaves.setdefault(keys, []).append((at, value))
+    tree = {}
+    for keys, parts in leaves.items():
+        lead = tuple(1 + max(at[i] for at, _ in parts)
+                     for i in range(len(parts[0][0])))
+        leaf = np.empty(lead + parts[0][1].shape, parts[0][1].dtype)
+        if len(parts) != int(np.prod(lead)):
+            raise ValueError(f"{'/'.join(map(str, keys))}: {len(parts)} "
+                             f"parameters for a stack of {lead}")
+        for at, value in parts:
+            leaf[at] = value
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = leaf
+    return _lists(tree)
+
+
+def _lists(node):
+    """Dicts keyed 0..n-1 (the segments) as lists, recursively."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(isinstance(k, int) for k in out):
+        return [out[i] for i in range(len(out))]
+    return out
+
+
+def params_to_jax(cfg: ModelConfig, params) -> dict:
+    """The reference's ``init_decoder`` (or ``init_encdec``) pytree of
+    ``params`` as numpy arrays: ``params_from_jax(cfg, params_to_jax(cfg,
+    params))`` holds the same values."""
+    if bool(cfg.encoder_decoder) != isinstance(params, EncDec):
+        kind = "an EncDec" if cfg.encoder_decoder else "a Decoder"
+        raise ValueError(f"{cfg.name}'s parameters are {kind}")
+    return tree_of(dict(params.named_parameters()))

@@ -147,9 +147,11 @@ class MLP(nn.Module):
 # -- embeddings ----------------------------------------------------------------
 
 def embed(table: torch.Tensor, tokens: torch.Tensor):
-    """Rows of ``table`` for int32 or int64 ``tokens`` of any shape."""
-    return table.index_select(0, tokens.reshape(-1)).reshape(
-        *tokens.shape, table.shape[1])
+    """Rows of ``table`` for int32 or int64 ``tokens`` of any shape.
+    ``F.embedding``, whose CUDA backward sums each row's gradients in a
+    fixed order; ``index_select``'s backward is an ``index_add_`` with
+    float atomics, which would make a train step differ from run to run."""
+    return F.embedding(tokens, table)
 
 
 def unembed(table: torch.Tensor, x: torch.Tensor):

@@ -5,8 +5,9 @@ ones (dense, local/global, MoE, Mamba2-hybrid, xLSTM), whose parameters
 are a :class:`~.transformer.Decoder` module, and the encoder-decoder
 (whisper), whose parameters are an :class:`~.encdec.EncDec`; either is
 passed to ``apply`` / ``decode_step`` as the reference passes its
-pytree.  The dry-run's input specs come with the distributed slice
-(ROADMAP.md, queue 1).
+pytree, and trained through autograd over its parameters
+(``train.step.make_train_step``).  The dry-run's input specs come with
+the distributed slice (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations

@@ -95,6 +95,21 @@ def _mlstm_qkv(params: MLstm, x, cfg):
     return q, k, v, log_i, log_f
 
 
+def _per_head_scan(xs, log_f, k, q):
+    """``ssd_chunked`` on each head on its own (the reference ``vmap``s it
+    over the head axis): xs (B, L, H, P), log_f (B, L, H), k and q (B, L,
+    H, N), the heads folded into the scan's batch axis; -> (B, L, H, P)."""
+    B, L, H = log_f.shape
+
+    def heads_first(t):                       # (B, L, H, ...) -> (B*H, L, ...)
+        return t.transpose(1, 2).reshape(B * H, L, *t.shape[3:])
+
+    y, _ = ssd_chunked(heads_first(xs)[:, :, None],
+                       heads_first(log_f)[..., None],
+                       heads_first(k), heads_first(q))
+    return y[:, :, 0].reshape(B, H, L, -1).transpose(1, 2)
+
+
 def mlstm_apply(params: MLstm, x, cfg):
     """Full-sequence mLSTM via the SSD chunked scan (per-head decays)."""
     B, L, _ = x.shape
@@ -104,14 +119,7 @@ def mlstm_apply(params: MLstm, x, cfg):
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     # input weighting: i_t enters multiplicatively (like dt in SSD)
     xs = v_aug * torch.exp(log_i)[..., None].to(v.dtype)
-
-    def heads_first(t):                       # (B, L, H, ...) -> (B*H, L, ...)
-        return t.transpose(1, 2).reshape(B * H, L, *t.shape[3:])
-
-    y, _ = ssd_chunked(heads_first(xs)[:, :, None],
-                       heads_first(log_f)[..., None],
-                       heads_first(k), heads_first(q))
-    y = y[:, :, 0].reshape(B, H, L, hd + 1).transpose(1, 2)  # (B,L,H,hd+1)
+    y = _per_head_scan(xs, log_f, k, q)                       # (B,L,H,hd+1)
     num, den = y[..., :-1], y[..., -1:]
     y = num / torch.clamp(den.abs(), min=1.0)
     z = params.wz(x)

@@ -24,6 +24,7 @@ the pieces the router composes:
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, Optional
 
@@ -114,19 +115,25 @@ class RandomFaults(FaultPolicy):
     """Seeded Bernoulli(``rate``) retryable failure per attempt.
 
     Deterministic given ``seed``, so a run with a background fault rate
-    reproduces run to run.
+    reproduces run to run: each attempt draws from its own stream,
+    ``SeedSequence([seed, batch_id, shard_id, attempt])``.  (The
+    reference draws from one sequential stream, so which shard fails
+    depends on the order in which the router's pool threads reach it.)
     """
 
     def __init__(self, rate: float, seed: int = 0):
         if not 0.0 <= rate <= 1.0:
             raise ValueError("fault rate must be in [0, 1]")
         self.rate = float(rate)
-        self._rng = np.random.default_rng(seed)
+        self.seed = int(seed)
+        self._lock = threading.Lock()
         self.injected = 0
 
     def on_attempt(self, shard_id: int, attempt: int, batch_id: int) -> None:
-        del batch_id
-        if self._rng.random() < self.rate:
-            self.injected += 1
+        draw = np.random.default_rng(
+            [self.seed, batch_id, shard_id, attempt]).random()
+        if draw < self.rate:
+            with self._lock:
+                self.injected += 1
             raise ShardTimeout(
                 f"shard {shard_id} random fault (attempt {attempt})")

@@ -608,6 +608,27 @@ def test_random_faults_are_seeded():
         RandomFaults(1.5)
 
 
+def test_random_faults_do_not_depend_on_call_order():
+    """Each (batch, shard, attempt) draws from its own seeded stream, so the
+    router's threads may reach the hook in any order."""
+    from repro_torch.shard import RandomFaults, ShardTimeout
+
+    calls = [(s, a, b) for b in range(6) for s in range(4) for a in range(2)]
+
+    def failed(order):
+        faults, out = RandomFaults(0.5, seed=3), set()
+        for s, a, b in order:
+            try:
+                faults.on_attempt(s, a, b)
+            except ShardTimeout:
+                out.add((s, a, b))
+        return out, faults.injected
+
+    first = failed(calls)
+    assert 0 < first[1] < len(calls)
+    assert failed(calls[::-1]) == first
+
+
 class _Boom(FaultPolicy):
     def on_attempt(self, shard_id, attempt, batch_id):
         if shard_id == 1:
