@@ -38,7 +38,7 @@ exits non-zero without the final ``ok`` line:
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
    built on the card from 1M ``sift-like`` vectors (the PQ spec from the
-   first ``PQ_MAIN_N``, 250,000: its Pólya coding runs on the host;
+   first ``PQ_MAIN_N``, 125,000: its Pólya coding runs on the host;
    k-means assignment and PQ encoding through ``l2_top1``) and served
    through ``AnnService`` (4-query requests, ``max_batch=64``,
    ``nprobe=16``, top-10) twice, with the decoded-id cache cold and then
@@ -70,7 +70,7 @@ exits non-zero without the final ``ok`` line:
    the monolith's warm QPS; one routed add of 10,000 vectors to the
    monolith and to both 4-shard services (every shard's n and epochs equal
    the monolith's, results equal); ``IVF1024,PQ8x8,ids=roc,codes=polya``
-   over the first 50,000 vectors on 2 shards by hash (a host-bound cut:
+   over the first 25,000 vectors on 2 shards by hash (a host-bound cut:
    the planner re-encodes each shard's Pólya codes); Flat on 4 shards by
    hash, its plan saved and loaded onto the card (pack / unpack seconds,
    MB), equal before and after; an ``IVF1024,ids=roc`` plan over the first
@@ -214,7 +214,30 @@ exits non-zero without the final ``ok`` line:
    card against a CPU copy (loss, every gradient, the update, at the CPU
    tests' bounds); crash and resume through ``launch.train.main`` on
    reduced gemma3 (resumed losses within 1e-4 of the unbroken run's), and
-   whether two runs and the resumed one are equal bit for bit.
+   whether two runs and the resumed one are equal bit for bit;
+18. distributed (``repro_torch.distributed``, ``launch.mesh``, the
+   sharded train step, ``checkpoint.reshard``; counts set to 0 before the
+   phase here and in each spawned rank before its job, read after and
+   summed: no kernel of the port is on the path): four
+   ranks spawned on cuda:0 over gloo (NCCL refuses two ranks on one
+   device; every collective crosses the host), each a module-level job
+   of this script: sequence-parallel decode at granite-20b's attention
+   width (48 heads, 1 KV head, head_dim 128) over decode_32k's 32,768
+   slots for 8 sequences, the last 1000 empty, against dense attention
+   within 2e-5; GPipe over four full-width minitron-4b layers, 8
+   microbatches of 2 x 512 tokens, against the layers in sequence within
+   1e-4 of the output's scale, with ms and the bubble share
+   (S - 1) / (S - 1 + M); two sharded steps of reduced gemma3 on a
+   (2, 2) mesh, replicas bit-equal, losses against the plain step; a
+   reduced checkpoint resharded onto (2, 2) and (4, 1), every shard its
+   slice bit for bit.  Two ranks: gemma3-1b at full width and depth in
+   f32 on (data 2, model 1), one sharded step of 4 x 512 tokens against
+   the one-process step (loss and grad_norm within 1e-5 relative, each
+   gradient within 1e-4 of its tensor's max, each updated weight within
+   lr (1e-2 + du)), with ms a step, the host-staged collectives'
+   time and each rank's peak memory.  A world of one on NCCL in this
+   process: the sharded step on (1, 1) equal to the plain step bit for
+   bit.  Any rank's failure fails the phase.
 
 The last four lines are the total of the phases' seconds, the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
@@ -259,10 +282,12 @@ INGEST_ADDS, INGEST_ROWS = 5, 10_000
 # the PQ spec is built over the first PQ_MAIN_N vectors and grown by the
 # first add only: its Pólya coding runs on the host (the build took
 # 218.7-290 s at 1M, each add ~20-43 s), cuts of depth that keep the run
-# with its sharded, LM serving and LM training phases inside RUN_LIMIT_S
-# (1034.3 s of phases with the PQ build at 1M; 1069.2 and 1302.7 s on two
-# hosts with it at 500,000, two adds and the training phase)
-PQ_MAIN_N = 250_000
+# with its sharded, LM serving, LM training and distributed phases inside
+# RUN_LIMIT_S (1034.3 s of phases with the PQ build at 1M; 1069.2 and
+# 1302.7 s on two hosts with it at 500,000, two adds and the training
+# phase; 898.05 s at 250,000 before the distributed phase, which took
+# 60.3 s, on a host that ran this phase 1.2x faster than another)
+PQ_MAIN_N = 125_000
 PQ_INGEST_ADDS = 1
 # Flat's results are held against the CPU's numpy loop over 1M vectors on
 # the first 64 queries, split over FLAT_LOOP_THREADS host threads (~0.5-0.7
@@ -323,15 +348,15 @@ STEP_TILE_MAX = 64 * 4096
 # built: IVF1024,ids=roc after its ingest at 1, 2 and 4 shards by range and
 # 4 by hash, then one routed add of SHARD_ADD_ROWS vectors; PQ over the
 # first SHARD_PQ_N vectors (the planner re-encodes each shard's Pólya
-# codes on the host: at 1M that costs about as much as the PQ build), 2
-# shards by hash; Flat at full size, 4 by hash, its plan saved and loaded
-# onto the card; an IVF plan saved and loaded over the first
+# codes on the host: at 1M that costs about as much as the PQ build; 35.0
+# s at 50,000), 2 shards by hash; Flat at full size, 4 by hash, its plan
+# saved and loaded onto the card; an IVF plan saved and loaded over the first
 # SHARD_CONTAINER_N vectors (the host's joint ROC streams cost ~1 min at
 # 1M); the navigable NSG32 graph, 2 shards, and the reference's
 # exhaustive regime (ef >= n) over its first SHARD_EXHAUSTIVE_N vectors
 SHARD_IVF = ((1, "range"), (2, "range"), (4, "range"), (4, "hash"))
 SHARD_ADD_ROWS = 10_000
-SHARD_PQ_N = 50_000
+SHARD_PQ_N = 25_000
 SHARD_CONTAINER_N = 100_000
 SHARD_GRAPH = 2
 SHARD_EXHAUSTIVE_N = 2000
@@ -446,6 +471,36 @@ TRAIN_RESUME_ARGV = ["--arch", LM_ARCH, "--reduced", "--batch", "4",
                      "--seq", "32", "--ckpt-every", "10", "--steps", "30",
                      "--log-every", "100", "--device", "cuda"]
 TRAIN_RESUME_RTOL = 1e-4
+
+# The distribution layer (repro_torch.distributed, launch.mesh, the sharded
+# train step, checkpoint.reshard) on DIST_WORLD ranks that share cuda:0
+# over gloo (NCCL refuses two ranks on one device): sequence-parallel
+# decode at granite-20b's attention width (48 heads, 1 KV head, head_dim
+# 128; the config whose cache the rules shard by sequence) over
+# decode_32k's T of 32,768 for SP_BATCH sequences, the last SP_INVALID
+# slots empty, against dense attention on the card within SP_TOL (the
+# reference test's tolerance); GPipe over four full-width minitron-4b
+# decoder layers (d 3072, 24 heads, 8 KV heads, ff 9216) on PP_MICRO
+# microbatches of PP_MB (batch, tokens), against the layers in sequence
+# within PP_TOL of the output's scale; gemma3-1b at full width and depth
+# in f32 on a DIST_TRAIN_MESH (data, model) mesh of two ranks, one step
+# on DIST_TRAIN_BATCH tokens against the one-process step (loss and
+# grad_norm within TRAIN_LOSS_TOL relative, every gradient within
+# TRAIN_GRAD_TOL of its tensor's max, every updated weight within lr *
+# (TRAIN_UPDATE_TOL + du)); reduced gemma3 on DIST_SMALL_MESH for
+# DIST_SMALL_STEPS steps (replicas bit-equal, losses against the plain
+# step's) and its checkpoint resharded onto each of RESHARD_MESHES
+# (slices bit-equal); a world of one on NCCL, where the sharded step
+# equals the plain step bit for bit.  A rank not done after
+# DIST_TIMEOUT_S fails the phase.
+DIST_WORLD = 4
+SP_ARCH, SP_BATCH, SP_T, SP_INVALID, SP_TOL, SP_REPS = \
+    "granite-20b", 8, 32_768, 1000, 2e-5, 5
+PP_ARCH, PP_MICRO, PP_MB, PP_TOL = "minitron-4b", 8, (2, 512), 1e-4
+DIST_TRAIN_MESH, DIST_TRAIN_BATCH = (2, 1), (4, 512)
+DIST_SMALL_MESH, DIST_SMALL_STEPS, DIST_SMALL_BATCH = (2, 2), 2, (4, 32)
+RESHARD_MESHES = ((2, 2), (4, 1))
+DIST_TIMEOUT_S = 600
 
 class Phases:
     """The run's phase timer: ``with phases(name):`` prints the phase's
@@ -2421,9 +2476,9 @@ def recording_routes(seen):
 
     inner = moe.moe_route
 
-    def record(logits, k, capacity):
+    def record(logits, k, capacity, split=None):
         seen.append((logits.detach().clone(), k, capacity))
-        return inner(logits, k, capacity)
+        return inner(logits, k, capacity, split)
 
     moe.moe_route = record
     try:
@@ -3046,6 +3101,531 @@ def lm_training(dev):
     return rep, launch_counts()
 
 
+def dist_rank(rank, world, init, job, out, args):
+    """One rank of phase 18, spawned by :func:`run_dist`: a world of
+    ``world`` ranks on cuda:0 over gloo through ``distributed.compat``;
+    runs ``DIST_JOBS[job](*args)`` with this process's launch counts set
+    to 0 and saves what it returns with the counts read after.  Any
+    failure raises, and the parent fails the phase."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    from repro_torch.distributed import compat
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    compat.init_distributed(device="cuda:0", backend="gloo",
+                            init_method=f"file://{init}", world_size=world,
+                            rank=rank)
+    try:
+        reset_launches()
+        result = DIST_JOBS[job](*args)
+        torch.save((result, launch_counts()), Path(out) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_dist(job, world, workdir, *args):
+    """``(results, launches)``: every rank's result of ``job`` on
+    ``world`` spawned ranks, in rank order, and the kernel launches the
+    ranks made, summed; a failing rank stops the others and raises, and
+    so does a rank still running after DIST_TIMEOUT_S."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    out = workdir / job
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    init = workdir / f"{job}.{time.monotonic_ns()}.init"
+    ctx = mp.spawn(dist_rank, args=(world, str(init), job, str(out), args),
+                   nprocs=world, join=False)
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{job}: ranks still running after "
+                               f"{DIST_TIMEOUT_S} s")
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False)
+             for r in range(world)]
+    launches = {}
+    for _, counts in ranks:
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+    return [result for result, _ in ranks], launches
+
+
+def digest(t):
+    """A hash of a tensor's bytes: ranks compare results by it."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def dense_decode(q, k, v, valid):
+    """One-token attention over the whole cache (tests/test_distributed.py's
+    dense reference)."""
+    import torch
+
+    B, _, H, D = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, KV, H // KV, D)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k) / D ** 0.5
+    s = torch.where(valid[:, None, None, :], s,
+                    torch.full((), torch.finfo(torch.float32).min,
+                               device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgt,btkd->bkgd", p, v).reshape(B, 1, H, D)
+
+
+def dist_sp(dev):
+    """SP decode at granite-20b's attention width over DIST_WORLD ranks
+    against dense attention (phase 18, 1)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compat, make_sp_decode
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    cfg = get_config(SP_ARCH)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    B, T = SP_BATCH, SP_T
+    mesh = make_mesh_compat((DIST_WORLD,), ("model",), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev)
+    k = torch.randn((B, T, KV, D), generator=gen, device=dev)
+    v = torch.randn((B, T, KV, D), generator=gen, device=dev)
+    valid = (torch.arange(T, device=dev) < T - SP_INVALID)[None].expand(
+        B, T).contiguous()
+    fn = make_sp_decode(mesh)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        out, first_s = timed(lambda: fn(q, k, v, valid))
+        compat.reset_stats()
+        again, s = timed(lambda: [fn(q, k, v, valid)
+                                  for _ in range(SP_REPS)][-1])
+        coll = compat.STATS.as_dict()
+        want, dense_s = timed(lambda: [dense_decode(q, k, v, valid)
+                                       for _ in range(SP_REPS)][-1])
+    err = float((out - want).abs().max())
+    if not torch.allclose(out, want, rtol=SP_TOL, atol=SP_TOL) or \
+            not torch.equal(out, again):
+        raise AssertionError(f"SP decode against dense: max |err| {err} "
+                             f"(tolerance {SP_TOL}), repeat equal "
+                             f"{torch.equal(out, again)}")
+    return dict(arch=SP_ARCH, shape=dict(B=B, T=T, H=H, KV=KV, D=D),
+                invalid=SP_INVALID, ranks=DIST_WORLD, max_abs_err=err,
+                scale=float(want.abs().max()), tol=SP_TOL,
+                first_ms=1e3 * first_s, ms=1e3 * s / SP_REPS,
+                dense_ms=1e3 * dense_s / SP_REPS,
+                collectives_per_call={op: dict(
+                    calls=c["calls"] / SP_REPS, bytes=c["bytes"] / SP_REPS,
+                    ms=1e3 * c["seconds"] / SP_REPS)
+                    for op, c in coll.items()}, digest=digest(out))
+
+
+def dist_pp(dev, rank):
+    """GPipe over DIST_WORLD ranks, each stage one full-width minitron-4b
+    layer (seeded by its stage), against the layers in sequence (phase
+    18, 2)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compat, pipeline_apply
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import DenseBlock, _dense_block
+
+    cfg = dataclasses.replace(get_config(PP_ARCH), dtype="float32")
+    mesh = make_mesh_compat((DIST_WORLD,), ("pod",), device=dev)
+    mb, S = PP_MB
+
+    def layer(i):
+        blk = DenseBlock(cfg, device=dev)
+        blk.init_(torch.Generator(device=dev).manual_seed(100 + i))
+        return blk
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randn((PP_MICRO, mb, S, cfg.d_model), generator=gen,
+                    device=dev)
+    positions = torch.arange(S, device=dev)[None].expand(mb, S)
+
+    def stage_fn(blk, h):
+        return _dense_block(blk, h, positions, cfg)
+
+    piped = pipeline_apply(stage_fn, DIST_WORLD, PP_MICRO, mesh, axis="pod")
+    mine = layer(rank)
+    with torch.no_grad():
+        piped(mine, x)                               # warm-up
+        compat.reset_stats()
+        torch.cuda.synchronize()
+        out, s = timed(lambda: piped(mine, x))
+        coll = compat.STATS.as_dict()
+        rep = dict(arch=PP_ARCH, layer=dict(d=cfg.d_model, heads=cfg.n_heads,
+                                            kv=cfg.n_kv_heads, ff=cfg.d_ff),
+                   stages=DIST_WORLD, micro=PP_MICRO, micro_batch=[mb, S],
+                   ms=1e3 * s, bubble_share=(DIST_WORLD - 1) / (
+                       DIST_WORLD - 1 + PP_MICRO),
+                   collectives={op: dict(calls=c["calls"], bytes=c["bytes"],
+                                         ms=1e3 * c["seconds"])
+                                for op, c in coll.items()},
+                   digest=digest(out))
+        if rank == 0:
+            layers = [mine] + [layer(i) for i in range(1, DIST_WORLD)]
+
+            def sequential():
+                h = x
+                for blk in layers:
+                    h = torch.stack([stage_fn(blk, h[i])
+                                     for i in range(PP_MICRO)])
+                return h
+
+            want, seq_s = timed(sequential)
+            scale = float(want.abs().max())
+            err = float((out - want).abs().max())
+            if not err <= PP_TOL * scale:
+                raise AssertionError(f"GPipe against the layers in sequence:"
+                                     f" max |err| {err} at a scale of "
+                                     f"{scale} (tolerance {PP_TOL})")
+            rep.update(sequential_ms=1e3 * seq_s, max_abs_err=err,
+                       scale=scale, tol=PP_TOL,
+                       bitwise_equal=bool(torch.equal(out, want)))
+    return rep
+
+
+def shard_report(params, opt, mesh):
+    """This rank's shards (numpy) with its coords and the specs, for the
+    parent's replica check."""
+    return dict(coords=mesh.coords, specs=dict(params.specs),
+                **{key: {n: t.detach().cpu().numpy() for n, t in d.items()}
+                   for key, d in (("params", params), ("mu", opt.mu),
+                                  ("nu", opt.nu))})
+
+
+def dist_small_steps(dev):
+    """Reduced gemma3 on DIST_SMALL_MESH: DIST_SMALL_STEPS sharded steps
+    and the plain step's losses (phase 18, 3b)."""
+    import torch
+    from repro_torch.checkpoint import reshard
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import param_shardings
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train.optim import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = reduced(get_config(LM_ARCH))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    mesh = make_mesh_compat(DIST_SMALL_MESH, ("data", "model"), device=dev)
+    B, S = DIST_SMALL_BATCH
+    pipe = TokenPipeline(vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0)
+    losses = {}
+    for name, m in (("plain", None), ("sharded", mesh)):
+        p = init_decoder(0, cfg, dev)
+        if m is not None:
+            p = reshard(p, param_shardings(p, mesh, cfg.n_experts), mesh)
+        opt = init_opt(p)
+        _, step = make_train_step(cfg, opt_cfg, device=dev, mesh=m)
+        losses[name] = []
+        for i in range(DIST_SMALL_STEPS):
+            p, opt, met = step(p, opt, pipe.batch_at(i))
+            losses[name].append(float(met["loss"]))
+    for got, want in zip(losses["sharded"], losses["plain"]):
+        train_close("sharded against plain loss", got, want, TRAIN_LOSS_TOL)
+    return dict(mesh=list(DIST_SMALL_MESH), steps=DIST_SMALL_STEPS,
+                batch=[B, S], losses=losses, **shard_report(p, opt, mesh))
+
+
+def dist_reshard(dev, ckpt_dir):
+    """The reduced checkpoint restored on the host and resharded onto each
+    of RESHARD_MESHES: every local shard bit-equal to its slice, the
+    gathered state to the restored one (phase 18, 4)."""
+    import numpy as np
+    from repro_torch.checkpoint import reshard, restore_checkpoint
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import local_slice, param_shardings
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import Decoder
+
+    cfg = reduced(get_config(LM_ARCH))
+    template = Decoder(cfg, device="cpu")
+    restore_checkpoint(ckpt_dir, template)
+    named = dict(template.named_parameters())
+    rep = []
+    for shape in RESHARD_MESHES:
+        mesh = make_mesh_compat(shape, ("data", "model"), device=dev)
+        specs = param_shardings(template, mesh, cfg.n_experts)
+        placed = reshard(template, specs, mesh)
+        for n, t in named.items():
+            want = local_slice(t.detach(), specs[n], mesh).numpy()
+            got = placed[n].cpu().numpy()
+            whole = placed.whole(n).cpu().numpy()
+            if got.tobytes() != np.ascontiguousarray(want).tobytes() or \
+                    whole.tobytes() != t.detach().numpy().tobytes():
+                raise AssertionError(f"reshard onto {shape}: {n} is not its "
+                                     "slice, or does not gather back")
+        rep.append(dict(mesh=list(shape), coords=mesh.coords,
+                        tensors=len(named),
+                        sharded=sum(any(s) for s in specs.values()),
+                        local_bytes=sum(t.numel() * t.element_size()
+                                        for t in placed.values())))
+    return rep
+
+
+def dist_four(ckpt_dir):
+    """The DIST_WORLD-rank job of phase 18: SP decode, GPipe, reduced
+    sharded steps on (2, 2), reshard."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    rank = dist.get_rank()
+    return dict(sp=dist_sp(dev), pp=dist_pp(dev, rank),
+                steps=dist_small_steps(dev),
+                reshard=dist_reshard(dev, ckpt_dir))
+
+
+def dist_two():
+    """The two-rank job of phase 18: gemma3-1b at full width and depth in
+    f32, one sharded step on DIST_TRAIN_MESH against the one-process step
+    (each rank runs the latter in turn and keeps its own slices)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import reshard
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import compat, local_slice, param_shardings
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import Decoder, init_decoder
+    from repro_torch.train.optim import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    dev = torch.device("cuda", 0)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    mesh = make_mesh_compat(DIST_TRAIN_MESH, ("data", "model"), device=dev)
+    specs = param_shardings(Decoder(cfg, device="meta"), mesh)
+    B, S = DIST_TRAIN_BATCH
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
+        vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0).batch_at(0).items()}
+    rep = {}
+    for r in range(world):          # the one-process step, a rank at a time
+        if r == rank:
+            p = init_decoder(0, cfg, dev)
+            _, step = make_train_step(cfg, opt_cfg, device=dev)
+            (p, opt, m), s = timed(lambda: step(p, init_opt(p), batch))
+            keep = {n: local_slice(t.detach(), specs[n], mesh).clone()
+                    for n, t in p.named_parameters()}
+            keep_mu = {n: local_slice(t, specs[n], mesh).clone()
+                       for n, t in opt.mu.items()}
+            rep["plain"] = dict(ms=1e3 * s,
+                                **{k: float(v) for k, v in m.items()})
+            del p, opt, step
+            lm_free()
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    p = init_decoder(0, cfg, dev)
+    params = reshard(p, specs, mesh)
+    del p
+    lm_free()
+    opt = init_opt(params)
+    _, mstep = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
+    compat.reset_stats()
+    torch.cuda.synchronize()
+    (params, opt, m), s = timed(lambda: mstep(params, opt, batch))
+    coll = compat.STATS.as_dict()
+    m = {k: float(v) for k, v in m.items()}
+    loss_gap = train_close("sharded against one-process loss", m["loss"],
+                           rep["plain"]["loss"], TRAIN_LOSS_TOL)
+    norm_gap = train_close("sharded against one-process grad_norm",
+                           m["grad_norm"], rep["plain"]["grad_norm"],
+                           TRAIN_LOSS_TOL)
+    # the first step's clipped gradient is mu / (1 - b1) on both sides;
+    # each tensor's gap is taken against its whole tensor's max
+    c1 = 1 - opt_cfg.b1
+    scales = torch.stack([keep_mu[n].abs().max().double() / c1
+                          for n in params])
+    dist.all_reduce(scales, op=dist.ReduceOp.MAX)
+    gaps = {}
+    for n, scale in zip(params, scales.tolist()):
+        gaps[n] = float((opt.mu[n].double() - keep_mu[n].double())
+                        .abs().max()) / c1 / max(scale, 1e-30)
+    grad_at = max(gaps, key=gaps.get)
+    if not gaps[grad_at] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"sharded step: gradient of {grad_at} "
+                             f"{gaps[grad_at]} of its max (tolerance "
+                             f"{TRAIN_GRAD_TOL})")
+    lr, eps, worst, flips = m["lr"], opt_cfg.eps, 0.0, 0
+    for n, t in params.items():
+        gg = opt.mu[n].double() / c1
+        gw = keep_mu[n].double() / c1
+        du = (gg / (gg.abs() + eps) - gw / (gw.abs() + eps)).abs()
+        diff = (t - keep[n]).abs().double()
+        if bool((diff > lr * (TRAIN_UPDATE_TOL + du)).any()):
+            raise AssertionError(f"sharded step: {n} differs from the "
+                                 f"one-process step by {float(diff.max())}")
+        worst = max(worst, float(diff.max()))
+        flips += int((gg.sign() != gw.sign()).sum())
+    rep["sharded"] = dict(
+        mesh=list(DIST_TRAIN_MESH), batch=[B, S], ms=1e3 * s, **m,
+        loss_gap=loss_gap, grad_norm_gap=norm_gap, grad_gap=gaps[grad_at],
+        grad_gap_at=grad_at, update_max_abs=worst, update_sign_flips=flips,
+        collectives={op: dict(calls=c["calls"], gb=c["bytes"] / 1e9,
+                              ms=1e3 * c["seconds"])
+                     for op, c in coll.items()},
+        collective_ms=1e3 * sum(c["seconds"] for c in coll.values()),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        local_gb=sum(t.numel() * t.element_size()
+                     for t in params.values()) / 1e9)
+    return rep
+
+
+DIST_JOBS = {"four": dist_four, "two": dist_two}
+
+
+def replicas_equal(ranks):
+    """Raise unless ranks that hold the same slice of a tensor hold the
+    same bits; returns the count of parameter slices held by more than
+    one rank."""
+    seen, holders = {}, {}
+    for r in ranks:
+        for key in ("params", "mu", "nu"):
+            for n, t in r[key].items():
+                at = tuple(axes and tuple(r["coords"][a] for a in (
+                    (axes,) if isinstance(axes, str) else axes))
+                    for axes in r["specs"][n])
+                if seen.setdefault((key, n, at), t.tobytes()) != t.tobytes():
+                    raise AssertionError(f"replicas of {key} {n} at {at} "
+                                         "differ")
+                holders[(key, n, at)] = holders.get((key, n, at), 0) + 1
+    return sum(c > 1 for (key, _, _), c in holders.items() if key == "params")
+
+
+def nccl_world_of_one(dev, workdir):
+    """A world of one on NCCL in this process: the collectives exact (no
+    host staging), and the sharded step on a (1, 1) mesh equal to the
+    plain step bit for bit over DIST_SMALL_STEPS steps (phase 18, 3c)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import reshard
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import compat, param_shardings
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train.optim import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    backend = compat.init_distributed(
+        device=dev, init_method=f"file://{workdir / 'nccl.init'}",
+        world_size=1, rank=0)
+    try:
+        mesh = make_mesh_compat((1, 1), ("data", "model"), device=dev)
+        g = mesh.group(("data", "model"))
+        x = torch.randn((64, 64), device=dev)
+        staged = compat.host_staged(g, x, "all_gather")
+        for name, y in (("psum", compat.psum(x, g)),
+                        ("pmax", compat.pmax(x, g)),
+                        ("all_gather", compat.all_gather(x, g)),
+                        ("ppermute", compat.ppermute(x, g, [(0, 0)]))):
+            if not torch.equal(y, x):
+                raise AssertionError(f"NCCL world of one: {name} changed "
+                                     "its input")
+        cfg = reduced(get_config(LM_ARCH))
+        opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                              total_steps=TRAIN_STEPS)
+        B, S = DIST_SMALL_BATCH
+        pipe = TokenPipeline(vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0)
+        out = {}
+        for name, m in (("plain", None), ("mesh", mesh)):
+            p = init_decoder(0, cfg, dev)
+            if m is not None:
+                p = reshard(p, param_shardings(p, mesh), mesh)
+            opt = init_opt(p)
+            _, step = make_train_step(cfg, opt_cfg, device=dev, mesh=m)
+            losses = []
+            for i in range(DIST_SMALL_STEPS):
+                p, opt, met = step(p, opt, pipe.batch_at(i))
+                losses.append(float(met["loss"]))
+            named = dict(p.named_parameters()) if m is None else p
+            out[name] = (losses, {n: digest(t) for n, t in named.items()},
+                         {n: digest(t) for n, t in opt.mu.items()},
+                         {n: digest(t) for n, t in opt.nu.items()})
+        if out["mesh"] != out["plain"]:
+            raise AssertionError("NCCL world of one: the sharded step is not "
+                                 "the plain step bit for bit")
+        return dict(backend=backend, host_staged=staged,
+                    steps=DIST_SMALL_STEPS, losses=out["plain"][0],
+                    bitwise_equal=True, tensors=len(out["plain"][1]))
+    finally:
+        dist.destroy_process_group()
+
+
+def distributed(dev):
+    """Phase 18 (module docstring): four ranks on one card."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.transformer import init_decoder
+
+    lm_free()
+    reset_launches()
+    work = ROOT / "build" / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    save_checkpoint(work / "ckpt", 0,
+                    init_decoder(1, reduced(get_config(LM_ARCH)), "cpu"))
+    rep = {}
+    t = time.perf_counter()
+    four, four_launches = run_dist("four", DIST_WORLD, work,
+                                   str(work / "ckpt"))
+    rep["four_ranks_s"] = time.perf_counter() - t
+    for key in ("sp", "pp"):
+        if len({r[key]["digest"] for r in four}) != 1:
+            raise AssertionError(f"{key}: the ranks' results differ")
+        rep[key] = dict(four[0][key], per_rank_ms=[r[key]["ms"]
+                                                   for r in four])
+    steps = [r["steps"] for r in four]
+    rep["steps"] = dict({k: steps[0][k] for k in ("mesh", "steps", "batch",
+                                                  "losses")},
+                        replicated_slices=replicas_equal(steps),
+                        replicas_bitwise_equal=True)
+    rep["reshard"] = four[0]["reshard"]
+    t = time.perf_counter()
+    two, two_launches = run_dist("two", 2, work)
+    rep["two_ranks_s"] = time.perf_counter() - t
+    rep["train"] = dict(plain=two[0]["plain"], sharded=two[0]["sharded"],
+                        peak_gb_by_rank=[r["sharded"]["peak_gb"]
+                                         for r in two],
+                        collective_ms_by_rank=[r["sharded"]["collective_ms"]
+                                               for r in two])
+    t = time.perf_counter()
+    rep["nccl_world_of_one"] = dict(nccl_world_of_one(torch.device(dev),
+                                                      work),
+                                    seconds=time.perf_counter() - t)
+    shutil.rmtree(work, ignore_errors=True)
+    # this process's launches and every spawned rank's
+    launches = launch_counts()
+    for counts in (four_launches, two_launches):
+        for k, c in counts.items():
+            launches[k] = launches.get(k, 0) + c
+    return rep, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
@@ -3474,6 +4054,11 @@ def main(argv=None) -> int:
         for key, r in tr.items():
             print(f"  {key} ({smi}): " + json.dumps(r))
         print(f"  training launches: {json.dumps(paths['lm_training'])}")
+    with phase("distributed: four ranks on one card"):
+        dr, paths["distributed"] = distributed(dev)
+        for key, r in dr.items():
+            print(f"  {key} ({smi}): " + json.dumps(r))
+        print(f"  distributed launches: {json.dumps(paths['distributed'])}")
 
     on_api = ("wt_rank", "rans_decode")
     totals = {k: api_path[k] if k in on_api else

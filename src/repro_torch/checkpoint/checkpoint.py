@@ -18,9 +18,17 @@ by either package restores in the other: a model (``Decoder``,
 ``.mu`` / ``.nu`` (in the same layout) and ``.step``, tuples and lists
 by index, dicts by key.  Restoring fills the template's tensors in place
 (a 12 GB state on the card is not allocated twice) and returns them;
-numpy leaves of the template are replaced by the arrays read.  The
-reference's ``reshard`` (placing a state onto a device mesh) comes with
-the distributed slice.
+numpy leaves of the template are replaced by the arrays read.
+
+Elastic re-scale: :func:`reshard` places a host state (a restored one)
+onto a live mesh by the sharding rules (``distributed.sharding``): each
+rank keeps its own slice of each tensor.  A state holding such shards
+(``distributed.sharding.Sharded``, and an ``OptState`` whose moments are
+shards) is saved by every rank of the mesh: each tensor is gathered
+whole, rank 0 writes, and every rank returns after a barrier.  The files
+hold the unsharded logical arrays, as the reference's do, so a sharded
+save's bytes are those of the unsharded save of the same state, and a
+checkpoint restores onto any mesh.
 """
 
 from __future__ import annotations
@@ -33,11 +41,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from ..models.convert import tree_of, tree_path
+from ..distributed.sharding import Sharded
+from ..models.convert import leaf_shapes, tree_of, tree_path
 from ..train.optim import OptState
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "reshard"]
 
 
 def _is_model(x) -> bool:
@@ -68,11 +78,20 @@ class _Named:
         self.named = named
 
 
+def _whole(node) -> Dict[str, torch.Tensor]:
+    """The named tensors of a model, a ``_Named`` or a ``Sharded`` (each
+    gathered whole: a collective)."""
+    if _is_model(node):
+        return dict(node.named_parameters())
+    named = node.named if isinstance(node, _Named) else node
+    if isinstance(named, Sharded):
+        return {n: named.whole(n) for n in named}
+    return named
+
+
 def _flatten(node, prefix: str, flat: Dict[str, np.ndarray]) -> None:
-    if _is_model(node) or isinstance(node, _Named):
-        named = (dict(node.named_parameters()) if _is_model(node)
-                 else node.named)
-        _flatten(tree_of(named), prefix, flat)
+    if _is_model(node) or isinstance(node, (_Named, Sharded)):
+        _flatten(tree_of(_whole(node)), prefix, flat)
         return
     items = _items(node)
     if items is None:
@@ -82,18 +101,6 @@ def _flatten(node, prefix: str, flat: Dict[str, np.ndarray]) -> None:
         return
     for key, child in items:
         _flatten(child, f"{prefix}{key}/", flat)
-
-
-def _leaf_shapes(named) -> Dict[tuple, tuple]:
-    """The shape of each leaf of ``tree_of(named)``, by its keys."""
-    lead: Dict[tuple, list] = {}
-    shape = {}
-    for name, t in named.items():
-        keys, at = tree_path(name)
-        top = lead.setdefault(keys, [0] * len(at))
-        lead[keys] = [max(a, i + 1) for a, i in zip(top, at)]
-        shape[keys] = tuple(t.shape)
-    return {k: tuple(lead[k]) + shape[k] for k in lead}
 
 
 def _get(flat, key: str) -> np.ndarray:
@@ -108,7 +115,7 @@ def _fill(node, prefix: str, flat: Dict[str, np.ndarray]):
     if _is_model(node) or isinstance(node, _Named):
         named = (dict(node.named_parameters()) if _is_model(node)
                  else node.named)
-        want = _leaf_shapes(named)
+        want = leaf_shapes(named)
         with torch.no_grad():
             for name, t in named.items():
                 keys, at = tree_path(name)
@@ -142,15 +149,21 @@ def _fill(node, prefix: str, flat: Dict[str, np.ndarray]):
 def save_checkpoint(ckpt_dir: str | Path, step: int, state: Any,
                     extra: Optional[dict] = None) -> Path:
     """Write ``state`` as ``ckpt_dir/step_XXXXXXXX`` (through a ``.tmp``
-    directory, fsync'd, then renamed) and point ``LATEST`` at it."""
+    directory, fsync'd, then renamed) and point ``LATEST`` at it.  A state
+    that holds shards is saved by every rank of its mesh (module
+    docstring)."""
     ckpt_dir = Path(ckpt_dir)
     final = ckpt_dir / f"step_{step:08d}"
     tmp = ckpt_dir / f"step_{step:08d}.tmp"
+    flat: Dict[str, np.ndarray] = {}
+    _flatten(state, "", flat)
+    sharded = _has_shards(state)
+    if sharded and dist.get_rank() != 0:
+        dist.barrier()
+        return final
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    flat: Dict[str, np.ndarray] = {}
-    _flatten(state, "", flat)
     np.savez(tmp / "arrays.npz", **flat)
     manifest = {
         "step": step,
@@ -170,7 +183,18 @@ def save_checkpoint(ckpt_dir: str | Path, step: int, state: Any,
     tmp_latest = ckpt_dir / "LATEST.tmp"
     tmp_latest.write_text(str(step))
     os.replace(tmp_latest, latest)
+    if sharded:
+        dist.barrier()
     return final
+
+
+def _has_shards(node) -> bool:
+    if isinstance(node, Sharded):
+        return True
+    if isinstance(node, OptState):
+        return isinstance(node.mu, Sharded)
+    items = None if _is_model(node) else _items(node)
+    return bool(items) and any(_has_shards(c) for _, c in items)
 
 
 def latest_step(ckpt_dir: str | Path) -> Optional[int]:
@@ -204,3 +228,23 @@ def restore_checkpoint(ckpt_dir: str | Path, template: Any,
     with np.load(d / "arrays.npz") as z:
         flat = {k: z[k] for k in z.files}
     return _fill(template, "", flat), manifest
+
+
+def reshard(state: Any, shardings: Dict[str, tuple], mesh) -> Any:
+    """Place a host-side state onto the live ``mesh`` (elastic restore):
+    each model or mapping of its parameter names to tensors becomes a
+    ``Sharded`` of this rank's slices by ``shardings`` (``{name: spec}``,
+    ``distributed.sharding.param_shardings``), an ``OptState``'s moments
+    likewise (optimizer state shardings mirror params; ``step`` is
+    replicated), in tuples and lists alike."""
+    if _is_model(state) or (isinstance(state, dict)
+                            and not isinstance(state, Sharded)):
+        return Sharded.place(state, shardings, mesh)
+    if isinstance(state, OptState):
+        return OptState(mu=reshard(state.mu, shardings, mesh),
+                        nu=reshard(state.nu, shardings, mesh),
+                        step=state.step)
+    if isinstance(state, (tuple, list)):
+        return type(state)(reshard(s, shardings, mesh) for s in state)
+    raise TypeError(f"reshard: a {type(state).__name__} is no model, "
+                    "mapping, OptState, tuple or list")

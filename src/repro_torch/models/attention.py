@@ -157,8 +157,13 @@ def _sdpa_blocked(q, k, v, cfg, causal: bool, window: int = 0):
 
 
 def _constrain_heads_or_seq(x, cfg, seq_axis: int = 1, head_axis: int = 2):
-    """The reference's sharding constraint on attention activations; the
-    identity off a mesh (the port has no mesh yet)."""
+    """The reference's sharding constraint on attention activations (heads,
+    else the query sequence, on the "model" axis), the identity here on
+    every mesh: the port's sharded train step
+    (``train.step.make_train_step(..., mesh=)``) splits no compute over
+    the model axis, whose ranks compute the whole step alike, so there is
+    no partitioned activation to constrain.  Tensor-parallel compute on
+    the model axis is ROADMAP.md's queue 1."""
     return x
 
 

@@ -24,7 +24,8 @@ reference's pytree of numpy arrays (stacked axes, ``global``, the
 unstacked ``shared_attn``), which the checkpoint writes under the
 reference's keys.  ``tree_of`` builds that layout from any mapping of
 parameter names to arrays (the optimizer's moments), ``tree_path`` gives
-one parameter's place in it.
+one parameter's place in it and ``leaf_shapes`` each leaf's stacked
+shape.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ from ..device import resolve_device
 from .encdec import EncDec
 from .transformer import Decoder
 
-__all__ = ["params_from_jax", "params_to_jax", "tree_of", "tree_path"]
+__all__ = ["params_from_jax", "params_to_jax", "tree_of", "tree_path",
+           "leaf_shapes"]
 
 # module attribute -> the reference tree's key, where they differ
 _TREE_KEY = {"global_": "global"}
@@ -162,6 +164,20 @@ def tree_of(named) -> dict:
             node = node.setdefault(k, {})
         node[keys[-1]] = leaf
     return _lists(tree)
+
+
+def leaf_shapes(named) -> dict:
+    """The shape of each leaf of ``tree_of(named)`` (stacked axes first),
+    by its keys (:func:`tree_path`); ``named`` maps parameter names to
+    anything with a ``shape``."""
+    lead: dict = {}
+    shape = {}
+    for name, t in named.items():
+        keys, at = tree_path(name)
+        top = lead.setdefault(keys, [0] * len(at))
+        lead[keys] = [max(a, i + 1) for a, i in zip(top, at)]
+        shape[keys] = tuple(t.shape)
+    return {k: tuple(lead[k]) + shape[k] for k in lead}
 
 
 def _lists(node):

@@ -6,13 +6,16 @@ are a :class:`~.transformer.Decoder` module, and the encoder-decoder
 (whisper), whose parameters are an :class:`~.encdec.EncDec`; either is
 passed to ``apply`` / ``decode_step`` as the reference passes its
 pytree, and trained through autograd over its parameters
-(``train.step.make_train_step``).  The dry-run's input specs come with
-the distributed slice (ROADMAP.md, queue 1).
+(``train.step.make_train_step``).  ``input_specs`` /
+``decode_input_specs`` give a shape's inputs as tensors on the ``meta``
+device (shapes and dtypes, no storage), the reference's
+``ShapeDtypeStruct`` stand-ins, for the sharding rules
+(``distributed.sharding.batch_shardings``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
@@ -21,7 +24,8 @@ from ..device import resolve_device
 from . import encdec as _encdec
 from . import transformer as _tf
 
-__all__ = ["Model", "build", "count_params", "model_flops"]
+__all__ = ["Model", "build", "count_params", "model_flops", "input_specs",
+           "decode_input_specs"]
 
 
 class Model(NamedTuple):
@@ -73,6 +77,48 @@ def build(cfg: ModelConfig, device="cuda") -> Model:
         return _tf.init_decoder_cache(batch, max_len, cfg, dtype, device)
 
     return Model(cfg, init_fn, apply_fn, decode_fn, cache_fn)
+
+
+# ---------------------------------------------------------------------------
+# dry-run input specs (meta tensors: shapes and dtypes, no allocation)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig,
+                shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """Inputs for train/prefill; decode uses ``decode_input_specs``."""
+    B, S = shape.global_batch, shape.seq_len
+    act = getattr(torch, cfg.dtype)
+    if cfg.encoder_decoder:
+        Sd = _encdec.dec_len_for(S)
+        return {
+            "frames": _spec((B, S, cfg.d_model), act),
+            "dec_tokens": _spec((B, Sd), torch.int32),
+            "labels": _spec((B, Sd), torch.int32),
+        }
+    if cfg.frontend == "vision":
+        return {
+            "embeddings": _spec((B, S, cfg.d_model), act),
+            "positions": _spec((3, B, S), torch.int32),
+            "labels": _spec((B, S), torch.int32),
+        }
+    return {
+        "tokens": _spec((B, S), torch.int32),
+        "labels": _spec((B, S), torch.int32),
+    }
+
+
+def decode_input_specs(cfg: ModelConfig,
+                       shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """The inputs of one decode step of ``shape``'s batch."""
+    B = shape.global_batch
+    if cfg.frontend == "vision" and not cfg.encoder_decoder:
+        return {"embedding": _spec((B, 1, cfg.d_model),
+                                   getattr(torch, cfg.dtype))}
+    return {"token": _spec((B, 1), torch.int32)}
 
 
 # ---------------------------------------------------------------------------

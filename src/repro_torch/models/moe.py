@@ -20,11 +20,25 @@ buffer), the expert counts are an integer scatter-add (``torch.bincount``
 would sync with the card to size its output), and each token's k
 contributions are added in the reference's order, expert-ascending, after
 a gather through the inverse permutation.
+
+A batch split across processes (the sharded train step's data axes,
+``train.step.make_train_step(..., mesh=)``) is routed as the reference
+routes the whole batch: inside :func:`split_tokens` each process holds a
+contiguous slice of the batch's tokens, the capacity is that of the whole
+batch's ``T``, each expert's slots are numbered across the slices in
+token order (the counts of the slices before this one, gathered), and the
+Switch loss takes the whole batch's token fractions, with this slice's
+share of the probability mean (the slices' losses sum to the reference's).
+Each process still sizes its ``(E, C, d)`` buffer by the whole batch and
+runs the expert matmuls over all of it, filling only its own slots: the
+split saves no expert compute (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+import contextvars
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +46,8 @@ from torch import nn
 
 from .layers import MLP, Dense, _he, cast, dense
 
-__all__ = ["MoE", "Routing", "moe_apply", "moe_capacity", "moe_route"]
+__all__ = ["MoE", "Routing", "TokenSplit", "moe_apply", "moe_capacity",
+           "moe_route", "split_tokens"]
 
 
 def moe_capacity(n_tokens: int, cfg) -> int:
@@ -83,14 +98,40 @@ class Routing(NamedTuple):
     order: torch.Tensor        # (T*k,) stable argsort of the flat experts
     keep: torch.Tensor         # (T*k,) bool, sorted order: within capacity
     slot: torch.Tensor         # (T*k,) expert * C + position (0 if dropped)
-    counts: torch.Tensor       # (E,) int64 assignments per expert
+    counts: torch.Tensor       # (E,) int64 assignments per expert (all slices)
     probs: torch.Tensor        # (T, E) f32 softmax of the logits
 
 
-def moe_route(logits: torch.Tensor, k: int, capacity: int) -> Routing:
+class TokenSplit(NamedTuple):
+    """This process's slice of a batch split into ``n`` equal contiguous
+    slices of tokens: its ``index`` and ``gather``, which maps this slice's
+    ``(E,)`` int64 expert counts to every slice's, ``(n, E)`` in slice
+    order (a collective over the processes)."""
+    n: int
+    index: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+
+
+_SPLIT: contextvars.ContextVar = contextvars.ContextVar("moe_split",
+                                                        default=None)
+
+
+@contextlib.contextmanager
+def split_tokens(split: TokenSplit):
+    """Route every MoE layer inside the block as ``split``'s slice of the
+    whole batch (module docstring)."""
+    token = _SPLIT.set(split)
+    try:
+        yield split
+    finally:
+        _SPLIT.reset(token)
+
+
+def moe_route(logits: torch.Tensor, k: int, capacity: int,
+              split: Optional[TokenSplit] = None) -> Routing:
     """Route ``(T, E)`` f32 router logits to ``k`` experts a token with
     ``capacity`` slots an expert, as the reference does (module
-    docstring)."""
+    docstring); with ``split``, as that slice of the whole batch."""
     T, E = logits.shape
     probs = torch.softmax(logits, dim=-1)
     top = torch.sort(probs, dim=-1, descending=True, stable=True)
@@ -103,6 +144,10 @@ def moe_route(logits: torch.Tensor, k: int, capacity: int) -> Routing:
     counts = torch.zeros(E, dtype=torch.int64, device=logits.device)
     counts.scatter_add_(0, sorted_expert, torch.ones_like(sorted_expert))
     starts = torch.cumsum(counts, 0) - counts
+    if split is not None:
+        every = split.gather(counts)
+        starts = starts - every[:split.index].sum(0)
+        counts = every.sum(0)
     pos_in_expert = (torch.arange(T * k, device=logits.device)
                      - starts[sorted_expert])
     keep = pos_in_expert < capacity
@@ -118,11 +163,13 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg):
     T = B * S
     k = cfg.experts_per_token
     E = cfg.n_experts
-    C = moe_capacity(T, cfg)
+    split = _SPLIT.get()
+    T_all = T if split is None else T * split.n
+    C = moe_capacity(T_all, cfg)
     xt = x.reshape(T, d)
 
     logits = dense(xt, params.router.kernel).float()              # (T, E)
-    r = moe_route(logits, k, C)
+    r = moe_route(logits, k, C, split)
     sorted_token = torch.div(r.order, k, rounding_mode="floor")
     sorted_gate = r.gate.reshape(-1)[r.order]
 
@@ -156,7 +203,8 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg):
         yt = yt + params.shared(xt)
 
     # load-balancing aux loss (Switch-style): E * sum(frac_tokens * frac_prob)
-    frac_tokens = r.counts.float() / max(1, T * k)
-    frac_probs = r.probs.mean(dim=0)
+    frac_tokens = r.counts.float() / max(1, T_all * k)
+    frac_probs = r.probs.mean(dim=0) if split is None \
+        else r.probs.sum(dim=0) / T_all
     aux = E * torch.sum(frac_tokens * frac_probs)
     return yt.reshape(B, S, d), aux

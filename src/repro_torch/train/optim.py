@@ -15,7 +15,11 @@ which round otherwise than the reference's ``c / t``.
 Parameters are an ``nn.Module`` (``models.transformer.Decoder``,
 ``models.encdec.EncDec``) and are updated in place under ``no_grad``;
 gradients, ``mu`` and ``nu`` are dicts keyed by parameter name, the
-moments f32 whatever the parameters' dtype.  A parameter written in
+moments f32 whatever the parameters' dtype.  On a mesh the parameters
+are this rank's shards (``distributed.sharding.Sharded``): the moments
+are shards of the same specs (optimizer state shardings mirror params),
+the gradients are whole (the same on every rank), their global norm is
+taken over the whole tensors, and each rank updates its own slices.  A parameter written in
 place moves its version counter, so ``models.layers.cast`` drops its kept
 bf16 copy and the next serve step reads the new weights.
 """
@@ -30,6 +34,8 @@ import math
 from typing import Dict, NamedTuple
 
 import torch
+
+from ..distributed.sharding import Sharded
 
 __all__ = ["AdamWConfig", "OptState", "init_opt", "apply_updates", "lr_at"]
 
@@ -53,11 +59,20 @@ class OptState(NamedTuple):
     step: torch.Tensor              # int32 scalar, on the host
 
 
-def init_opt(params: torch.nn.Module) -> OptState:
-    """Zero moments (f32, on each parameter's device) and step 0."""
+def _named(params):
+    if isinstance(params, torch.nn.Module):
+        return list(params.named_parameters())
+    return list(params.items())
+
+
+def init_opt(params) -> OptState:
+    """Zero moments (f32, on each parameter's device) and step 0; for a
+    ``Sharded`` set of parameters, shards of the same specs."""
     mu = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-          for n, p in params.named_parameters()}
+          for n, p in _named(params)}
     nu = {n: torch.zeros_like(m) for n, m in mu.items()}
+    if isinstance(params, Sharded):
+        mu, nu = params.like(mu), params.like(nu)
     return OptState(mu=mu, nu=nu, step=torch.zeros((), dtype=torch.int32))
 
 
@@ -102,13 +117,15 @@ def lr_at(step, cfg: AdamWConfig) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply_updates(params: torch.nn.Module, grads: Dict[str, torch.Tensor],
+def apply_updates(params, grads: Dict[str, torch.Tensor],
                   state: OptState, cfg: AdamWConfig):
     """One AdamW step: clip by the global norm, update the moments and the
     parameters in place.  Returns ``(params, new_state, metrics)`` with
     ``metrics = {"grad_norm", "lr"}`` (f32 scalar tensors); ``new_state``
-    holds the same moment tensors and ``step + 1``."""
-    named = list(params.named_parameters())
+    holds the same moment tensors and ``step + 1``.  ``params`` is a
+    module or a ``Sharded`` set of this rank's slices (module
+    docstring)."""
+    named = _named(params)
     gnorm = torch.sqrt(sum(grads[n].float().square().sum()
                            for n, _ in named))
     clip = torch.minimum(_f32(1.0, gnorm),
@@ -120,7 +137,10 @@ def apply_updates(params: torch.nn.Module, grads: Dict[str, torch.Tensor],
                 for b in (cfg.b1, cfg.b2))
     lr_d, b1c_d, b2c_d = (x.to(dev) for x in (lr, b1c, b2c))
     for n, p in named:
-        g = grads[n].float() * clip
+        g = grads[n]
+        if isinstance(params, Sharded):
+            g = params.slice(n, g)
+        g = g.float() * clip
         m, v = state.mu[n], state.nu[n]
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())
