@@ -38,7 +38,7 @@ exits non-zero without the final ``ok`` line:
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
    built on the card from 1M ``sift-like`` vectors (the PQ spec from the
-   first ``PQ_MAIN_N``, 125,000: its Pólya coding runs on the host;
+   first ``PQ_MAIN_N``, 62,500: its Pólya coding runs on the host;
    k-means assignment and PQ encoding through ``l2_top1``) and served
    through ``AnnService`` (4-query requests, ``max_batch=64``,
    ``nprobe=16``, top-10) twice, with the decoded-id cache cold and then
@@ -70,7 +70,7 @@ exits non-zero without the final ``ok`` line:
    the monolith's warm QPS; one routed add of 10,000 vectors to the
    monolith and to both 4-shard services (every shard's n and epochs equal
    the monolith's, results equal); ``IVF1024,PQ8x8,ids=roc,codes=polya``
-   over the first 25,000 vectors on 2 shards by hash (a host-bound cut:
+   over the first 12,500 vectors on 2 shards by hash (a host-bound cut:
    the planner re-encodes each shard's Pólya codes); Flat on 4 shards by
    hash, its plan saved and loaded onto the card (pack / unpack seconds,
    MB), equal before and after; an ``IVF1024,ids=roc`` plan over the first
@@ -230,14 +230,28 @@ exits non-zero without the final ``ok`` line:
    (S - 1) / (S - 1 + M); two sharded steps of reduced gemma3 on a
    (2, 2) mesh, replicas bit-equal, losses against the plain step; a
    reduced checkpoint resharded onto (2, 2) and (4, 1), every shard its
-   slice bit for bit.  Two ranks: gemma3-1b at full width and depth in
-   f32 on (data 2, model 1), one sharded step of 4 x 512 tokens against
-   the one-process step (loss and grad_norm within 1e-5 relative, each
-   gradient within 1e-4 of its tensor's max, each updated weight within
-   lr (1e-2 + du)), with ms a step, the host-staged collectives'
-   time and each rank's peak memory.  A world of one on NCCL in this
-   process: the sharded step on (1, 1) equal to the plain step bit for
-   bit.  Any rank's failure fails the phase.
+   slice bit for bit; then the model axis's split at full width, f32,
+   on (data 2, model 2), one step of 4 x 512 tokens each: gemma3-1b at
+   full depth (its 4 heads split, its one KV head's ``wk`` / ``wv``
+   gathered, the MLP column- / row-parallel, the embedding, logits and
+   loss vocab-parallel) and olmoe-1b-7b cut to 2 of its 16 layers (32
+   of the 64 experts a model rank), each against the one-process step
+   that each rank runs in turn on the whole batch (loss, ce and
+   grad_norm within 1e-5 relative, each gradient within 1e-4 of its
+   tensor's max, each updated weight within lr (1e-2 + du); MoE routing
+   of each rank's tokens bit-equal to the one-process step's), replicas
+   bit-equal by digest, with ms a step, the host ms and bytes of the
+   data axes' and of the model axis's collectives, each rank's peak
+   memory and its matmul FLOPs (``torch.profiler``, ``with_flops``) as
+   a share of the one-process step's.  Two ranks: gemma3-1b at full
+   width and depth in f32 on (data 2, model 1), one sharded step of 4 x
+   512 tokens against the one-process step (loss and grad_norm within
+   1e-5 relative, each gradient within 1e-4 of its tensor's max, each
+   updated weight within lr (1e-2 + du)), with ms a step, the
+   host-staged collectives' time and each rank's peak memory, printed
+   beside the (2, 2) step's.  A world of one on NCCL in this process:
+   the sharded step on (1, 1) equal to the plain step bit for bit.  Any
+   rank's failure fails the phase.
 
 The last four lines are the total of the phases' seconds, the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
@@ -286,8 +300,10 @@ INGEST_ADDS, INGEST_ROWS = 5, 10_000
 # RUN_LIMIT_S (1034.3 s of phases with the PQ build at 1M; 1069.2 and
 # 1302.7 s on two hosts with it at 500,000, two adds and the training
 # phase; 898.05 s at 250,000 before the distributed phase, which took
-# 60.3 s, on a host that ran this phase 1.2x faster than another)
-PQ_MAIN_N = 125_000
+# 60.3 s, on a host that ran this phase 1.2x faster than another; 910.9
+# and 1066.5 s at 125,000 on two hosts, before the distributed phase's
+# full-width (2, 2) steps took it from 40.8-64.6 s to 106.3 s)
+PQ_MAIN_N = 62_500
 PQ_INGEST_ADDS = 1
 # Flat's results are held against the CPU's numpy loop over 1M vectors on
 # the first 64 queries, split over FLAT_LOOP_THREADS host threads (~0.5-0.7
@@ -356,7 +372,7 @@ STEP_TILE_MAX = 64 * 4096
 # exhaustive regime (ef >= n) over its first SHARD_EXHAUSTIVE_N vectors
 SHARD_IVF = ((1, "range"), (2, "range"), (4, "range"), (4, "hash"))
 SHARD_ADD_ROWS = 10_000
-SHARD_PQ_N = 25_000
+SHARD_PQ_N = 12_500
 SHARD_CONTAINER_N = 100_000
 SHARD_GRAPH = 2
 SHARD_EXHAUSTIVE_N = 2000
@@ -500,6 +516,10 @@ PP_ARCH, PP_MICRO, PP_MB, PP_TOL = "minitron-4b", 8, (2, 512), 1e-4
 DIST_TRAIN_MESH, DIST_TRAIN_BATCH = (2, 1), (4, 512)
 DIST_SMALL_MESH, DIST_SMALL_STEPS, DIST_SMALL_BATCH = (2, 2), 2, (4, 32)
 RESHARD_MESHES = ((2, 2), (4, 1))
+# the model axis's split at full width: gemma3-1b (all 26 layers) and
+# olmoe-1b-7b cut to DIST_TP_MOE_LAYERS of its 16, f32, one step of
+# DIST_TRAIN_BATCH on DIST_TP_MESH against the one-process step
+DIST_TP_MESH, DIST_TP_MOE_LAYERS = (2, 2), 2
 DIST_TIMEOUT_S = 600
 
 class Phases:
@@ -3381,75 +3401,128 @@ def dist_reshard(dev, ckpt_dir):
 
 def dist_four(ckpt_dir):
     """The DIST_WORLD-rank job of phase 18: SP decode, GPipe, reduced
-    sharded steps on (2, 2), reshard."""
+    sharded steps on (2, 2), reshard, and the full-width steps whose
+    compute the model axis splits (gemma3-1b, olmoe-1b-7b cut to
+    DIST_TP_MOE_LAYERS layers)."""
     import torch
     import torch.distributed as dist
 
     dev = torch.device("cuda", 0)
     rank = dist.get_rank()
-    return dict(sp=dist_sp(dev), pp=dist_pp(dev, rank),
-                steps=dist_small_steps(dev),
-                reshard=dist_reshard(dev, ckpt_dir))
+    rep = dict(sp=dist_sp(dev), pp=dist_pp(dev, rank),
+               steps=dist_small_steps(dev),
+               reshard=dist_reshard(dev, ckpt_dir))
+    lm_free()
+    rep["tp"] = dist_tp(dev, LM_ARCH)
+    lm_free()
+    rep["tp_moe"] = dist_tp(dev, MOE_ARCH, DIST_TP_MOE_LAYERS)
+    return rep
 
 
-def dist_two():
-    """The two-rank job of phase 18: gemma3-1b at full width and depth in
-    f32, one sharded step on DIST_TRAIN_MESH against the one-process step
-    (each rank runs the latter in turn and keeps its own slices)."""
-    import dataclasses
+def matmul_flops(prof):
+    """The matmul FLOPs ``torch.profiler`` (``with_flops=True``) counted
+    in ``prof``: its mm, addmm, bmm and baddbmm calls."""
+    return sum(e.flops for e in prof.key_averages()
+               if e.key in ("aten::mm", "aten::addmm", "aten::bmm",
+                            "aten::baddbmm"))
 
+
+@contextlib.contextmanager
+def counting_flops(out):
+    """Profile the block on the host (``with_flops``) and store its matmul
+    FLOPs in ``out["flops"]``."""
     import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU],
+            with_flops=True) as prof:
+        yield out
+    out["flops"] = matmul_flops(prof)
+
+
+@contextlib.contextmanager
+def recording_routing(seen):
+    """Append each ``moe_route`` result made inside the block to ``seen``,
+    in token order (per token and choice: expert id, kept, slot) with the
+    whole batch's expert counts, on the host."""
+    from repro_torch.models import moe
+
+    inner = moe.moe_route
+
+    def record(logits, k, capacity, split=None):
+        r = inner(logits, k, capacity, split)
+        inv = r.order.argsort()
+        seen.append(dict(expert_ids=r.expert_ids.cpu(),
+                         keep=r.keep[inv].view(-1, k).cpu(),
+                         slot=r.slot[inv].view(-1, k).cpu(),
+                         counts=r.counts.cpu(),
+                         edge_gap=edge_gap(logits.detach(), k)))
+        return r
+
+    moe.moe_route = record
+    try:
+        yield seen
+    finally:
+        moe.moe_route = inner
+
+
+def one_process_turns(cfg, opt_cfg, specs, mesh, batch, dev, flops=False,
+                      routes=None):
+    """The one-process step of ``cfg`` from ``init_decoder(0, ...)`` on the
+    whole ``batch``, run by each rank in turn on the shared card (the
+    others wait at a barrier): this rank's slices by ``specs`` of the
+    updated weights and of ``mu``, and the step's ms and metrics (with
+    its matmul FLOPs where ``flops``; each MoE layer's routing of this
+    rank's data slice of the tokens appended to ``routes``)."""
     import torch.distributed as dist
-    from repro_torch.checkpoint import reshard
-    from repro_torch.configs import get_config
-    from repro_torch.data import TokenPipeline
-    from repro_torch.distributed import compat, local_slice, param_shardings
-    from repro_torch.launch.mesh import make_mesh_compat
-    from repro_torch.models.transformer import Decoder, init_decoder
-    from repro_torch.train.optim import AdamWConfig, init_opt
+    from repro_torch.distributed import local_slice
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train.optim import init_opt
     from repro_torch.train.step import make_train_step
 
-    dev = torch.device("cuda", 0)
     rank, world = dist.get_rank(), dist.get_world_size()
-    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
-    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
-                          total_steps=TRAIN_STEPS)
-    mesh = make_mesh_compat(DIST_TRAIN_MESH, ("data", "model"), device=dev)
-    specs = param_shardings(Decoder(cfg, device="meta"), mesh)
-    B, S = DIST_TRAIN_BATCH
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
-        vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0).batch_at(0).items()}
-    rep = {}
-    for r in range(world):          # the one-process step, a rank at a time
+    out = {}
+    for r in range(world):
         if r == rank:
             p = init_decoder(0, cfg, dev)
             _, step = make_train_step(cfg, opt_cfg, device=dev)
-            (p, opt, m), s = timed(lambda: step(p, init_opt(p), batch))
+            seen, counted = [], {}
+            with recording_routing(seen), (counting_flops(counted) if flops
+                                           else contextlib.nullcontext()):
+                (p, opt, m), s = timed(lambda: step(p, init_opt(p), batch))
             keep = {n: local_slice(t.detach(), specs[n], mesh).clone()
                     for n, t in p.named_parameters()}
             keep_mu = {n: local_slice(t, specs[n], mesh).clone()
                        for n, t in opt.mu.items()}
-            rep["plain"] = dict(ms=1e3 * s,
-                                **{k: float(v) for k, v in m.items()})
+            out = dict(ms=1e3 * s, **counted,
+                       **{k: float(v) for k, v in m.items()})
+            if routes is not None:
+                n, i = mesh.axis_size("data"), mesh.index("data")
+                for layer in seen:
+                    t = layer["expert_ids"].shape[0] // n
+                    routes.append({k: v[i * t:(i + 1) * t]
+                                   if k in ("expert_ids", "keep", "slot")
+                                   else v for k, v in layer.items()})
             del p, opt, step
             lm_free()
         dist.barrier()
-    torch.cuda.reset_peak_memory_stats()
-    p = init_decoder(0, cfg, dev)
-    params = reshard(p, specs, mesh)
-    del p
-    lm_free()
-    opt = init_opt(params)
-    _, mstep = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
-    compat.reset_stats()
-    torch.cuda.synchronize()
-    (params, opt, m), s = timed(lambda: mstep(params, opt, batch))
-    coll = compat.STATS.as_dict()
-    m = {k: float(v) for k, v in m.items()}
+    return keep, keep_mu, out
+
+
+def hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg):
+    """The sharded step's metrics, gradients (the first step's ``mu / (1 -
+    b1)``) and updated weights against the one-process step's at the
+    TRAIN_*_TOL bounds (raises where one is outside); returns the
+    gaps."""
+    import torch
+    import torch.distributed as dist
+
     loss_gap = train_close("sharded against one-process loss", m["loss"],
-                           rep["plain"]["loss"], TRAIN_LOSS_TOL)
+                           plain["loss"], TRAIN_LOSS_TOL)
+    ce_gap = train_close("sharded against one-process ce", m["ce"],
+                         plain["ce"], TRAIN_LOSS_TOL)
     norm_gap = train_close("sharded against one-process grad_norm",
-                           m["grad_norm"], rep["plain"]["grad_norm"],
+                           m["grad_norm"], plain["grad_norm"],
                            TRAIN_LOSS_TOL)
     # the first step's clipped gradient is mu / (1 - b1) on both sides;
     # each tensor's gap is taken against its whole tensor's max
@@ -3477,18 +3550,167 @@ def dist_two():
                                  f"one-process step by {float(diff.max())}")
         worst = max(worst, float(diff.max()))
         flips += int((gg.sign() != gw.sign()).sum())
-    rep["sharded"] = dict(
-        mesh=list(DIST_TRAIN_MESH), batch=[B, S], ms=1e3 * s, **m,
-        loss_gap=loss_gap, grad_norm_gap=norm_gap, grad_gap=gaps[grad_at],
-        grad_gap_at=grad_at, update_max_abs=worst, update_sign_flips=flips,
+    return dict(loss_gap=loss_gap, ce_gap=ce_gap, grad_norm_gap=norm_gap,
+                grad_gap=gaps[grad_at], grad_gap_at=grad_at,
+                update_max_abs=worst, update_sign_flips=flips)
+
+
+def collective_report(coll):
+    """``compat.STATS`` of a step: each collective, and the host ms of the
+    data axes' and of the model axis's (``model:`` keys)."""
+    model = {op: c for op, c in coll.items() if op.startswith("model:")}
+    return dict(
         collectives={op: dict(calls=c["calls"], gb=c["bytes"] / 1e9,
                               ms=1e3 * c["seconds"])
                      for op, c in coll.items()},
         collective_ms=1e3 * sum(c["seconds"] for c in coll.values()),
+        model_axis_ms=1e3 * sum(c["seconds"] for c in model.values()),
+        model_axis_gb=sum(c["bytes"] for c in model.values()) / 1e9,
+        model_axis_calls=sum(c["calls"] for c in model.values()),
+        data_axis_ms=1e3 * sum(c["seconds"] for op, c in coll.items()
+                               if op not in model))
+
+
+def dist_two():
+    """The two-rank job of phase 18: gemma3-1b at full width and depth in
+    f32, one sharded step on DIST_TRAIN_MESH against the one-process step
+    (each rank runs the latter in turn and keeps its own slices)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import reshard
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import compat, param_shardings
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import Decoder, init_decoder
+    from repro_torch.train.optim import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    mesh = make_mesh_compat(DIST_TRAIN_MESH, ("data", "model"), device=dev)
+    specs = param_shardings(Decoder(cfg, device="meta"), mesh)
+    B, S = DIST_TRAIN_BATCH
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
+        vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0).batch_at(0).items()}
+    keep, keep_mu, plain = one_process_turns(cfg, opt_cfg, specs, mesh,
+                                             batch, dev)
+    torch.cuda.reset_peak_memory_stats()
+    p = init_decoder(0, cfg, dev)
+    params = reshard(p, specs, mesh)
+    del p
+    lm_free()
+    opt = init_opt(params)
+    _, mstep = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
+    torch.cuda.synchronize()
+    dist.barrier()          # the ranks start the timed step together
+    compat.reset_stats()
+    (params, opt, m), s = timed(lambda: mstep(params, opt, batch))
+    coll = compat.STATS.as_dict()
+    m = {k: float(v) for k, v in m.items()}
+    gaps = hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg)
+    return dict(plain=plain, sharded=dict(
+        mesh=list(DIST_TRAIN_MESH), batch=[B, S], ms=1e3 * s, **m, **gaps,
+        **collective_report(coll),
         peak_gb=torch.cuda.max_memory_allocated() / 1e9,
         local_gb=sum(t.numel() * t.element_size()
-                     for t in params.values()) / 1e9)
-    return rep
+                     for t in params.values()) / 1e9))
+
+
+def dist_tp(dev, arch, n_layers=None):
+    """``arch`` at full width (f32; depth cut to ``n_layers`` where given)
+    on DIST_TP_MESH, its compute split over the model axis: the
+    one-process step a rank at a time (its matmul FLOPs counted on rank
+    0's turn), then one sharded step (each rank's matmul FLOPs counted),
+    held against it at the TRAIN_*_TOL bounds; MoE routing of each
+    rank's tokens bit-equal to the one-process step's; digests of this
+    rank's shards that other ranks also hold, for the parent's replica
+    check (phase 18, 3d)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import reshard
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.distributed import compat, param_shardings
+    from repro_torch.distributed.sharding import compute_split
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import Decoder, init_decoder
+    from repro_torch.train.optim import AdamWConfig, init_opt
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                          total_steps=TRAIN_STEPS)
+    mesh = make_mesh_compat(DIST_TP_MESH, ("data", "model"), device=dev)
+    specs = param_shardings(Decoder(cfg, device="meta"), mesh, cfg.n_experts)
+    B, S = DIST_TRAIN_BATCH
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
+        vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0).batch_at(0).items()}
+    # the profiler's first start in a process takes seconds: every rank
+    # pays it here at once, not rank 0 alone in its turn below and the
+    # others inside the timed step
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        pass
+    want_routes = []
+    keep, keep_mu, plain = one_process_turns(
+        cfg, opt_cfg, specs, mesh, batch, dev, flops=dist.get_rank() == 0,
+        routes=want_routes)
+    torch.cuda.reset_peak_memory_stats()
+    p = init_decoder(0, cfg, dev)
+    params = reshard(p, specs, mesh)
+    del p
+    lm_free()
+    opt = init_opt(params)
+    _, mstep = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
+    routes, counted = [], {}
+    with recording_routing(routes), counting_flops(counted):
+        torch.cuda.synchronize()
+        dist.barrier()      # the ranks start the timed step together
+        compat.reset_stats()
+        (params, opt, m), s = timed(lambda: mstep(params, opt, batch))
+    coll = compat.STATS.as_dict()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    m = {k: float(v) for k, v in m.items()}
+    gaps = hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg)
+    if len(routes) != len(want_routes):
+        raise AssertionError(f"{arch}: {len(routes)} MoE routings against "
+                             f"the one-process step's {len(want_routes)}")
+    for i, (got, want) in enumerate(zip(routes, want_routes)):
+        for key in ("expert_ids", "keep", "slot", "counts"):
+            if not torch.equal(got[key], want[key]):
+                raise AssertionError(f"{arch} layer {i}: routing {key} "
+                                     "differs from the one-process step's")
+    split = compute_split(specs, cfg, mesh)
+    # the tensors some other rank holds the same slice of: a spec that
+    # leaves a mesh axis out (the others' slices are this rank's alone)
+    held = [n for n, spec in specs.items()
+            if len({a for axes in spec if axes for a in (
+                (axes,) if isinstance(axes, str) else axes)}) < len(
+                mesh.shape)]
+    return dict(
+        arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
+        batch=[B, S], plain=plain, ms=1e3 * s, **m, **gaps,
+        **collective_report(coll), flops=counted["flops"], peak_gb=peak,
+        local_gb=sum(t.numel() * t.element_size()
+                     for t in params.values()) / 1e9,
+        split={k: sum(v == k for v in split.values())
+               for k in ("split", "gather", "replicated")},
+        routing=dict(layers=len(routes), bit_equal=True,
+                     edge_gap=[r["edge_gap"] for r in routes],
+                     dropped=[int((~r["keep"]).sum()) for r in routes]),
+        coords=mesh.coords, specs=dict(params.specs),
+        **{key: {n: digest(t) for n, t in d.items() if n in held}
+           for key, d in (("params", params), ("mu", opt.mu),
+                          ("nu", opt.nu))})
 
 
 DIST_JOBS = {"four": dist_four, "two": dist_two}
@@ -3496,8 +3718,8 @@ DIST_JOBS = {"four": dist_four, "two": dist_two}
 
 def replicas_equal(ranks):
     """Raise unless ranks that hold the same slice of a tensor hold the
-    same bits; returns the count of parameter slices held by more than
-    one rank."""
+    same bits (arrays, or their ``digest``); returns the count of
+    parameter slices held by more than one rank."""
     seen, holders = {}, {}
     for r in ranks:
         for key in ("params", "mu", "nu"):
@@ -3505,11 +3727,35 @@ def replicas_equal(ranks):
                 at = tuple(axes and tuple(r["coords"][a] for a in (
                     (axes,) if isinstance(axes, str) else axes))
                     for axes in r["specs"][n])
-                if seen.setdefault((key, n, at), t.tobytes()) != t.tobytes():
+                b = t if isinstance(t, str) else t.tobytes()
+                if seen.setdefault((key, n, at), b) != b:
                     raise AssertionError(f"replicas of {key} {n} at {at} "
                                          "differ")
                 holders[(key, n, at)] = holders.get((key, n, at), 0) + 1
     return sum(c > 1 for (key, _, _), c in holders.items() if key == "params")
+
+
+def tp_report(ranks):
+    """Phase 18's report of a :func:`dist_tp` run from every rank's result:
+    replicas bit-equal (by digest), each rank's matmul FLOPs as a share of
+    the one-process step's and of a data rank's share of it (the whole
+    model over 1 / data of the batch), ms, collectives, peak memory."""
+    first = ranks[0]
+    plain = first["plain"]
+    data = first["mesh"][0]
+    share = [r["flops"] / plain["flops"] for r in ranks]
+    drop = ("params", "mu", "nu", "specs", "coords", "plain", "flops")
+    return dict(
+        {k: v for k, v in first.items() if k not in drop},
+        plain=plain, replicated_slices=replicas_equal(ranks),
+        replicas_bitwise_equal=True,
+        flops_by_rank=[r["flops"] for r in ranks],
+        flops_share_by_rank=share,
+        flops_share_of_a_data_rank=[x * data for x in share],
+        ms_by_rank=[r["ms"] for r in ranks],
+        peak_gb_by_rank=[r["peak_gb"] for r in ranks],
+        model_axis_ms_by_rank=[r["model_axis_ms"] for r in ranks],
+        data_axis_ms_by_rank=[r["data_axis_ms"] for r in ranks])
 
 
 def nccl_world_of_one(dev, workdir):
@@ -3605,6 +3851,8 @@ def distributed(dev):
                         replicated_slices=replicas_equal(steps),
                         replicas_bitwise_equal=True)
     rep["reshard"] = four[0]["reshard"]
+    for key in ("tp", "tp_moe"):
+        rep[key] = tp_report([r[key] for r in four])
     t = time.perf_counter()
     two, two_launches = run_dist("two", 2, work)
     rep["two_ranks_s"] = time.perf_counter() - t
@@ -3613,6 +3861,21 @@ def distributed(dev):
                                          for r in two],
                         collective_ms_by_rank=[r["sharded"]["collective_ms"]
                                                for r in two])
+    # gemma3-1b's full-width step on (2, 1) beside (2, 2)
+    one, tp = two[0]["sharded"], rep["tp"]
+    rep["tp_beside_2x1"] = {
+        "2x1": dict(ms=one["ms"], collective_ms=one["collective_ms"],
+                    peak_gb=max(rep["train"]["peak_gb_by_rank"]),
+                    local_gb=one["local_gb"]),
+        "2x2": dict(ms=tp["ms"], collective_ms=tp["collective_ms"],
+                    data_axis_ms=tp["data_axis_ms"],
+                    model_axis_ms=tp["model_axis_ms"],
+                    model_axis_gb=tp["model_axis_gb"],
+                    peak_gb=max(tp["peak_gb_by_rank"]),
+                    local_gb=tp["local_gb"],
+                    flops_share=tp["flops_share_by_rank"],
+                    flops_share_of_a_data_rank=tp[
+                        "flops_share_of_a_data_rank"])}
     t = time.perf_counter()
     rep["nccl_world_of_one"] = dict(nccl_world_of_one(torch.device(dev),
                                                       work),

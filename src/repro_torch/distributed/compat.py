@@ -24,6 +24,8 @@ run and aborting the process in another (``tools/dist_probe.py``).
 ``STATS`` counts, per collective, its calls, the bytes it moved (this
 rank's input) and the seconds it took on the host's clock, each call
 ended by the collective's own wait; :func:`reset_stats` sets them to 0.
+A collective called with ``axis=`` is counted under ``"<axis>:<op>"``
+(``distributed.tp`` passes ``"model"``), the others under the op's name.
 """
 
 from __future__ import annotations
@@ -107,34 +109,36 @@ def host_staged(group, x: torch.Tensor, op: str) -> bool:
 
 
 @contextlib.contextmanager
-def _timed(op: str, x: torch.Tensor):
+def _timed(op: str, x: torch.Tensor, axis: Optional[str] = None):
     t = time.perf_counter()
     yield
-    STATS.add(op, x.numel() * x.element_size(), time.perf_counter() - t)
+    STATS.add(op if axis is None else f"{axis}:{op}",
+              x.numel() * x.element_size(), time.perf_counter() - t)
 
 
-def _all_reduce(x: torch.Tensor, group, op) -> torch.Tensor:
+def _all_reduce(x: torch.Tensor, group, op, axis) -> torch.Tensor:
     y = x.clone()
-    with _timed("all_reduce", x):
+    with _timed("all_reduce", x, axis):
         dist.all_reduce(y, op=op, group=group)
     return y
 
 
-def psum(x: torch.Tensor, group) -> torch.Tensor:
+def psum(x: torch.Tensor, group, axis: Optional[str] = None) -> torch.Tensor:
     """The sum of ``x`` over the ranks of ``group`` (``jax.lax.psum``)."""
-    return _all_reduce(x, group, dist.ReduceOp.SUM)
+    return _all_reduce(x, group, dist.ReduceOp.SUM, axis)
 
 
-def pmax(x: torch.Tensor, group) -> torch.Tensor:
+def pmax(x: torch.Tensor, group, axis: Optional[str] = None) -> torch.Tensor:
     """The elementwise max of ``x`` over ``group`` (``jax.lax.pmax``)."""
-    return _all_reduce(x, group, dist.ReduceOp.MAX)
+    return _all_reduce(x, group, dist.ReduceOp.MAX, axis)
 
 
-def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group, dim: int = 0,
+               axis: Optional[str] = None) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``dim`` in the order of the
     ranks of ``group`` (``jax.lax.all_gather(..., tiled=True)``)."""
     staged = host_staged(group, x, "all_gather")
-    with _timed("all_gather", x):
+    with _timed("all_gather", x, axis):
         src = (x.detach().cpu() if staged else x.detach()).contiguous()
         parts = [torch.empty_like(src)
                  for _ in range(dist.get_world_size(group))]

@@ -28,14 +28,20 @@ __all__ = ["compress_tree_int8", "EFCompressor", "EFState", "ef_init",
            "ef_compress"]
 
 
-def _scales(grads: Dict[str, torch.Tensor], leaf_of: Optional[Callable]
+def _scales(grads: Dict[str, torch.Tensor], leaf_of: Optional[Callable],
+            reduce_max: Optional[Callable] = None
             ) -> Dict[str, torch.Tensor]:
-    """Each tensor's scale, max|g| / 127 over its leaf."""
+    """Each tensor's scale, max|g| / 127 over its leaf (over every rank's
+    shard of it, where ``reduce_max`` takes the max across them)."""
     peak: Dict = {}
     for k, g in grads.items():
         m = g.float().abs().max()
         leaf = k if leaf_of is None else leaf_of(k)
         peak[leaf] = m if leaf not in peak else torch.maximum(peak[leaf], m)
+    if reduce_max is not None and peak:
+        keys = list(peak)
+        peak = dict(zip(keys, reduce_max(torch.stack(
+            [peak[k] for k in keys])).unbind()))
     return {k: torch.clamp(peak[k if leaf_of is None else leaf_of(k)],
                            min=1e-12) / torch.full((), 127.0,
                                                    device=g.device)
@@ -49,10 +55,15 @@ def _q8(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compress_tree_int8(grads: Dict[str, torch.Tensor],
-                       leaf_of: Optional[Callable] = None
+                       leaf_of: Optional[Callable] = None,
+                       reduce_max: Optional[Callable] = None
                        ) -> Dict[str, torch.Tensor]:
-    """Simulate the int8 all-reduce path: quantize-dequantize each leaf."""
-    scales = _scales(grads, leaf_of)
+    """Simulate the int8 all-reduce path: quantize-dequantize each leaf.
+    Where the gradients are this rank's shards of the leaves (the sharded
+    step's, split over the "model" axis), ``reduce_max`` maps the stacked
+    per-leaf peaks to their max over the ranks that split them (a
+    ``pmax``), so every shard takes the whole leaf's scale."""
+    scales = _scales(grads, leaf_of, reduce_max)
     return {k: _q8(g, scales[k]) for k, g in grads.items()}
 
 

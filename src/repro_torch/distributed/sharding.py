@@ -43,7 +43,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..models.convert import leaf_shapes, tree_path
 from . import compat
 
 __all__ = [
@@ -56,6 +55,13 @@ __all__ = [
     "local_slice",
     "unshard",
     "Sharded",
+    "SPLIT",
+    "GATHER",
+    "REPLICATED",
+    "compute_split",
+    "attention_split",
+    "without_model",
+    "only_model",
 ]
 
 _SECOND_MATS = ("wo", "out_proj", "lora_b", "wd", "r")
@@ -151,6 +157,8 @@ def param_shardings(params, mesh, n_experts: int = 0) -> Dict[str, Spec]:
     """``{name: spec}`` for a model's parameters (a ``Decoder`` or
     ``EncDec``, or a mapping of its parameter names to anything with a
     ``shape``: the optimizer's moments take their parameters' specs)."""
+    from ..models.convert import leaf_shapes, tree_path
+
     named = _named(params)
     stacked = leaf_shapes(named)
     out = {}
@@ -267,11 +275,117 @@ def local_slice(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
 def unshard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """The whole tensor of which ``x`` is this rank's shard under
     ``spec``, gathered over the axes of each sharded dimension; the same
-    on every rank."""
+    on every rank.  A gather over "model" is counted under that axis
+    (``compat.STATS``)."""
     for dim, axes in enumerate(spec):
         if axes:
-            x = compat.all_gather(x, mesh.group(axes), dim=dim)
+            on_model = "model" in ((axes,) if isinstance(axes, str)
+                                   else axes)
+            x = compat.all_gather(x, mesh.group(axes), dim=dim,
+                                  axis="model" if on_model else None)
     return x
+
+
+def without_model(spec: Spec) -> Spec:
+    """``spec`` with "model" taken out: the layout of a tensor that is
+    whole over the model axis and sharded over the others as ``spec``
+    says."""
+    def drop(axes):
+        if not axes:
+            return axes
+        rest = tuple(a for a in ((axes,) if isinstance(axes, str) else axes)
+                     if a != "model")
+        return rest[0] if len(rest) == 1 else (rest or None)
+    return tuple(drop(a) for a in spec)
+
+
+def only_model(spec: Spec) -> Spec:
+    """``spec`` with every axis but "model" taken out."""
+    return tuple("model" if axes and "model" in (
+        (axes,) if isinstance(axes, str) else axes) else None
+        for axes in spec)
+
+
+# ---------------------------------------------------------------------------
+# the compute split over the "model" axis (distributed.tp)
+# ---------------------------------------------------------------------------
+
+SPLIT, GATHER, REPLICATED = "split", "gather", "replicated"
+_ATTN = ("attn", "self_attn", "cross")
+
+
+def attention_split(cfg, tp: int, seq_len: int) -> Optional[str]:
+    """How attention splits over a model axis of ``tp`` ranks, by the
+    reference's ``_constrain_heads_or_seq``: ``"heads"`` where the head
+    count divides it, else ``"seq"`` (the query sequence) where the
+    sequence does, else None (computed whole on every model rank)."""
+    if tp <= 1:
+        return None
+    if cfg.n_heads % tp == 0:
+        return "heads"
+    return "seq" if seq_len % tp == 0 else None
+
+
+def _split_dim(name: str, cfg, tp: int) -> Optional[int]:
+    """The dimension of parameter ``name`` along which a model rank
+    computes with its own shard, or None where it computes with the whole
+    tensor."""
+    parts = name.split(".")
+    leaf, owner = parts[-2:], parts[-3] if len(parts) > 2 else ""
+    if name == "embed.table":
+        return 0 if cfg.padded_vocab % tp == 0 else None
+    if owner in _ATTN and leaf[0] in ("wq", "wo", "wk", "wv"):
+        if cfg.n_heads % tp:
+            return None     # the query sequence splits, or nothing
+        if leaf[0] in ("wk", "wv") and cfg.n_kv_heads % tp:
+            return None     # a KV head's columns would split
+        if leaf[0] == "wo":
+            return 0
+        return 1 if leaf[1] == "kernel" else 0
+    if owner in ("mlp", "shared") and leaf[0] in ("wi_gate", "wi_up", "wo"):
+        if cfg.d_ff % tp:
+            return None
+        return 0 if leaf[0] == "wo" else 1
+    if owner == "moe" and leaf[0] in ("wi_gate", "wi_up", "wo"):
+        return 0 if cfg.n_experts % tp == 0 else None
+    if parts[-1] in ("lora_a", "lora_b"):
+        from ..models.transformer import _LORA_RANK
+
+        return None if _LORA_RANK % tp else (
+            1 if parts[-1] == "lora_a" else 0)
+    return None
+
+
+def compute_split(specs: Dict[str, Spec], cfg, mesh) -> Dict[str, str]:
+    """For each parameter (``specs``: ``param_shardings``), how the ranks
+    of the "model" axis compute with it in the sharded train step:
+
+    * ``SPLIT``: with this rank's own model shard (column- or
+      row-parallel matmuls, this rank's heads, vocabulary rows or
+      experts);
+    * ``GATHER``: the rules shard it over "model" but the shard does not
+      line up with what a rank computes (a norm's gain; gemma3-1b's
+      ``wk`` / ``wv`` at tp = 2, half of its one KV head; attention that
+      splits the query sequence; the router, whose logits route whole;
+      the Mamba2 and xLSTM mixers), so it is gathered whole for the step;
+    * ``REPLICATED``: the rules leave it whole on "model".
+
+    Raises where a leaf that computes split is not stored split the same
+    way: no leaf falls back to whole weights."""
+    tp = axis_size(mesh, "model")
+    out = {}
+    for name, spec in specs.items():
+        on_model = [d for d, axes in enumerate(spec) if axes and "model" in (
+            (axes,) if isinstance(axes, str) else axes)]
+        dim = _split_dim(name, cfg, tp) if tp > 1 else None
+        if dim is not None:
+            if on_model != [dim]:
+                raise ValueError(f"{name}: computes split on dimension {dim}"
+                                 f" but is stored as {spec}")
+            out[name] = SPLIT
+        else:
+            out[name] = GATHER if on_model else REPLICATED
+    return out
 
 
 class Sharded(dict):
@@ -298,9 +412,11 @@ class Sharded(dict):
         """``local`` (shards of the same names and specs) as a Sharded."""
         return Sharded(local, self.specs, self.shapes, self.mesh)
 
-    def slice(self, name: str, whole: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of ``whole``, a tensor of ``name``'s shape."""
-        return local_slice(whole, self.specs[name], self.mesh)
+    def data_slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``t``, a tensor whole over every axis but
+        "model", where it is this rank's model shard (the layout of the
+        sharded step's gradients)."""
+        return local_slice(t, without_model(self.specs[name]), self.mesh)
 
     def whole(self, name: str) -> torch.Tensor:
         """The whole tensor ``name``, gathered (a collective: every rank of

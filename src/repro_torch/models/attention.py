@@ -28,11 +28,14 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .layers import Dense, mrope, rope
+from ..distributed import tp as _tp
+from ..distributed.sharding import attention_split
+from .layers import Dense, dense, mrope, rope
 
 __all__ = [
     "Attention",
     "attention",
+    "cross_attention",
     "decode_attention",
     "init_cache",
     "KVCache",
@@ -109,10 +112,12 @@ _BLOCK_KV = 1024
 _BLOCK_THRESHOLD = 2048  # sequences beyond this use the blocked path
 
 
-def _sdpa_blocked(q, k, v, cfg, causal: bool, window: int = 0):
+def _sdpa_blocked(q, k, v, cfg, causal: bool, window: int = 0,
+                  q_offset=None):
     """Flash-style blocked attention: online softmax over KV chunks inside a
     loop over Q chunks — never materializes the (S, T) score matrix; live
-    scores are capped at (B, H, BLOCK_Q, BLOCK_KV)."""
+    scores are capped at (B, H, BLOCK_Q, BLOCK_KV).  The queries sit at
+    positions ``q_offset + arange(S)`` (default ``T - S``: a suffix)."""
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -123,7 +128,9 @@ def _sdpa_blocked(q, k, v, cfg, causal: bool, window: int = 0):
     qp = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pad_q))
     kp = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad_kv))
     vp = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad_kv))
-    q_off = T - S  # causal alignment for prefill-style q suffixes
+    # causal alignment: prefill-style q suffixes, or this rank's part of the
+    # query sequence
+    q_off = T - S if q_offset is None else q_offset
     dev = q.device
     outs = []
     for qi in range(nq):
@@ -156,20 +163,26 @@ def _sdpa_blocked(q, k, v, cfg, causal: bool, window: int = 0):
     return torch.cat(outs, dim=1)[:, :S]
 
 
-def _constrain_heads_or_seq(x, cfg, seq_axis: int = 1, head_axis: int = 2):
-    """The reference's sharding constraint on attention activations (heads,
-    else the query sequence, on the "model" axis), the identity here on
-    every mesh: the port's sharded train step
-    (``train.step.make_train_step(..., mesh=)``) splits no compute over
-    the model axis, whose ranks compute the whole step alike, so there is
-    no partitioned activation to constrain.  Tensor-parallel compute on
-    the model axis is ROADMAP.md's queue 1."""
-    return x
+def _constrain_heads_or_seq(x, cfg, seq_axis: int = 1):
+    """The reference's sharding constraint on attention activations (heads
+    on the "model" axis where their count divides it, else the query
+    sequence), as a split under a current model axis
+    (``distributed.tp``): where the sequence splits
+    (``sharding.attention_split``), this rank's block of ``x`` along
+    ``seq_axis``, its gradient gathered back; else ``x``.  Where heads
+    split, a rank's heads come from its columns of ``wq``
+    (:func:`_split_attention`), so no activation is cut here."""
+    axis = _tp.current()
+    mode = attention_split(cfg, axis.size if axis else 1, x.shape[seq_axis])
+    return _tp.scatter(x, axis, seq_axis) if mode == "seq" else x
 
 
-def _causal_mask(S: int, T: int, window: int = 0, device=None):
-    """(1,1,1,S,T) boolean mask; T >= S, aligned at the end (prefill)."""
-    qi = torch.arange(S, device=device)[:, None] + (T - S)
+def _causal_mask(S: int, T: int, window: int = 0, device=None,
+                 q_offset=None):
+    """(1,1,1,S,T) boolean mask; the queries at ``q_offset + arange(S)``,
+    by default ``T - S``: T >= S, aligned at the end (prefill)."""
+    off = T - S if q_offset is None else q_offset
+    qi = torch.arange(S, device=device)[:, None] + off
     ki = torch.arange(T, device=device)[None, :]
     m = ki <= qi
     if window:
@@ -177,20 +190,128 @@ def _causal_mask(S: int, T: int, window: int = 0, device=None):
     return m[None, None, None]
 
 
+def _local_kv(k, v, H: int, KV: int, axis):
+    """The KV heads that this rank's ``H / tp`` query heads read, from all
+    ``KV`` of them ((B, T, KV, D)), grouped so that ``_sdpa``'s GQA
+    grouping pairs each query head with its own KV head."""
+    n = H // axis.size
+    a, G = axis.index * n, H // KV
+    if n % G == 0:                      # whole groups
+        return k[:, :, a // G:(a + n) // G], v[:, :, a // G:(a + n) // G]
+    if G % n == 0:                      # inside one group
+        j = a // G
+        return k[:, :, j:j + 1], v[:, :, j:j + 1]
+    idx = torch.arange(a, a + n, device=k.device) // G
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _weight(d: Dense, axis, whole: bool):
+    """``d``'s kernel and bias; a whole weight that this rank uses for its
+    part of the work only enters by ``copy`` (its gradient summed over
+    the model ranks)."""
+    if not whole:
+        return d.kernel, d.bias
+    return (_tp.copy(d.kernel, axis),
+            None if d.bias is None else _tp.copy(d.bias, axis))
+
+
+def _split_attention(params, x, positions, cfg, causal, window, axis, mode,
+                     memory=None, blocked=False):
+    """Attention split over the model ``axis``: by ``mode`` ``"heads"``
+    (``wq`` column-parallel, ``wo`` row-parallel; K/V on this rank's KV
+    heads where they divide the axis, else from the whole gathered ``wk``
+    / ``wv`` and the KV heads its query heads read) or ``"seq"`` (this
+    rank's block of the query sequence against the whole K/V, the weights
+    whole).  ``memory`` (cross-attention) gives K/V instead of ``x``, and
+    no RoPE."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    tp = axis.size
+    T = (x if memory is None else memory).shape[1]
+    if mode == "heads":
+        xq = _tp.copy(x, axis)
+        src = xq if memory is None else _tp.copy(memory, axis)
+        wq, bq = _weight(params.wq, axis, False)
+        _tp.check_local(wq, 1, H * hd, axis, "attention wq")
+        q = dense(xq, wq, bq).reshape(B, S, H // tp, hd)
+        kv_whole = KV % tp != 0
+        wk, bk = _weight(params.wk, axis, kv_whole)
+        wv, bv = _weight(params.wv, axis, kv_whole)
+        if not kv_whole:
+            _tp.check_local(wk, 1, KV * hd, axis, "attention wk")
+        kvl = KV if kv_whole else KV // tp
+        k = dense(src, wk, bk).reshape(B, T, kvl, hd)
+        v = dense(src, wv, bv).reshape(B, T, kvl, hd)
+        if kv_whole:
+            k, v = _local_kv(k, v, H, KV, axis)
+        q_pos, lo, Sq = positions, 0, S
+    else:
+        Sq = axis.part(S)
+        lo = axis.index * Sq
+        xq = _constrain_heads_or_seq(x, cfg)
+        wq, bq = _weight(params.wq, axis, True)
+        wk, bk = _weight(params.wk, axis, True)
+        wv, bv = _weight(params.wv, axis, True)
+        q = dense(xq, wq, bq).reshape(B, Sq, H, hd)
+        kv_src = xq if memory is None else _tp.copy(memory, axis)
+        k = dense(kv_src, wk, bk).reshape(B, kv_src.shape[1], KV, hd)
+        v = dense(kv_src, wv, bv).reshape(B, kv_src.shape[1], KV, hd)
+        q_pos = None if positions is None else positions[..., lo:lo + Sq]
+    if memory is None:
+        q, k = _apply_rope(q, k, q_pos, cfg)
+        if mode == "seq":       # this rank's K/V block, gathered whole
+            k = _tp.copy(_tp.gather(k, axis, 1), axis)
+            v = _tp.copy(_tp.gather(v, axis, 1), axis)
+    if blocked:
+        out = _sdpa_blocked(q, k, v, cfg, causal=causal, window=window,
+                            q_offset=lo + (T - S))
+    else:
+        mask = _causal_mask(Sq, T, window, x.device, lo + (T - S)) \
+            if causal else None
+        out = _sdpa(q, k, v, mask, cfg)
+    wo, _ = _weight(params.wo, axis, mode == "seq")
+    y = dense(out.reshape(B, Sq, -1), wo)
+    if mode == "heads":
+        return _tp.reduce(y, axis)
+    return _tp.gather(y, axis, 1)
+
+
 def attention(params: Attention, x, positions, cfg, causal: bool = True,
               window: int = 0) -> torch.Tensor:
-    """Full-sequence attention (training / prefill)."""
+    """Full-sequence attention (training / prefill); split over the current
+    model axis (``distributed.tp``) by heads or the query sequence
+    (:func:`_split_attention`) where ``sharding.attention_split`` says
+    so."""
     B, S, _ = x.shape
+    axis = _tp.current()
+    mode = attention_split(cfg, axis.size if axis else 1, S)
+    if mode is not None:
+        return _split_attention(params, x, positions, cfg, causal, window,
+                                axis, mode, blocked=S > _BLOCK_THRESHOLD)
     q, k, v = _project_qkv(params, x, cfg)
     q, k = _apply_rope(q, k, positions, cfg)
     if S > _BLOCK_THRESHOLD:
-        q = _constrain_heads_or_seq(q, cfg)
         out = _sdpa_blocked(q, k, v, cfg, causal=causal, window=window)
-        out = _constrain_heads_or_seq(out, cfg)
     else:
         mask = _causal_mask(S, S, window, x.device) if causal else None
         out = _sdpa(q, k, v, mask, cfg)
     return params.wo(out.reshape(B, S, -1))
+
+
+def cross_attention(params, x, memory, cfg):
+    """Cross-attention of ``x`` (B, S, d) over ``memory`` (B, T, d), no
+    RoPE, split over the current model axis as :func:`attention` splits
+    (the encoder-decoder's training forward); None where nothing splits,
+    and the caller computes it whole."""
+    S = x.shape[1]
+    axis = _tp.current()
+    mode = attention_split(cfg, axis.size if axis else 1, S)
+    if mode is None:
+        return None
+    return _split_attention(params, x, None, cfg, False, 0, axis, mode,
+                            memory=memory,
+                            blocked=memory.shape[1] > _BLOCK_THRESHOLD
+                            and S > 1)
 
 
 def init_cache(batch: int, max_len: int, cfg, dtype=torch.bfloat16,

@@ -31,10 +31,12 @@ from .attention import (
     Attention,
     KVCache,
     attention,
+    cross_attention,
     decode_attention,
     init_cache,
 )
-from .layers import MLP, Dense, Embedding, RMSNorm, embed, rms_norm, unembed
+from .layers import (MLP, Dense, Embedding, RMSNorm, embed, mlp_apply,
+                     rms_norm, unembed, vocab_axis)
 from .transformer import DenseBlock, _dense_block, _dtype
 
 __all__ = ["EncDec", "EncDecCache", "init_encdec", "encdec_apply",
@@ -158,20 +160,28 @@ def encdec_encode(params: EncDec, cfg: ModelConfig, frames,
 
 def encdec_apply(params: EncDec, cfg: ModelConfig, frames, dec_tokens,
                  remat: bool = True, unroll: bool = False):
-    """Training/prefill forward -> (logits (B, S_dec, V), aux 0)."""
+    """Training/prefill forward -> (logits (B, S_dec, V), aux 0).  Under a
+    model axis (``distributed.tp``: the sharded train step's working
+    module) every block splits as the decoder's do, and the logits are
+    this rank's ``V / tp`` of the padded vocabulary."""
     memory = encdec_encode(params, cfg, frames)
     B, S = dec_tokens.shape
-    x = embed(params.embed.table, dec_tokens).to(_dtype(cfg))
+    vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
+    x = embed(params.embed.table, dec_tokens, vocab).to(_dtype(cfg))
     positions = _positions(B, S, x.device)
     for p in params.dec_blocks:
         x = x + attention(p.self_attn, rms_norm(x, p.ln1.scale, cfg.norm_eps),
                           positions, cfg, causal=True)
-        mk, mv = _cross_kv(p.cross, memory, cfg)
-        x = x + _cross_attend(p.cross, rms_norm(x, p.ln_x.scale, cfg.norm_eps),
-                              mk, mv, cfg)
-        x = x + p.mlp(rms_norm(x, p.ln2.scale, cfg.norm_eps))
+        h = rms_norm(x, p.ln_x.scale, cfg.norm_eps)
+        c = cross_attention(p.cross, h, memory, cfg)
+        if c is None:
+            mk, mv = _cross_kv(p.cross, memory, cfg)
+            c = _cross_attend(p.cross, h, mk, mv, cfg)
+        x = x + c
+        x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2.scale, cfg.norm_eps),
+                          cfg.d_ff)
     x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = unembed(params.embed.table, x)
+    logits = unembed(params.embed.table, x, vocab)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -18,14 +18,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import tp as _tp
+
 __all__ = [
     "cast",
     "rms_norm",
     "layer_norm",
     "dense",
     "mlp",
+    "mlp_apply",
     "embed",
     "unembed",
+    "vocab_axis",
     "rope",
     "mrope",
     "rope_freqs",
@@ -123,10 +127,27 @@ class Dense(nn.Module):
 
 # -- gated MLP (SwiGLU) --------------------------------------------------------
 
-def mlp(x, wi_gate, wi_up, wo):
+def mlp(x, wi_gate, wi_up, wo, axis=None):
+    """SwiGLU; with a model ``axis`` (``distributed.tp``) the kernels are
+    this rank's columns of ``wi_gate`` / ``wi_up`` and rows of ``wo``, the
+    input enters by ``copy`` and the output leaves by ``reduce``."""
+    if axis is not None:
+        x = _tp.copy(x, axis)
     g = dense(x, wi_gate)
     u = dense(x, wi_up)
-    return dense(F.silu(g) * u, wo)
+    y = dense(F.silu(g) * u, wo)
+    return y if axis is None else _tp.reduce(y, axis)
+
+
+def mlp_apply(params: "MLP", x, d_ff: int):
+    """``params`` (an :class:`MLP` of width ``d_ff``) on ``x``: split over
+    the current model axis where ``d_ff`` divides it (the working module
+    of the sharded train step holds this rank's shards), else whole."""
+    axis = _tp.axis_for(d_ff)
+    if axis is not None:
+        _tp.check_local(params.wi_gate.kernel, 1, d_ff, axis, "mlp.wi_gate")
+    return mlp(x, params.wi_gate.kernel, params.wi_up.kernel,
+               params.wo.kernel, axis)
 
 
 class MLP(nn.Module):
@@ -146,16 +167,41 @@ class MLP(nn.Module):
 
 # -- embeddings ----------------------------------------------------------------
 
-def embed(table: torch.Tensor, tokens: torch.Tensor):
+def embed(table: torch.Tensor, tokens: torch.Tensor, axis=None):
     """Rows of ``table`` for int32 or int64 ``tokens`` of any shape.
     ``F.embedding``, whose CUDA backward sums each row's gradients in a
     fixed order; ``index_select``'s backward is an ``index_add_`` with
-    float atomics, which would make a train step differ from run to run."""
-    return F.embedding(tokens, table)
+    float atomics, which would make a train step differ from run to run.
+    With a model ``axis`` (vocab-parallel), ``table`` is this rank's
+    contiguous block of rows: a token outside it looks up zeros, and the
+    ranks' rows are summed (``reduce``)."""
+    if axis is None:
+        return F.embedding(tokens, table)
+    n = table.shape[0]
+    local = tokens.long() - axis.index * n
+    inside = (local >= 0) & (local < n)
+    rows = F.embedding(torch.where(inside, local, torch.zeros_like(local)),
+                       table)
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return _tp.reduce(rows, axis)
 
 
-def unembed(table: torch.Tensor, x: torch.Tensor):
-    """Tied or separate logits projection: x @ table^T."""
+def vocab_axis(table: torch.Tensor, vocab: int):
+    """The current model axis where it splits the ``vocab`` rows of the
+    embedding (vocab-parallel), after checking that ``table`` is this
+    rank's block of them; None where nothing splits."""
+    axis = _tp.axis_for(vocab)
+    if axis is not None:
+        _tp.check_local(table, 0, vocab, axis, "embed.table")
+    return axis
+
+
+def unembed(table: torch.Tensor, x: torch.Tensor, axis=None):
+    """Tied or separate logits projection: x @ table^T.  With a model
+    ``axis``, this rank's logits ``(..., V / tp)`` from its rows of
+    ``table``."""
+    if axis is not None:
+        x = _tp.copy(x, axis)
     return x @ cast(table, x.dtype).T
 
 

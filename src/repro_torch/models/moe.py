@@ -29,9 +29,17 @@ batch's ``T``, each expert's slots are numbered across the slices in
 token order (the counts of the slices before this one, gathered), and the
 Switch loss takes the whole batch's token fractions, with this slice's
 share of the probability mean (the slices' losses sum to the reference's).
-Each process still sizes its ``(E, C, d)`` buffer by the whole batch and
-runs the expert matmuls over all of it, filling only its own slots: the
-split saves no expert compute (ROADMAP.md, queue 1).
+Each data rank still sizes its ``(E, C, d)`` buffer by the whole batch
+and fills only its own slots.
+
+Under a model axis that splits the experts (``distributed.tp``, the
+sharded train step's working module), each model rank holds ``E / tp``
+contiguous experts and runs the batched matmuls over their rows of the
+buffer only; the router's logits are whole (its kernel gathered, the
+routing computed alike on every model rank), the gate weights enter by
+``copy`` (their gradient summed over the model ranks), and each rank's
+combined output, which holds only its experts' contributions, is
+summed by ``reduce``.  The shared expert is the dense MLP's split.
 """
 
 from __future__ import annotations
@@ -44,7 +52,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MLP, Dense, _he, cast, dense
+from ..distributed import tp as _tp
+from .layers import MLP, Dense, _he, cast, dense, mlp_apply
 
 __all__ = ["MoE", "Routing", "TokenSplit", "moe_apply", "moe_capacity",
            "moe_route", "split_tokens"]
@@ -174,21 +183,33 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg):
     sorted_gate = r.gate.reshape(-1)[r.order]
 
     # ---- gather to (E, C, d): each kept slot written once -----------------
-    sink = E * C
-    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=xt.device)
-    buf[torch.where(r.keep, r.slot, sink)] = xt[sorted_token]
-    buf = buf[:sink].view(E, C, d)
+    # (under a model axis, this rank's experts' rows E_l x C of it)
+    axis = _tp.axis_for(E)
+    El, base, src = E, 0, xt
+    keep = r.keep
+    if axis is not None:
+        El = E // axis.size
+        _tp.check_local(params.wi_gate.kernel, 0, E, axis, "moe.wi_gate")
+        base = axis.index * El * C
+        keep = keep & (r.slot >= base) & (r.slot < base + El * C)
+        src = _tp.copy(xt, axis)
+        sorted_gate = _tp.copy(sorted_gate, axis)
+    slot = r.slot - base
+    sink = El * C
+    buf = torch.zeros((El * C + 1, d), dtype=xt.dtype, device=xt.device)
+    buf[torch.where(keep, slot, sink)] = src[sorted_token]
+    buf = buf[:sink].view(El, C, d)
 
     # ---- expert FFNs (batched over the expert dim) -------------------------
     g = torch.bmm(buf, cast(params.wi_gate.kernel, buf.dtype))
     u = torch.bmm(buf, cast(params.wi_up.kernel, buf.dtype))
     h = F.silu(g) * u
-    out = torch.bmm(h, cast(params.wo.kernel, buf.dtype)).reshape(E * C, d)
+    out = torch.bmm(h, cast(params.wo.kernel, buf.dtype)).reshape(El * C, d)
 
     # ---- back to tokens, weighted ------------------------------------------
-    zero = torch.zeros_like(r.slot)
-    w = torch.where(r.keep, sorted_gate, torch.zeros_like(sorted_gate))
-    gathered = (out[torch.where(r.keep, r.slot, zero)]
+    zero = torch.zeros_like(slot)
+    w = torch.where(keep, sorted_gate, torch.zeros_like(sorted_gate))
+    gathered = (out[torch.where(keep, slot, zero)]
                 * w[:, None].to(out.dtype)).to(x.dtype)
     # each token's k assignments in sorted (expert-ascending) order: the
     # order the reference's scatter-add sums them in
@@ -198,9 +219,11 @@ def moe_apply(params: MoE, x: torch.Tensor, cfg):
     yt = torch.zeros((T, d), dtype=x.dtype, device=x.device)
     for i in range(k):
         yt = yt + mine[:, i]
+    if axis is not None:
+        yt = _tp.reduce(yt, axis)
 
     if params.shared is not None:
-        yt = yt + params.shared(xt)
+        yt = yt + mlp_apply(params.shared, xt, cfg.d_ff)
 
     # load-balancing aux loss (Switch-style): E * sum(frac_tokens * frac_prob)
     frac_tokens = r.counts.float() / max(1, T_all * k)

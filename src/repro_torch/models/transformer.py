@@ -32,6 +32,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import tp as _tp
 from .attention import (
     Attention,
     KVCache,
@@ -39,8 +40,8 @@ from .attention import (
     decode_attention,
     init_cache,
 )
-from .layers import MLP, Embedding, RMSNorm, _he, cast, embed, rms_norm, \
-    unembed
+from .layers import MLP, Embedding, RMSNorm, _he, cast, embed, mlp_apply, \
+    rms_norm, unembed, vocab_axis
 from .moe import MoE, moe_apply
 from .ssm import Mamba, init_mamba_cache, mamba_apply, mamba_decode
 from .xlstm import (
@@ -222,7 +223,8 @@ def _dense_block(params: DenseBlock, x, positions, cfg, window: int = 0,
                  causal: bool = True):
     h = x + attention(params.attn, rms_norm(x, params.ln1.scale, cfg.norm_eps),
                       positions, cfg, causal=causal, window=window)
-    return h + params.mlp(rms_norm(h, params.ln2.scale, cfg.norm_eps))
+    return h + mlp_apply(params.mlp, rms_norm(h, params.ln2.scale,
+                                              cfg.norm_eps), cfg.d_ff)
 
 
 def _dense_block_decode(params: DenseBlock, x, cache: KVCache, cfg,
@@ -252,8 +254,17 @@ def _moe_block_decode(params: MoEBlock, x, cache: KVCache, cfg):
 
 
 def _lora(params: MambaHybrid, x):
-    """The shared block's input adapter ``(x @ lora_a) @ lora_b``."""
-    return (x @ cast(params.lora_a, x.dtype)) @ cast(params.lora_b, x.dtype)
+    """The shared block's input adapter ``(x @ lora_a) @ lora_b``; under a
+    model axis that splits the rank, ``lora_a`` column- and ``lora_b``
+    row-parallel."""
+    axis = _tp.axis_for(_LORA_RANK)
+    if axis is None:
+        return (x @ cast(params.lora_a, x.dtype)) @ cast(params.lora_b,
+                                                         x.dtype)
+    _tp.check_local(params.lora_a, 1, _LORA_RANK, axis, "lora_a")
+    y = (_tp.copy(x, axis) @ cast(params.lora_a, x.dtype)) @ cast(
+        params.lora_b, x.dtype)
+    return _tp.reduce(y, axis)
 
 
 def _apply_super(kind, params, x, positions, cfg, shared=None):
@@ -352,9 +363,14 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
                   embeddings=None, positions=None, remat: bool = True,
                   unroll: bool = False):
     """Forward pass -> (logits (B,S,V), aux_loss): the MoE blocks' Switch
-    losses summed over layers (0 for the other families)."""
+    losses summed over layers (0 for the other families).  Under a model
+    axis (``distributed.tp``: the sharded train step's working module) the
+    blocks split their compute, the embedding is vocab-parallel and the
+    logits are this rank's ``(B, S, V / tp)``; the Mamba2 and xLSTM
+    mixers compute whole on every model rank."""
+    vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
     if embeddings is None:
-        x = embed(params.embed.table, tokens).to(_dtype(cfg))
+        x = embed(params.embed.table, tokens, vocab).to(_dtype(cfg))
         B, S = tokens.shape
     else:
         x = embeddings.to(_dtype(cfg))
@@ -370,7 +386,7 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
             if aux is not None:
                 aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = unembed(params.embed.table, x)
+    logits = unembed(params.embed.table, x, vocab)
     return logits, aux_total
 
 

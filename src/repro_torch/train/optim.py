@@ -18,8 +18,11 @@ gradients, ``mu`` and ``nu`` are dicts keyed by parameter name, the
 moments f32 whatever the parameters' dtype.  On a mesh the parameters
 are this rank's shards (``distributed.sharding.Sharded``): the moments
 are shards of the same specs (optimizer state shardings mirror params),
-the gradients are whole (the same on every rank), their global norm is
-taken over the whole tensors, and each rank updates its own slices.  A parameter written in
+the gradients are the sharded step's (this rank's model shard of each
+tensor the rules split over "model", whole over the data axes), their
+global norm is the ``psum`` over "model" of each rank's squares of its
+shards plus, once, the squares of the tensors left whole on that axis,
+and each rank updates its own slices.  A parameter written in
 place moves its version counter, so ``models.layers.cast`` drops its kept
 bf16 copy and the next serve step reads the new weights.
 """
@@ -35,7 +38,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from ..distributed.sharding import Sharded
+from ..distributed import compat
+from ..distributed.sharding import Sharded, axis_size, only_model
 
 __all__ = ["AdamWConfig", "OptState", "init_opt", "apply_updates", "lr_at"]
 
@@ -116,6 +120,24 @@ def lr_at(step, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * scale
 
 
+def _sharded_norm(params: Sharded, grads) -> torch.Tensor:
+    """The global norm of gradients held as model shards: the ``psum`` over
+    "model" of the squares of each rank's shards, plus, once, those of
+    the tensors the rules leave whole on that axis (the same on every
+    model rank)."""
+    dev = next(iter(grads.values())).device
+    own = torch.zeros((), dtype=torch.float32, device=dev)
+    rest = torch.zeros((), dtype=torch.float32, device=dev)
+    for n in params:
+        sq = grads[n].float().square().sum()
+        if any(only_model(params.specs[n])):
+            own = own + sq
+        else:
+            rest = rest + sq
+    own = compat.psum(own, params.mesh.group("model"), axis="model")
+    return torch.sqrt(own + rest)
+
+
 @torch.no_grad()
 def apply_updates(params, grads: Dict[str, torch.Tensor],
                   state: OptState, cfg: AdamWConfig):
@@ -126,8 +148,11 @@ def apply_updates(params, grads: Dict[str, torch.Tensor],
     module or a ``Sharded`` set of this rank's slices (module
     docstring)."""
     named = _named(params)
-    gnorm = torch.sqrt(sum(grads[n].float().square().sum()
-                           for n, _ in named))
+    if isinstance(params, Sharded) and axis_size(params.mesh, "model") > 1:
+        gnorm = _sharded_norm(params, grads)
+    else:
+        gnorm = torch.sqrt(sum(grads[n].float().square().sum()
+                               for n, _ in named))
     clip = torch.minimum(_f32(1.0, gnorm),
                          _f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9))
     step = _host_step(state.step)
@@ -139,7 +164,7 @@ def apply_updates(params, grads: Dict[str, torch.Tensor],
     for n, p in named:
         g = grads[n]
         if isinstance(params, Sharded):
-            g = params.slice(n, g)
+            g = params.data_slice(n, g)
         g = g.float() * clip
         m, v = state.mu[n], state.nu[n]
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)

@@ -219,47 +219,88 @@ def pp(ref_npz):
 
 
 def restored(arch, ckpt_dir):
-    """Reduced ``arch``'s decoder from a checkpoint of its parameters."""
+    """Reduced ``arch``'s parameters (a ``Decoder``, or whisper's
+    ``EncDec``) from a checkpoint of them."""
     from repro_torch.checkpoint import restore_checkpoint
     from repro_torch.configs import get_config, reduced
+    from repro_torch.models.encdec import EncDec
     from repro_torch.models.transformer import Decoder
 
     cfg = reduced(get_config(arch))
-    module = Decoder(cfg, device="cpu")
+    module = (EncDec if cfg.encoder_decoder else Decoder)(cfg, device="cpu")
     restore_checkpoint(ckpt_dir, module)
     return cfg, module
 
 
+def mesh_name(shape):
+    return "x".join(map(str, shape))
+
+
 @job
-def train(arch, ckpt_dir, ref_npz, shape, compress=False):
+def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
     """One sharded step (with the int8 compression where ``compress``) on
-    a live ``shape`` (data, model) mesh from the reference's weights and
-    batch: the gradients (whole, uncompressed), the step's metrics, and
-    this rank's shards of the parameters and moments."""
+    each live (data, model) mesh of ``shapes`` in turn, from the
+    reference's weights and batch, keyed by the mesh's name (``2x4``):
+    the gradients, the step's metrics, this rank's shards of the
+    parameters and moments, and what the model axis split: the working
+    module's shapes and each leaf's ``compute_split``, the logits' shape
+    and the expert count of each ``torch.bmm`` of the loss.  The
+    gradients of ``sharded_loss_and_grads`` are this rank's model
+    shards: they are gathered whole over "model" here."""
     from repro_torch.checkpoint import reshard
-    from repro_torch.distributed import param_shardings
+    from repro_torch.distributed import param_shardings, tp
+    from repro_torch.distributed.sharding import (compute_split, only_model,
+                                                  unshard)
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.train import optim as PO
-    from repro_torch.train.step import make_train_step, sharded_loss_and_grads
+    from repro_torch.train.step import (gather_working, make_train_step,
+                                        sharded_loss_and_grads,
+                                        working_module)
 
     cfg, module = restored(arch, ckpt_dir)
-    mesh = make_mesh_compat(shape, ("data", "model"), device="cpu")
     with np.load(ref_npz) as z:
         batch = {k.split("/")[1]: torch.from_numpy(z[k]) for k in z.files
                  if k.startswith("batch/")}
-    specs = param_shardings(module, mesh, cfg.n_experts)
-    params = reshard(module, specs, mesh)
-    opt = PO.init_opt(params)
-    model, step = make_train_step(cfg, PO.AdamWConfig(**OPT),
-                                  compress_grads=compress, device="cpu",
-                                  mesh=mesh)
-    loss, ce, grads = sharded_loss_and_grads(model, module, batch, cfg, mesh)
-    params, opt, m = step(params, opt, batch)
-    return dict(coords=mesh.coords, specs=specs, grads=_np(grads),
-                grad_loss=float(loss), grad_ce=float(ce),
-                metrics={k: float(v) for k, v in m.items()},
-                params=_np(params), mu=_np(opt.mu), nu=_np(opt.nu),
-                step=int(opt.step))
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh_compat(shape, ("data", "model"), device="cpu")
+        specs = param_shardings(module, mesh, cfg.n_experts)
+        params = reshard(module, specs, mesh)
+        opt = PO.init_opt(params)
+        model, step = make_train_step(cfg, PO.AdamWConfig(**OPT),
+                                      compress_grads=compress, device="cpu",
+                                      mesh=mesh)
+        work = working_module(cfg, params, "cpu")
+        gather_working(params, work)
+        experts = []
+        bmm = torch.bmm
+
+        def counted(a, b):
+            experts.append(a.shape[0])
+            return bmm(a, b)
+
+        torch.bmm = counted
+        try:
+            loss, ce, grads = sharded_loss_and_grads(model, params, work,
+                                                     batch, cfg)
+        finally:
+            torch.bmm = bmm
+        grads = {n: unshard(g, only_model(specs[n]), mesh)
+                 for n, g in grads.items()}
+        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        with torch.no_grad(), tp.split_model(tp.ModelAxis.of(mesh)):
+            logits = model.apply(work, **inputs)[0]
+        params, opt, m = step(params, opt, batch)
+        out[mesh_name(shape)] = dict(
+            coords=mesh.coords, specs=specs, grads=_np(grads),
+            grad_loss=float(loss), grad_ce=float(ce),
+            metrics={k: float(v) for k, v in m.items()},
+            params=_np(params), mu=_np(opt.mu), nu=_np(opt.nu),
+            step=int(opt.step),
+            split=compute_split(specs, cfg, mesh),
+            work={n: tuple(p.shape) for n, p in work.named_parameters()},
+            logits=tuple(logits.shape), experts=experts)
+    return out
 
 
 @job

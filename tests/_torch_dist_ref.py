@@ -5,7 +5,8 @@ script by tests/_torch_dist.py::start_reference with
 
     python tests/_torch_dist_ref.py sp OUT.npz
     python tests/_torch_dist_ref.py pp OUT.npz
-    python tests/_torch_dist_ref.py train OUT.npz ARCH CKPT_DIR [COMPRESS]
+    python tests/_torch_dist_ref.py train OUT.npz ARCH CKPT_DIR [COMPRESS
+        [MESHES]]
 
 ``sp``: ``make_sp_decode`` on a 4-device ``model`` mesh at the reference
 test's sizes (``tests/test_distributed.py::test_sp_decode_matches_dense``,
@@ -13,16 +14,19 @@ its seed) and with ``NVALID`` valid slots.  ``pp``: ``pipeline_apply`` on
 a 4-device ``pod`` mesh, the reference test's 4 stages x 8 microbatches
 of ``tanh(x @ w)``.  ``train``: reduced ``ARCH`` from ``init_decoder`` on
 ``PRNGKey(0)`` (saved to ``CKPT_DIR`` by the reference's
-``save_checkpoint``, whence the port reads it), one batch of the
-reference's ``TokenPipeline`` (``B`` x ``S``), and on a (2, 4)
-``("data", "model")`` mesh, under ``param_shardings`` /
-``batch_shardings`` as tests/test_distributed.py runs it: the jitted
-gradients of ``loss_fn`` and one jitted ``train_step``, with the int8
-gradient compression where ``COMPRESS`` is 1 (the arrays
-gathered: ``grads/<path>``, ``params/<path>``, ``mu/<path>``,
-``nu/<path>``, ``metrics/<name>``, ``batch/<key>``), and ``drops``, the
-MoE assignments the whole batch's routing drops (an unsharded run of
-``loss_fn`` whose MoE layers report them).
+``save_checkpoint``, whence the port reads it; ``init_encdec`` for
+whisper), one batch of the reference's ``TokenPipeline`` (``B`` x
+``S``; whisper's ``frames`` and qwen2-vl's ``embeddings`` seeded by
+numpy, its M-RoPE ``positions`` ``arange(S)``), and on each
+``("data", "model")`` mesh of ``MESHES`` (comma-separated, ``2x4`` by
+default), under ``param_shardings`` / ``batch_shardings`` as
+tests/test_distributed.py runs it: the jitted gradients of ``loss_fn``
+and one jitted ``train_step``, with the int8 gradient compression where
+``COMPRESS`` is 1 (the arrays gathered, each key under its mesh's name:
+``2x4/grads/<path>``, ``2x4/params/<path>``, ``2x4/mu/<path>``,
+``2x4/nu/<path>``, ``2x4/metrics/<name>``), ``batch/<key>``, and
+``drops``, the MoE assignments the whole batch's routing drops (an
+unsharded run of ``loss_fn`` whose MoE layers report them).
 """
 
 import sys
@@ -38,6 +42,7 @@ from repro.distributed.pp import pipeline_apply
 from repro.distributed.sharding import batch_shardings, param_shardings
 from repro.distributed.sp import make_sp_decode
 from repro.launch.mesh import make_mesh_compat, use_mesh
+from repro.models import encdec as RE
 from repro.models import moe as RM
 from repro.models import transformer as RT
 from repro.models.layers import dense
@@ -86,16 +91,36 @@ def pp():
     return dict(ws=ws, x=x, out=out)
 
 
-def train(arch, ckpt_dir, compress="0"):
+def batch_for(cfg):
+    """The step's batch: the pipeline's tokens, and numpy-seeded frames
+    (whisper) or embeddings with M-RoPE positions (qwen2-vl)."""
+    toks = TokenPipeline(vocab=cfg.vocab_size, batch=B, seq_len=S,
+                         seed=0).batch_at(0)
+    rng = np.random.default_rng(0)
+    if cfg.encoder_decoder:
+        batch = {"frames": rng.standard_normal((B, S, cfg.d_model)).astype(
+                     np.float32),
+                 "dec_tokens": toks["tokens"], "labels": toks["labels"]}
+    elif cfg.frontend == "vision":
+        batch = {"embeddings": rng.standard_normal((B, S, cfg.d_model))
+                 .astype(np.float32),
+                 "positions": np.broadcast_to(np.arange(S, dtype=np.int32)[
+                     None, None], (3, B, S)).copy(),
+                 "labels": toks["labels"]}
+    else:
+        batch = dict(toks)
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+def train(arch, ckpt_dir, compress="0", meshes="2x4"):
     cfg = reduced(get_config(arch))
-    mesh = make_mesh_compat((2, 4), ("data", "model"))
     model, step = RS.make_train_step(cfg, RO.AdamWConfig(**OPT),
                                      compress_grads=compress == "1")
-    params = RT.init_decoder(jax.random.PRNGKey(0), cfg)
-    save_checkpoint(ckpt_dir, 0, params)
-    batch = {k: jnp.asarray(v) for k, v in TokenPipeline(
-        vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0).batch_at(0).items()}
-    out = {f"batch/{k}": v for k, v in batch.items()}
+    init = RE.init_encdec if cfg.encoder_decoder else RT.init_decoder
+    params0 = init(jax.random.PRNGKey(0), cfg)
+    save_checkpoint(ckpt_dir, 0, params0)
+    batch0 = batch_for(cfg)
+    out = {f"batch/{k}": v for k, v in batch0.items()}
     if cfg.n_experts:
         drops = []
         inner = RT.moe_apply
@@ -112,25 +137,29 @@ def train(arch, ckpt_dir, compress="0"):
 
         RT.moe_apply = counted
         try:
-            RS.loss_fn(model, params, batch, cfg)[0].block_until_ready()
+            RS.loss_fn(model, params0, batch0, cfg)[0].block_until_ready()
             jax.effects_barrier()
         finally:
             RT.moe_apply = inner
         out["drops"] = np.asarray(drops)
-    with use_mesh(mesh):
-        shapes = jax.eval_shape(lambda: params)
-        params = jax.tree.map(jax.device_put, params,
-                              param_shardings(shapes, mesh, cfg.n_experts))
-        opt = RO.init_opt(params)
-        batch = jax.tree.map(jax.device_put, batch, batch_shardings(
-            jax.eval_shape(lambda: batch), mesh))
-        grads = jax.jit(jax.grad(
-            lambda p, b: RS.loss_fn(model, p, b, cfg)[0]))(params, batch)
-        params, opt, metrics = jax.jit(step)(params, opt, batch)
-    for key, tree in (("grads", grads), ("params", params), ("mu", opt.mu),
-                      ("nu", opt.nu)):
-        out.update(flat(key, tree))
-    out.update({f"metrics/{k}": np.asarray(v) for k, v in metrics.items()})
+    for name in meshes.split(","):
+        shape = tuple(int(n) for n in name.split("x"))
+        mesh = make_mesh_compat(shape, ("data", "model"))
+        with use_mesh(mesh):
+            shapes = jax.eval_shape(lambda: params0)
+            params = jax.tree.map(jax.device_put, params0, param_shardings(
+                shapes, mesh, cfg.n_experts))
+            opt = RO.init_opt(params)
+            batch = jax.tree.map(jax.device_put, batch0, batch_shardings(
+                jax.eval_shape(lambda: batch0), mesh))
+            grads = jax.jit(jax.grad(
+                lambda p, b: RS.loss_fn(model, p, b, cfg)[0]))(params, batch)
+            params, opt, metrics = jax.jit(step)(params, opt, batch)
+        for key, tree in (("grads", grads), ("params", params),
+                          ("mu", opt.mu), ("nu", opt.nu)):
+            out.update(flat(f"{name}/{key}", tree))
+        out.update({f"{name}/metrics/{k}": np.asarray(v)
+                    for k, v in metrics.items()})
     return out
 
 
