@@ -57,8 +57,9 @@ exits non-zero without the final ``ok`` line:
    ``FlatIndex`` (the numpy loop, its queries split over host threads) on
    the first 64 queries, and recall@10 1.0 against exact search;
 7. container path: ``save_index`` and ``load_index(device="cuda")`` of
-   the ``IVF1024,ids=roc`` index after its ingest (six epochs) and of the
-   Flat index, with pack and unpack seconds and blob MB; bits per id and
+   an ``IVF1024,ids=roc`` index over the first CONTAINER_N vectors after
+   the same ingest (six epochs) and of the Flat index, with pack and
+   unpack seconds and blob MB; bits per id and
    epochs equal, and search after reload equal to search before over all
    queries (counts set to 0 before the path and read after);
 8. sharded paths (``repro_torch.shard``), over the indexes built above,
@@ -109,7 +110,7 @@ exits non-zero without the final ``ok`` line:
    (differing only inside ``rescore_eps``) and ``np_sum_f32`` (bit-equal
    to ``np.sum``).  ``HNSW16,ids=roc`` built over the 1M vectors and
    served cold and warm.  An ``NSG32,ids=roc`` index over the first
-   100,000 vectors after one ``add`` saved with webgraph and REC edges
+   10,000 vectors after one ``add`` saved with webgraph and REC edges
    and loaded onto the card (a host-only cut: the edge coders cost
    ~0.1-0.3 ms a node), search equal.  Every ``l2_dist`` tile and
    ``seg_topk`` ``(rows, n, k)`` these paths launched is held against its
@@ -249,9 +250,21 @@ exits non-zero without the final ``ok`` line:
    1e-5 relative, each gradient within 1e-4 of its tensor's max, each
    updated weight within lr (1e-2 + du)), with ms a step, the
    host-staged collectives' time and each rank's peak memory, printed
-   beside the (2, 2) step's.  A world of one on NCCL in this process:
-   the sharded step on (1, 1) equal to the plain step bit for bit.  Any
-   rank's failure fails the phase.
+   beside the (2, 2) step's.  The serving steps on (data 2, model 2) at
+   the same widths (``make_prefill_step`` / ``make_serve_step`` with
+   ``mesh=``): the sharded prefill of 4 x 512 prompts against the
+   one-process prefill, then 8 sharded serve steps from a one-process f32
+   cache placed by ``cache_shardings`` (gemma3-1b: filled to 1020 tokens,
+   past its 512-token window, its caches sharded by slot over "model"
+   and read by flash-decoding, the rings wrapping again at 1024;
+   olmoe-1b-7b: 64 tokens, its 16 KV heads split), each step's logits
+   within 1e-4 of the one-process step's scale and its tokens equal where
+   the top-2 gap exceeds that, MoE routing bit-equal, with ms a step and
+   the collectives' host ms; the one-process side runs once, in this
+   process, before the ranks start, so that neither side is timed while
+   the other runs.  A world of one on
+   NCCL in this process: the sharded step on (1, 1) equal to the plain
+   step bit for bit.  Any rank's failure fails the phase.
 
 The last four lines are the total of the phases' seconds, the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
@@ -293,6 +306,12 @@ NLIST = 1024
 # 128-d rows, and one PQ8x8 subspace (256 centroids of 16 dims)
 TOP1_SHAPES = ((1 << 20, NLIST, 128), (1 << 20, 256, 16))
 INGEST_ADDS, INGEST_ROWS = 5, 10_000
+# the IVF container round trip runs over an index of the first CONTAINER_N
+# vectors grown by the same adds: its joint ROC streams are packed and
+# unpacked on the host at a cost that grows faster than the lists (at the
+# main path's 1M, 68.9 s + 79.3 s of the phase's 157.0 s, and 166.3 s on
+# a slower host, before the run grew past RUN_LIMIT_S there)
+CONTAINER_N = 250_000
 # the PQ spec is built over the first PQ_MAIN_N vectors and grown by the
 # first add only: its Pólya coding runs on the host (the build took
 # 218.7-290 s at 1M, each add ~20-43 s), cuts of depth that keep the run
@@ -353,7 +372,11 @@ GRAPH_GATES = (128, 512, 1024, 2048, 1 << 30)
 GRAPH_GATE_ROUNDS = 3
 GRAPH_CHECK_NODES = 20_000
 GRAPH_KNN_CHECK = 10_000
-GRAPH_CONTAINER_N = 100_000
+# (10,000 since the serving steps on a mesh joined phase 18 and its
+# one-process side stopped overlapping the ranks: the container phase took
+# 54.25 s of a run's 1075.10 s of phases at 100,000, 34-40 s at 50,000 and
+# 27.34 s of 1103.52 s at 25,000)
+GRAPH_CONTAINER_N = 10_000
 NPSUM_DIMS = (7, 24, 128, 129, 960)
 # graph-step tiles (query rows, candidate columns) at which one step's
 # device path is timed against the host re-score of the same candidates
@@ -521,6 +544,22 @@ RESHARD_MESHES = ((2, 2), (4, 1))
 # DIST_TRAIN_BATCH on DIST_TP_MESH against the one-process step
 DIST_TP_MESH, DIST_TP_MOE_LAYERS = (2, 2), 2
 DIST_TIMEOUT_S = 600
+# the serving steps on DIST_TP_MESH at the same widths (gemma3-1b's full
+# depth, olmoe-1b-7b's DIST_TP_MOE_LAYERS layers, f32): the sharded
+# prefill of DIST_TRAIN_BATCH prompts against the one-process prefill;
+# then, from a one-process f32 cache of DIST_SERVE_MAX_LEN slots filled by
+# DIST_SERVE_FILL decode steps (gemma3: past its 512-token window, every
+# local ring wrapped once) and placed by cache_shardings, DIST_SERVE_STEPS
+# sharded serve steps (gemma3's cache sharded by slot over "model", its
+# rings wrapping again at 1024; olmoe's by KV head), each step's logits
+# within DIST_SERVE_TOL of the one-process step's scale and its tokens
+# equal where the top-2 gap exceeds that; MoE routing bit-equal.  The
+# one-process side is computed once, by this process before the ranks
+# start, so that nothing else uses the card or the host while either
+# side is timed
+DIST_SERVE_FILL = {"gemma3-1b": 1020, "olmoe-1b-7b": 64}
+DIST_SERVE_MAX_LEN = {"gemma3-1b": 1040, "olmoe-1b-7b": 80}
+DIST_SERVE_STEPS, DIST_SERVE_TOL = 8, 1e-4
 
 class Phases:
     """The run's phase timer: ``with phases(name):`` prints the phase's
@@ -3416,7 +3455,254 @@ def dist_four(ckpt_dir):
     rep["tp"] = dist_tp(dev, LM_ARCH)
     lm_free()
     rep["tp_moe"] = dist_tp(dev, MOE_ARCH, DIST_TP_MOE_LAYERS)
+    lm_free()
+    rep["serve"] = dist_serve(dev, LM_ARCH, None, ckpt_dir)
+    lm_free()
+    rep["serve_moe"] = dist_serve(dev, MOE_ARCH, DIST_TP_MOE_LAYERS,
+                                  ckpt_dir)
     return rep
+
+
+def serve_cfg(arch, n_layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), dtype="float32")
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def serve_oracle_path(workdir, arch):
+    return Path(workdir) / f"serve_{arch}.pt"
+
+
+def serve_inputs(cfg, arch):
+    """The serving phase's prompts (DIST_TRAIN_BATCH) and the tokens that
+    fill and then drive the decode, ``(B, fill + steps)``."""
+    import torch
+    from repro_torch.data import TokenPipeline
+
+    B, S = DIST_TRAIN_BATCH
+    prompt = TokenPipeline(vocab=cfg.vocab_size, batch=B, seq_len=S,
+                           seed=1).batch_at(0)["tokens"]
+    seq = TokenPipeline(vocab=cfg.vocab_size, batch=B,
+                        seq_len=DIST_SERVE_FILL[arch] + DIST_SERVE_STEPS,
+                        seed=2).batch_at(0)["tokens"]
+    return torch.from_numpy(prompt), torch.from_numpy(seq)
+
+
+def serve_oracle(dev, arch, n_layers, workdir):
+    """The one-process side of the serving check (phase 18), once, in this
+    process: ``arch``'s prefill of the prompts, the cache filled by
+    DIST_SERVE_FILL one-process serve steps, then DIST_SERVE_STEPS more,
+    each with its logits (``decode_step`` on the same cache first) and
+    MoE routing; saved (on the host) for the ranks to read."""
+    import os
+
+    import torch
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train.step import make_prefill_step, make_serve_step
+
+    cfg = serve_cfg(arch, n_layers)
+    prompt, seq = serve_inputs(cfg, arch)
+    prompt, seq = prompt.to(dev), seq.to(dev)
+    B = prompt.shape[0]
+    fill = DIST_SERVE_FILL[arch]
+    p = init_decoder(0, cfg, dev)
+    model, prefill = make_prefill_step(cfg, device=dev)
+    _, serve = make_serve_step(cfg, device=dev)
+    prefill(p, {"tokens": prompt})      # the process's first at this shape
+    pre_routes = []
+    with recording_routing(pre_routes):
+        pre, pre_s = timed(lambda: prefill(p, {"tokens": prompt}))
+    cache = model.init_cache(B, DIST_SERVE_MAX_LEN[arch], torch.float32)
+    t = time.perf_counter()
+    for i in range(fill):
+        _, cache = serve(p, cache, {"token": seq[:, i:i + 1]})
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t
+    cache0 = host_tree(cache)
+    logits, tokens, ms, routes = [], [], [], []
+    for i in range(fill, fill + DIST_SERVE_STEPS):
+        inputs = {"token": seq[:, i:i + 1]}
+        with torch.no_grad(), recording_routing(routes):
+            logits.append(model.decode_step(p, cache, **inputs)[0][:, -1]
+                          .cpu())
+        (tok, cache), s = timed(lambda: serve(p, cache, inputs))
+        tokens.append(tok.cpu())
+        ms.append(1e3 * s)
+    out = dict(prefill=pre.cpu(), prefill_ms=1e3 * pre_s, fill_s=fill_s,
+               cache0=cache0, logits=torch.stack(logits),
+               tokens=torch.stack(tokens), ms=ms, routes=routes,
+               prefill_routes=pre_routes)
+    path = serve_oracle_path(workdir, arch)
+    torch.save(out, str(path) + ".part")
+    os.replace(str(path) + ".part", path)
+    del p, cache, cache0
+    lm_free()
+
+
+def host_tree(cache):
+    """A copy of a cache with every tensor on the host."""
+    from repro_torch.distributed import map_cache
+
+    return map_cache(lambda t: t.detach().to("cpu", copy=True), cache)
+
+
+def serve_gap(got, want):
+    """max |got - want| over max(1, max |want|): the CPU serving tests'
+    bound's form."""
+    want = want.double()
+    return float((got.double().cpu() - want).abs().max()) / max(
+        1.0, float(want.abs().max()))
+
+
+def dist_serve(dev, arch, n_layers, ckpt_dir):
+    """``arch`` at full width (f32; depth cut to ``n_layers`` where given)
+    served on DIST_TP_MESH: the sharded prefill and DIST_SERVE_STEPS
+    sharded serve steps from the one-process cache placed by
+    ``cache_shardings``, against the one-process side that this script's
+    own process computed (:func:`serve_oracle`), with ms and the
+    collectives' host ms (phase 18)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import reshard
+    from repro_torch.distributed import (ShardedCache, compat,
+                                         param_shardings)
+    from repro_torch.distributed import sp as SP
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train import step as ST
+
+    cfg = serve_cfg(arch, n_layers)
+    prompt, seq = serve_inputs(cfg, arch)
+    prompt, seq = prompt.to(dev), seq.to(dev)
+    B, fill = prompt.shape[0], DIST_SERVE_FILL[arch]
+    mesh = make_mesh_compat(DIST_TP_MESH, ("data", "model"), device=dev)
+    p = init_decoder(0, cfg, dev)
+    params = reshard(p, param_shardings(p, mesh, cfg.n_experts), mesh)
+    del p
+    lm_free()
+    want = torch.load(serve_oracle_path(Path(ckpt_dir).parent, arch),
+                      weights_only=False)
+    torch.cuda.reset_peak_memory_stats()
+    model, prefill = ST.make_prefill_step(cfg, device=dev, mesh=mesh)
+    _, serve = ST.make_serve_step(cfg, device=dev, mesh=mesh)
+    dist.barrier()
+    # the first call gathers the step's working module, the second is
+    # timed and checked
+    _, first_s = timed(lambda: prefill(params, {"tokens": prompt}))
+    pre_routes = []
+    dist.barrier()
+    compat.reset_stats()
+    with recording_routing(pre_routes):
+        pre, pre_s = timed(lambda: prefill(params, {"tokens": prompt}))
+    pre_coll = compat.STATS.as_dict()
+    pre_gap = serve_gap(pre, want["prefill"])
+    if not pre_gap <= DIST_SERVE_TOL:
+        raise AssertionError(f"{arch}: sharded prefill {pre_gap} of the "
+                             "logits' scale from the one-process prefill")
+    b = B // mesh.axis_size("data")
+    mine = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
+    S = prompt.shape[1]
+    rows = slice(mine.start * S, mine.stop * S)
+    routing_equal(arch, "prefill", pre_routes, want["prefill_routes"], rows)
+
+    def placed():
+        return ShardedCache.place(want["cache0"], mesh, B, cfg.n_kv_heads)
+
+    # the steps held against the one-process ones: each step's whole
+    # logits gathered from what serve_step hands greedy_pick
+    cache, got, tokens, routes, sp_calls = placed(), [], [], [], []
+    pick = ST.greedy_pick
+
+    def spy(lg, m, batch, vocab):
+        got.append(ST.whole_logits(lg, m, batch, vocab).cpu())
+        return pick(lg, m, batch, vocab)
+
+    ST.greedy_pick, inner_sp = spy, SP.sp_decode_attention
+    SP.sp_decode_attention = lambda *a: (sp_calls.append(1), inner_sp(*a))[1]
+    try:
+        with recording_routing(routes):
+            for i in range(fill, fill + DIST_SERVE_STEPS):
+                tok, cache = serve(params, cache, {"token": seq[:, i:i + 1]})
+                tokens.append(tok.cpu())
+    finally:
+        ST.greedy_pick, SP.sp_decode_attention = pick, inner_sp
+    gaps, checked, equal = [], 0, 0
+    for lg, w, tok, wt in zip(got, want["logits"], tokens, want["tokens"]):
+        gaps.append(serve_gap(lg, w))
+        top2 = w.double().topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > DIST_SERVE_TOL * max(
+            1.0, float(w.abs().max()))
+        if not torch.equal(tok[clear], wt[clear]):
+            raise AssertionError(f"{arch}: sharded tokens {tok.tolist()} "
+                                 f"against {wt.tolist()}")
+        checked += int(clear.sum())
+        equal += int((tok == wt).sum())
+    if not max(gaps) <= DIST_SERVE_TOL:
+        raise AssertionError(f"{arch}: sharded decode {max(gaps)} of the "
+                             "logits' scale from the one-process decode")
+    routing_equal(arch, "decode", routes, want["routes"], mine)
+    # the same steps again, timed alone: no logits gathered
+    cache, ms, again = placed(), [], []
+    torch.cuda.synchronize()
+    dist.barrier()
+    compat.reset_stats()
+    for i in range(fill, fill + DIST_SERVE_STEPS):
+        (tok, cache), s = timed(lambda: serve(
+            params, cache, {"token": seq[:, i:i + 1]}))
+        ms.append(1e3 * s)
+        again.append(tok.cpu())
+    coll = compat.STATS.as_dict()
+    if not torch.equal(torch.stack(again), torch.stack(tokens)):
+        raise AssertionError(f"{arch}: two sharded decodes differ")
+    return dict(
+        arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
+        prompt=list(prompt.shape), fill=fill, steps=DIST_SERVE_STEPS,
+        max_len=DIST_SERVE_MAX_LEN[arch], tol=DIST_SERVE_TOL,
+        prefill_gap=pre_gap, decode_gaps=gaps, decode_gap=max(gaps),
+        tokens_checked=checked, tokens_equal=equal,
+        tokens=B * DIST_SERVE_STEPS, sp_calls=len(sp_calls),
+        kv_specs=sorted(kv_specs(cache.specs)),
+        routing_bit_equal=bool(routes) or None,
+        first_prefill_ms=1e3 * first_s, prefill_ms=1e3 * pre_s,
+        plain_prefill_ms=want["prefill_ms"], plain_fill_s=want["fill_s"],
+        prefill_collectives=collective_report(pre_coll),
+        ms_by_step=ms, ms_mean=sum(ms) / len(ms),
+        plain_ms_by_step=want["ms"],
+        plain_ms_mean=sum(want["ms"]) / len(want["ms"]),
+        **collective_report(coll),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def kv_specs(node):
+    """The specs of the KV caches in a cache's spec tree, as strings."""
+    if isinstance(node, tuple) and hasattr(node, "k"):
+        return {str(node.k)}
+    items = node.values() if isinstance(node, dict) else node
+    return set().union(*(kv_specs(c) for c in items)) \
+        if isinstance(node, (dict, list)) else set()
+
+
+def routing_equal(arch, what, got, want, rows):
+    """Each MoE routing (layer by layer, step by step) of this rank's
+    tokens (``rows`` of the whole batch's) bit-equal to the one-process
+    routing's rows."""
+    import torch
+
+    if len(got) != len(want):
+        raise AssertionError(f"{arch} {what}: {len(got)} MoE routings "
+                             f"against {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        for key in ("expert_ids", "keep", "slot"):
+            if not torch.equal(g[key], w[key][rows]):
+                raise AssertionError(f"{arch} {what} layer {i}: routing "
+                                     f"{key} differs from the one-process "
+                                     "step's")
+        if not torch.equal(g["counts"], w["counts"]):
+            raise AssertionError(f"{arch} {what} layer {i}: expert counts "
+                                 "differ from the one-process step's")
 
 
 def matmul_flops(prof):
@@ -3758,6 +4044,22 @@ def tp_report(ranks):
         data_axis_ms_by_rank=[r["data_axis_ms"] for r in ranks])
 
 
+def serve_report(ranks):
+    """Phase 18's report of a :func:`dist_serve` run: rank 0's, with every
+    rank's ms a step, host ms of the model axis's collectives and peak
+    memory; the tokens and logits gaps must agree across ranks."""
+    first = ranks[0]
+    for r in ranks[1:]:
+        if (r["decode_gaps"], r["tokens_equal"]) != (first["decode_gaps"],
+                                                    first["tokens_equal"]):
+            raise AssertionError(f"{first['arch']}: the ranks' serving "
+                                 "results differ")
+    return dict(first, ms_mean_by_rank=[r["ms_mean"] for r in ranks],
+                model_axis_ms_by_rank=[r["model_axis_ms"] for r in ranks],
+                sp_calls_by_rank=[r["sp_calls"] for r in ranks],
+                peak_gb_by_rank=[r["peak_gb"] for r in ranks])
+
+
 def nccl_world_of_one(dev, workdir):
     """A world of one on NCCL in this process: the collectives exact (no
     host staging), and the sharded step on a (1, 1) mesh equal to the
@@ -3837,6 +4139,10 @@ def distributed(dev):
                     init_decoder(1, reduced(get_config(LM_ARCH)), "cpu"))
     rep = {}
     t = time.perf_counter()
+    serve_oracle(torch.device(dev), LM_ARCH, None, work)
+    serve_oracle(torch.device(dev), MOE_ARCH, DIST_TP_MOE_LAYERS, work)
+    rep["serve_oracles_s"] = time.perf_counter() - t
+    t = time.perf_counter()
     four, four_launches = run_dist("four", DIST_WORLD, work,
                                    str(work / "ckpt"))
     rep["four_ranks_s"] = time.perf_counter() - t
@@ -3853,6 +4159,8 @@ def distributed(dev):
     rep["reshard"] = four[0]["reshard"]
     for key in ("tp", "tp_moe"):
         rep[key] = tp_report([r[key] for r in four])
+    for key in ("serve", "serve_moe"):
+        rep[key] = serve_report([r[key] for r in four])
     t = time.perf_counter()
     two, two_launches = run_dist("two", 2, work)
     rep["two_ranks_s"] = time.perf_counter() - t
@@ -4026,9 +4334,16 @@ def main(argv=None) -> int:
               + ", l2_dist rows: " + json.dumps(
                   flat_report["shapes"]["l2_dist"]))
     with phase("container path: save_index, load_index onto the card"):
+        from repro_torch.api import index_factory
+
+        cont_idx = index_factory(SPECS[0], device=dev).build(
+            base[:CONTAINER_N], seed=1)
+        for x in adds:
+            cont_idx.add(x)
         cont_ivf, cont_ivf_counts, cont_ivf_shapes = container_path(
-            f"{SPECS[0]} after {INGEST_ADDS} adds", ivf_idx,
-            dict(nprobe=NPROBE), queries, dev)
+            f"{SPECS[0]} n={min(args.n, CONTAINER_N)} after {INGEST_ADDS} "
+            "adds", cont_idx, dict(nprobe=NPROBE), queries, dev)
+        del cont_idx
         print("  " + json.dumps(cont_ivf))
         cont_flat, cont_flat_counts, cont_flat_shapes = container_path(
             "Flat", flat_idx, {}, queries, dev)

@@ -33,7 +33,11 @@ whole tensor, :func:`unshard` gathers the whole tensor back
 (``compat.all_gather`` over the axes of each sharded dimension), and
 :class:`Sharded` holds this rank's shards of a set of named tensors with
 their specs and whole shapes (what ``checkpoint.reshard`` returns and
-the sharded train step updates).
+the sharded train step updates).  :class:`ShardedCache` holds this
+rank's slices of a decode cache with the cache's specs: sliced out of a
+whole cache (:meth:`ShardedCache.place`) or allocated at the local
+shapes alone (:meth:`ShardedCache.allocate`, behind
+``Model.init_cache(..., mesh=)``).
 """
 
 from __future__ import annotations
@@ -62,6 +66,8 @@ __all__ = [
     "attention_split",
     "without_model",
     "only_model",
+    "ShardedCache",
+    "map_cache",
 ]
 
 _SECOND_MATS = ("wo", "out_proj", "lora_b", "wd", "r")
@@ -242,18 +248,7 @@ def cache_shardings(cache: Any, mesh, global_batch: int,
                 break
         return tuple(spec)
 
-    def walk(node):
-        if isinstance(node, torch.Tensor):
-            return f(tuple(node.shape))
-        if isinstance(node, tuple) and hasattr(node, "_fields"):
-            return type(node)(*(walk(c) for c in node))
-        if isinstance(node, (list, tuple)):
-            return type(node)(walk(c) for c in node)
-        if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
-        return ()
-
-    return walk(cache)
+    return map_cache(lambda t: f(tuple(t.shape)), cache, leaf=lambda _: ())
 
 
 # ---------------------------------------------------------------------------
@@ -422,3 +417,88 @@ class Sharded(dict):
         """The whole tensor ``name``, gathered (a collective: every rank of
         the mesh calls it, in the same order)."""
         return unshard(self[name], self.specs[name], self.mesh)
+
+
+# ---------------------------------------------------------------------------
+# decode caches on a live mesh
+# ---------------------------------------------------------------------------
+
+def map_cache(fn, cache: Any, *others: Any, leaf=None) -> Any:
+    """``fn(tensor, *matching)`` for every tensor of ``cache`` (lists,
+    tuples, named tuples, dicts of tensors), each with the node at the same
+    place in each tree of ``others`` (a spec where ``others`` holds
+    ``cache_shardings``' specs); a leaf that is no tensor (a ``KVCache``'s
+    ``length``) is kept as it is, or is ``leaf(node)`` where ``leaf`` is
+    given."""
+    def walk(node, *rest):
+        if isinstance(node, torch.Tensor):
+            return fn(node, *rest)
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(walk(*nodes) for nodes in zip(node, *rest)))
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(*nodes) for nodes in zip(node, *rest))
+        if isinstance(node, dict):
+            return {k: walk(v, *(o[k] for o in rest))
+                    for k, v in node.items()}
+        return node if leaf is None else leaf(node)
+
+    return walk(cache, *others)
+
+
+def _local_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    return tuple(n // mesh.axis_size(axes) if axes else n
+                 for n, axes in zip(shape, spec))
+
+
+class ShardedCache:
+    """This rank's slices of a decode cache on a live ``mesh``: ``local``,
+    the cache's own structure (lists of ``KVCache``, ``MambaCache``, ...,
+    or an ``EncDecCache``) holding this rank's slice of each tensor, with
+    ``specs`` (``cache_shardings`` of the whole cache, the same structure)
+    and the global ``batch``.  A ``KVCache``'s ``length`` is a host int,
+    the same on every rank.  The decode steps take it where they take a
+    whole cache (``models.transformer.decoder_decode``,
+    ``models.encdec.encdec_decode``) and return a new one."""
+
+    def __init__(self, local: Any, specs: Any, mesh, batch: int):
+        self.local, self.specs, self.mesh, self.batch = (local, specs, mesh,
+                                                         batch)
+
+    @classmethod
+    def place(cls, cache: Any, mesh, batch: int,
+              n_kv_heads: int) -> "ShardedCache":
+        """This rank's own copy of its slice of each tensor of the whole
+        ``cache`` (on ``mesh.device``) under ``cache_shardings``."""
+        specs = cache_shardings(cache, mesh, batch, n_kv_heads)
+        return cls(map_cache(
+            lambda t, spec: local_slice(t, spec, mesh).to(
+                mesh.device, copy=True).contiguous(), cache, specs),
+            specs, mesh, batch)
+
+    @classmethod
+    def allocate(cls, make, mesh, batch: int, n_kv_heads: int,
+                 device) -> "ShardedCache":
+        """A fresh cache at this rank's local shapes only: ``make(whole)``
+        builds the cache on the CPU, the whole one where ``whole`` (here
+        under ``FakeTensorMode``: shapes and dtypes, no storage, for the
+        specs) else one of one sequence and one slot, whose leaves give
+        each tensor's fill value (zero, or a stabiliser's -1e9)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        with FakeTensorMode():
+            shapes = make(True)
+        specs = cache_shardings(shapes, mesh, batch, n_kv_heads)
+
+        def alloc(fake, spec, one):
+            fill = one.reshape(-1)[0]
+            if not bool((one == fill).all()):
+                raise ValueError("a cache leaf is not one value throughout")
+            return torch.full(_local_shape(fake.shape, spec, mesh),
+                              fill.item(), dtype=fake.dtype, device=device)
+
+        return cls(map_cache(alloc, shapes, specs, make(False)), specs,
+                   mesh, batch)
+
+    def like(self, local: Any) -> "ShardedCache":
+        """``local`` (slices of the same layout) as a ShardedCache."""
+        return ShardedCache(local, self.specs, self.mesh, self.batch)

@@ -8,7 +8,11 @@ slice plus (max, sum-exp) statistics, and one ``pmax`` and two ``psum``
 combine them — the flash-decoding two-pass reduction, with bytes
 O(B·H·D) instead of O(B·H·T).  Operation for operation the reference's:
 f32 scores, ``finfo(float32).min`` at masked slots, ``p`` cast to ``q``'s
-dtype before the PV product, the ``1e-30`` floor.
+dtype before the PV product, the ``1e-30`` floor; mixed dtypes (an f32
+query against a bf16 cache) promote as JAX's ``einsum`` does.  The
+sharded decode step (``models.attention.decode_attention`` on a
+``ShardedCache`` whose spec shards the sequence) calls
+:func:`sp_decode_attention` over the group of the sequence's axes.
 """
 
 from __future__ import annotations
@@ -31,8 +35,9 @@ def sp_decode_attention(q, k_shard, v_shard, valid_mask, group):
     B, _, H, D = q.shape
     KV = k_shard.shape[2]
     G = H // KV
-    qg = q.reshape(B, KV, G, D)
-    s = torch.einsum("bkgd,btkd->bkgt", qg, k_shard).float()
+    dt = torch.promote_types(q.dtype, k_shard.dtype)
+    qg = q.reshape(B, KV, G, D).to(dt)
+    s = torch.einsum("bkgd,btkd->bkgt", qg, k_shard.to(dt)).float()
     s = s / torch.sqrt(torch.tensor(float(D), device=s.device))
     neg = torch.finfo(torch.float32).min
     s = torch.where(valid_mask[:, None, None, :], s,
@@ -41,7 +46,9 @@ def sp_decode_attention(q, k_shard, v_shard, valid_mask, group):
     m_loc = s.amax(dim=-1)                                    # (B,KV,G)
     p = torch.exp(s - m_loc[..., None])
     l_loc = p.sum(dim=-1)
-    o_loc = torch.einsum("bkgt,btkd->bkgd", p.to(q.dtype), v_shard)
+    dt = torch.promote_types(q.dtype, v_shard.dtype)
+    o_loc = torch.einsum("bkgt,btkd->bkgd", p.to(q.dtype).to(dt),
+                         v_shard.to(dt))
     # global combine: two scalars per head + one vector — O(B*H*D) bytes
     m_glob = compat.pmax(m_loc, group)
     scale = torch.exp(m_loc - m_glob)

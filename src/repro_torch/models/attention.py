@@ -17,6 +17,18 @@ reference has no attention kernel, and these keep its rounding points.
 Mixed dtypes promote as in JAX: a bf16 query against an f32 cache scores
 in f32 (``torch.promote_types``), which is what the reference's serving
 loop does with its f32 cache.
+
+On a mesh (the sharded serving steps, ``train.step``) a decode step runs
+on this rank's slice of the cache (``distributed.sharding.ShardedCache``)
+and the cache's spec picks the form (:func:`decode_attention`,
+:func:`cross_decode`): KV heads on "model", this rank's KV heads and the
+query heads that read them (``wq`` column-, ``wo`` row-parallel); the
+sequence on "model" or on ("data", "model"), this rank's block of slots,
+written only by the rank whose block holds the new token's slot and
+read by flash-decoding over the group of the sequence's axes
+(``distributed.sp.sp_decode_attention``, every query head: a rank's
+own heads gathered first), a block with no valid slot yet contributing
+nothing.
 """
 
 from __future__ import annotations
@@ -28,6 +40,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..distributed import sp as _sp
 from ..distributed import tp as _tp
 from ..distributed.sharding import attention_split
 from .layers import Dense, dense, mrope, rope
@@ -36,6 +49,7 @@ __all__ = [
     "Attention",
     "attention",
     "cross_attention",
+    "cross_decode",
     "decode_attention",
     "init_cache",
     "KVCache",
@@ -325,33 +339,110 @@ def init_cache(batch: int, max_len: int, cfg, dtype=torch.bfloat16,
                    length=0)
 
 
+# -- decode: one process, or this rank's slice of a cache on a mesh ----------
+
+def _write_slot(t, new, slot: int, t_axes, mesh) -> None:
+    """Write ``new`` (B, 1, ...) at the cache's global ``slot`` of ``t``,
+    this rank's block of slots where ``t_axes`` shard them: only the rank
+    whose block holds the slot writes."""
+    if t_axes:
+        n = t.shape[1]
+        if mesh.index(t_axes) != slot // n:
+            return
+        slot %= n
+    t[:, slot] = new[:, 0].to(t.dtype)
+
+
+def _attend_block(q, k, v, last, spec, mesh, cfg, axis):
+    """q (B, 1, Hq, D): this rank's query heads where the model ``axis``
+    splits them (Hq = H / tp), else all H; k / v (B, T_l, KV_l, D): this
+    rank's slice of a cache laid out by ``spec`` (batch, slots, KV heads,
+    D), the slots past the global index ``last`` masked (None: every
+    slot counts).  Returns (B, 1, Hq, D)."""
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    T = k.shape[1]
+    t_axes = spec[1]
+    if not t_axes:
+        if axis is not None and not spec[2]:
+            k, v = _local_kv(k, v, H, KV, axis)
+        mask = None if last is None else (
+            torch.arange(T, device=q.device) <= last)[None, None, None, None]
+        return _sdpa(q, k, v, mask, cfg)
+    if axis is not None:                # every head, for the flash combine
+        q = _tp.gather(q, axis, 2)
+    at = mesh.index(t_axes) * T + torch.arange(T, device=q.device)
+    valid = at <= (T * mesh.axis_size(t_axes) if last is None else last)
+    out = _sp.sp_decode_attention(q, k, v, valid[None].expand(q.shape[0], T),
+                                  mesh.group(t_axes))
+    if axis is not None:
+        n = H // axis.size
+        out = out.narrow(2, axis.index * n, n)
+    return out
+
+
 def decode_attention(params: Attention, x, cache: KVCache, cfg,
-                     window: int = 0):
+                     window: int = 0, spec=None, mesh=None):
     """One-token decode: x (B, 1, d); returns (y, new_cache).
 
     The cache holds ``length`` valid tokens; the new token is written at
     ``length`` (or at ``length % window`` ring position for windowed
     layers, which keeps the cache O(window) for gemma3-style local
-    attention).  The cache's tensors are written in place.
+    attention).  The cache's tensors are written in place.  With
+    ``spec`` (the cache's ``cache_shardings``) on a live ``mesh``,
+    ``cache`` is this rank's slice laid out by ``spec.k`` (batch, slots,
+    KV heads, D) and the current model axis (``distributed.tp``) splits
+    the query heads where their count divides it (module docstring);
+    without a spec, or with one that shards nothing under no model axis,
+    every part is whole and ``mesh`` is not read.
     """
     B, S, _ = x.shape
     if S != 1:
         raise ValueError("decode_attention is one token at a time")
-    q, k, v = _project_qkv(params, x, cfg)
+    spec = (None,) * 4 if spec is None else spec.k
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    axis = _tp.axis_for(H)
+    if axis is not None:
+        _tp.check_local(params.wq.kernel, 1, H * hd, axis, "attention wq")
+    elif spec[2]:
+        raise ValueError(f"a cache of KV heads on the model axis needs the "
+                         f"{H} query heads split over it")
+    q = dense(x, params.wq.kernel, params.wq.bias).reshape(B, 1, -1, hd)
+    k = dense(x, params.wk.kernel, params.wk.bias).reshape(B, 1, -1, hd)
+    v = dense(x, params.wv.kernel, params.wv.bias).reshape(B, 1, -1, hd)
     pos = torch.full((B, 1), cache.length, dtype=torch.int32,
                      device=x.device)
     if cfg.mrope_sections is not None:
-        q, k = _apply_rope(q, k, pos[None].expand(3, B, 1), cfg)
-    else:
-        q, k = _apply_rope(q, k, pos, cfg)
-    T = cache.k.shape[1]
-    slot = cache.length % max(1, window) if window else cache.length
-    cache.k[:, slot] = k[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v[:, 0].to(cache.v.dtype)
-    # valid-position mask: positions < length+1 (ring buffers are always
-    # full once length >= window, and slots beyond are masked before that)
-    ki = torch.arange(T, device=x.device)[None, None, None, None, :]
-    valid = ki <= min(cache.length, T - 1)
-    out = _sdpa(q, cache.k, cache.v, valid, cfg)
-    y = params.wo(out.reshape(B, 1, -1))
+        pos = pos[None].expand(3, B, 1)
+    q, k = _apply_rope(q, k, pos, cfg)
+    if spec[2]:                         # this rank's KV heads
+        _tp.check_local(params.wk.kernel, 1, KV * hd, axis, "attention wk")
+    elif k.shape[2] != KV:              # the cache holds every KV head
+        k, v = _tp.gather(k, axis, 2), _tp.gather(v, axis, 2)
+    T = cache.k.shape[1] * (mesh.axis_size(spec[1]) if spec[1] else 1)
+    slot = cache.length % window if window else cache.length
+    _write_slot(cache.k, k, slot, spec[1], mesh)
+    _write_slot(cache.v, v, slot, spec[1], mesh)
+    # valid slots: those < length + 1 (a ring is full once length >=
+    # window, and slots beyond are masked before that)
+    out = _attend_block(q, cache.k, cache.v, min(cache.length, T - 1), spec,
+                        mesh, cfg, axis)
+    y = dense(out.reshape(B, 1, -1), params.wo.kernel)
+    if axis is not None:
+        y = _tp.reduce(y, axis)
     return y, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)
+
+
+def cross_decode(params, x, mem_k, mem_v, cfg, spec, mesh):
+    """One token's cross-attention (x (B, 1, d), no RoPE) over the encoder
+    memory's projected keys and values: this rank's slice of them laid
+    out by ``spec`` (batch, positions, KV heads, D) on ``mesh``, or all of
+    them where ``spec`` shards nothing; every position counts."""
+    B = x.shape[0]
+    H, hd = cfg.n_heads, cfg.head_dim_
+    axis = _tp.axis_for(H)
+    if axis is not None:
+        _tp.check_local(params.wq.kernel, 1, H * hd, axis, "cross wq")
+    q = dense(x, params.wq.kernel, params.wq.bias).reshape(B, 1, -1, hd)
+    out = _attend_block(q, mem_k, mem_v, None, spec, mesh, cfg, axis)
+    y = dense(out.reshape(B, 1, -1), params.wo.kernel)
+    return y if axis is None else _tp.reduce(y, axis)

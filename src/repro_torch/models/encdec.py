@@ -15,6 +15,13 @@ tree's keys (``enc_blocks.<i>.attn.wq.kernel``,
 ``init_encdec``'s tree by name.  The reference scans its stacked layers;
 here they are a list looped over in order (``remat=`` and ``unroll=`` are
 accepted and change no result).
+
+On a mesh (``distributed.sharding.ShardedCache``, the sharded serving
+steps) :func:`encdec_prefill_memory` runs the encoder split over the
+current model axis and keeps this rank's slice of each layer's memory
+keys and values as the cache's spec lays them out, and
+:func:`encdec_decode` runs the self- and cross-attention on this rank's
+slices (``attention.decode_attention``, ``attention.cross_decode``).
 """
 
 from __future__ import annotations
@@ -26,17 +33,20 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import tp as _tp
+from ..distributed.sharding import ShardedCache, local_slice
 from . import attention as _attn
 from .attention import (
     Attention,
     KVCache,
     attention,
     cross_attention,
+    cross_decode,
     decode_attention,
     init_cache,
 )
-from .layers import (MLP, Dense, Embedding, RMSNorm, embed, mlp_apply,
-                     rms_norm, unembed, vocab_axis)
+from .layers import (MLP, Dense, Embedding, RMSNorm, dense, embed,
+                     mlp_apply, rms_norm, unembed, vocab_axis)
 from .transformer import DenseBlock, _dense_block, _dtype
 
 __all__ = ["EncDec", "EncDecCache", "init_encdec", "encdec_apply",
@@ -206,14 +216,30 @@ def init_encdec_cache(batch: int, max_len: int, cfg: ModelConfig,
         mem_v=torch.zeros(shape, dtype=dtype, device=device))
 
 
+def _memory_spec(spec):
+    """The per-layer spec of the stacked memory's ``spec``; raises where
+    the rules shard its layer axis (a batch equal to the layer count, the
+    reference's fault: ROADMAP.md §3)."""
+    if spec[0]:
+        raise ValueError(f"the cache's spec {spec} shards the memory's layer "
+                         "axis")
+    return spec[1:]
+
+
 @torch.no_grad()
 def encdec_prefill_memory(params: EncDec, cfg: ModelConfig, frames,
                           cache: EncDecCache) -> EncDecCache:
     """Run the encoder once (in ``cfg.dtype``) and stash each decoder
     layer's projected memory keys/values, cast to the cache's dtype after
-    the projection, as the reference does."""
+    the projection, as the reference does.  With a ``ShardedCache``
+    (``frames`` this rank's batch where the cache's spec splits the
+    batch, under the current model axis) the encoder's blocks split over
+    the model axis and each layer keeps this rank's slice of its keys
+    and values; a new ``ShardedCache`` is returned."""
     memory = encdec_encode(params, cfg, frames, remat=False)
     B, T, _ = memory.shape
+    if isinstance(cache, ShardedCache):
+        return cache.like(_mesh_memory(params, cfg, memory, cache))
     shape = (cfg.n_layers, B, T, cfg.n_kv_heads, cfg.head_dim_)
     mk = torch.empty(shape, dtype=cache.mem_k.dtype, device=memory.device)
     mv = torch.empty(shape, dtype=cache.mem_v.dtype, device=memory.device)
@@ -223,20 +249,61 @@ def encdec_prefill_memory(params: EncDec, cfg: ModelConfig, frames,
     return cache._replace(mem_k=mk, mem_v=mv)
 
 
+def _mesh_memory(params: EncDec, cfg, memory, cache: ShardedCache):
+    """This rank's slices of every layer's memory keys and values: the
+    cross ``wk`` / ``wv`` give this rank's KV heads where the model axis
+    splits them (gathered where the spec keeps the heads whole), then the
+    spec's block of positions."""
+    B, T, _ = memory.shape
+    spec = _memory_spec(cache.specs.mem_k)
+    at = (None, spec[1], None, None)
+    axis = _tp.current()
+    ks, vs = [], []
+    for p in params.dec_blocks:
+        k = dense(memory, p.cross.wk.kernel).reshape(B, T, -1, cfg.head_dim_)
+        v = dense(memory, p.cross.wv.kernel).reshape(B, T, -1, cfg.head_dim_)
+        if not spec[2] and k.shape[2] != cfg.n_kv_heads:
+            k, v = _tp.gather(k, axis, 2), _tp.gather(v, axis, 2)
+        ks.append(local_slice(k, at, cache.mesh))
+        vs.append(local_slice(v, at, cache.mesh))
+    local = cache.local
+    mk = torch.stack(ks).to(local.mem_k.dtype)
+    mv = torch.stack(vs).to(local.mem_v.dtype)
+    if mk.shape != local.mem_k.shape:
+        raise ValueError(f"memory of {tuple(mk.shape)} against this rank's "
+                         f"cache slice of {tuple(local.mem_k.shape)}")
+    return local._replace(mem_k=mk, mem_v=mv)
+
+
 def encdec_decode(params: EncDec, cfg: ModelConfig, cache: EncDecCache,
                   token, unroll: bool = False):
     """One decoder token step against the cached self-KV and encoder
     memory -> (logits (B, 1, V), new cache).  The self-attention caches
-    are written in place; their lengths advance in the new cache."""
-    x = embed(params.embed.table, token).to(_dtype(cfg))
+    are written in place; their lengths advance in the new cache.  Given
+    a ``ShardedCache`` the step runs on this rank's slices (module
+    docstring) and the logits are this rank's block of the vocabulary
+    where the model axis splits it."""
+    sharded = isinstance(cache, ShardedCache)
+    tree, mesh = (cache.local, cache.mesh) if sharded else (cache, None)
+    self_specs = cache.specs.self_kv if sharded else [None] * len(
+        tree.self_kv)
+    mem_spec = _memory_spec(cache.specs.mem_k) if sharded else (None,) * 4
+    vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
+    x = embed(params.embed.table, token, vocab).to(_dtype(cfg))
     new_kv = []
-    for i, (p, kv) in enumerate(zip(params.dec_blocks, cache.self_kv)):
+    for i, (p, kv, s) in enumerate(zip(params.dec_blocks, tree.self_kv,
+                                       self_specs)):
         a, kv = decode_attention(
-            p.self_attn, rms_norm(x, p.ln1.scale, cfg.norm_eps), kv, cfg)
+            p.self_attn, rms_norm(x, p.ln1.scale, cfg.norm_eps), kv, cfg,
+            spec=s, mesh=mesh)
         x = x + a
-        x = x + _cross_attend(p.cross, rms_norm(x, p.ln_x.scale, cfg.norm_eps),
-                              cache.mem_k[i], cache.mem_v[i], cfg)
-        x = x + p.mlp(rms_norm(x, p.ln2.scale, cfg.norm_eps))
+        h = rms_norm(x, p.ln_x.scale, cfg.norm_eps)
+        x = x + cross_decode(p.cross, h, tree.mem_k[i], tree.mem_v[i], cfg,
+                             mem_spec, mesh)
+        x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2.scale, cfg.norm_eps),
+                          cfg.d_ff)
         new_kv.append(kv)
     x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    return unembed(params.embed.table, x), cache._replace(self_kv=new_kv)
+    tree = tree._replace(self_kv=new_kv)
+    return (unembed(params.embed.table, x, vocab),
+            cache.like(tree) if sharded else tree)

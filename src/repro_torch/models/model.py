@@ -6,7 +6,10 @@ are a :class:`~.transformer.Decoder` module, and the encoder-decoder
 (whisper), whose parameters are an :class:`~.encdec.EncDec`; either is
 passed to ``apply`` / ``decode_step`` as the reference passes its
 pytree, and trained through autograd over its parameters
-(``train.step.make_train_step``).  ``input_specs`` /
+(``train.step.make_train_step``).
+``init_cache(..., mesh=)`` allocates this rank's slices of a decode
+cache on a live mesh, at their local shapes only
+(``distributed.sharding.ShardedCache.allocate``).  ``input_specs`` /
 ``decode_input_specs`` give a shape's inputs as tensors on the ``meta``
 device (shapes and dtypes, no storage), the reference's
 ``ShapeDtypeStruct`` stand-ins, for the sharding rules
@@ -21,6 +24,7 @@ import torch
 
 from ..configs.base import ModelConfig, ShapeSpec
 from ..device import resolve_device
+from ..distributed.sharding import ShardedCache
 from . import encdec as _encdec
 from . import transformer as _tf
 
@@ -33,7 +37,7 @@ class Model(NamedTuple):
     init: Callable[..., Any]           # (seed or generator) -> params
     apply: Callable[..., Any]          # (params, **batch) -> (logits, aux)
     decode_step: Callable[..., Any]    # (params, cache, **inputs) -> (logits, cache)
-    init_cache: Callable[..., Any]     # (batch, max_len, dtype) -> cache
+    init_cache: Callable[..., Any]     # (batch, max_len, dtype[, mesh]) -> cache
 
 
 def build(cfg: ModelConfig, device="cuda") -> Model:
@@ -53,9 +57,16 @@ def build(cfg: ModelConfig, device="cuda") -> Model:
             return _encdec.encdec_decode(params, cfg, cache, token,
                                          unroll=unroll)
 
-        def cache_fn(batch, max_len, dtype=torch.bfloat16, mem_len=None):
-            return _encdec.init_encdec_cache(batch, max_len, cfg, dtype,
-                                             mem_len, device)
+        def cache_fn(batch, max_len, dtype=torch.bfloat16, mem_len=None,
+                     mesh=None):
+            if mesh is None:
+                return _encdec.init_encdec_cache(batch, max_len, cfg, dtype,
+                                                 mem_len, device)
+            return ShardedCache.allocate(
+                lambda whole: _encdec.init_encdec_cache(
+                    *((batch, max_len) if whole else (1, 1)), cfg, dtype,
+                    (mem_len or max_len) if whole else 1, "cpu"),
+                mesh, batch, cfg.n_kv_heads, device)
 
         return Model(cfg, init_fn, apply_fn, decode_fn, cache_fn)
 
@@ -73,8 +84,13 @@ def build(cfg: ModelConfig, device="cuda") -> Model:
         return _tf.decoder_decode(params, cfg, cache, token=token,
                                   embedding=embedding, unroll=unroll)
 
-    def cache_fn(batch, max_len, dtype=torch.bfloat16, **_):
-        return _tf.init_decoder_cache(batch, max_len, cfg, dtype, device)
+    def cache_fn(batch, max_len, dtype=torch.bfloat16, mesh=None, **_):
+        if mesh is None:
+            return _tf.init_decoder_cache(batch, max_len, cfg, dtype, device)
+        return ShardedCache.allocate(
+            lambda whole: _tf.init_decoder_cache(
+                *((batch, max_len) if whole else (1, 1)), cfg, dtype, "cpu"),
+            mesh, batch, cfg.n_kv_heads, device)
 
     return Model(cfg, init_fn, apply_fn, decode_fn, cache_fn)
 

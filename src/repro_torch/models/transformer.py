@@ -18,7 +18,13 @@ attention block is held once, by the :class:`Decoder`
 reference hands ``shared``.  Decode threads a cache per super-block
 through the same loop: a KV cache for attention (a windowed layer's is a
 ring of ``min(max_len, window)`` slots), the f32 recurrent state of a
-Mamba2, mLSTM or sLSTM layer.
+Mamba2, mLSTM or sLSTM layer.  On a mesh the decode takes this rank's
+slices of the cache (``distributed.sharding.ShardedCache``) and walks
+their specs beside them: attention splits as its cache's spec says
+(``attention.decode_attention``); a recurrent state is stored as the
+rules shard it but its mixer computes whole on every model rank, so the
+step gathers the state over "model", runs the mixer and keeps its own
+slice.
 
 The encoder-decoder family (whisper) is :class:`~.encdec.EncDec`.
 """
@@ -33,6 +39,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import tp as _tp
+from ..distributed.sharding import (ShardedCache, local_slice, only_model,
+                                    unshard)
 from .attention import (
     Attention,
     KVCache,
@@ -228,12 +236,13 @@ def _dense_block(params: DenseBlock, x, positions, cfg, window: int = 0,
 
 
 def _dense_block_decode(params: DenseBlock, x, cache: KVCache, cfg,
-                        window: int = 0):
+                        window: int = 0, spec=None, mesh=None):
     a, cache = decode_attention(
         params.attn, rms_norm(x, params.ln1.scale, cfg.norm_eps), cache, cfg,
-        window=window)
+        window=window, spec=spec, mesh=mesh)
     h = x + a
-    return h + params.mlp(rms_norm(h, params.ln2.scale, cfg.norm_eps)), cache
+    return h + mlp_apply(params.mlp, rms_norm(h, params.ln2.scale,
+                                              cfg.norm_eps), cfg.d_ff), cache
 
 
 def _moe_block(params: MoEBlock, x, positions, cfg):
@@ -244,9 +253,11 @@ def _moe_block(params: MoEBlock, x, positions, cfg):
     return h + y, aux
 
 
-def _moe_block_decode(params: MoEBlock, x, cache: KVCache, cfg):
+def _moe_block_decode(params: MoEBlock, x, cache: KVCache, cfg, spec=None,
+                      mesh=None):
     a, cache = decode_attention(
-        params.attn, rms_norm(x, params.ln1.scale, cfg.norm_eps), cache, cfg)
+        params.attn, rms_norm(x, params.ln1.scale, cfg.norm_eps), cache, cfg,
+        spec=spec, mesh=mesh)
     h = x + a
     y, _ = moe_apply(params.moe, rms_norm(h, params.ln2.scale, cfg.norm_eps),
                      cfg)
@@ -435,39 +446,75 @@ def init_decoder_cache(batch: int, max_len: int, cfg: ModelConfig,
             for kind, n_iter, per in segments_for(cfg)]
 
 
-def _decode_super(kind, params, x, cache, cfg, shared=None):
+def _no_specs(cache):
+    """A spec tree of ``cache``'s structure with None at every cache (the
+    one-process decode)."""
+    if isinstance(cache, list):
+        return [_no_specs(c) for c in cache]
+    if isinstance(cache, dict):
+        return {k: _no_specs(v) for k, v in cache.items()}
+    return None
+
+
+def _recurrent(step, state, spec, mesh):
+    """``step(whole_state) -> (y, new_state)`` on this rank's slice of a
+    recurrent ``state`` laid out by ``spec``: the state gathered over
+    "model" (its batch stays this rank's), the mixer run whole, this
+    rank's slice of the new state kept."""
+    if spec is None:
+        return step(state)
+    whole = type(state)(*(unshard(t, only_model(s), mesh)
+                          for t, s in zip(state, spec)))
+    y, new = step(whole)
+    return y, type(new)(*(
+        local_slice(t, only_model(s), mesh).clone(
+            memory_format=torch.contiguous_format)
+        for t, s in zip(new, spec)))
+
+
+def _decode_super(kind, params, x, cache, cfg, shared=None, spec=None,
+                  mesh=None):
+    if spec is None:
+        spec = _no_specs(cache)
     if kind in ("dense_block", "local_only"):
         w = cfg.sliding_window if kind == "local_only" else 0
-        return _dense_block_decode(params, x, cache, cfg, window=w)
+        return _dense_block_decode(params, x, cache, cfg, window=w,
+                                   spec=spec, mesh=mesh)
     if kind == "moe_block":
-        return _moe_block_decode(params, x, cache, cfg)
+        return _moe_block_decode(params, x, cache, cfg, spec, mesh)
     if kind == "local_global":
         lc = []
-        for p, c in zip(params.locals, cache["locals"]):
-            x, c = _dense_block_decode(p, x, c, cfg, window=cfg.sliding_window)
+        for p, c, s in zip(params.locals, cache["locals"], spec["locals"]):
+            x, c = _dense_block_decode(p, x, c, cfg, window=cfg.sliding_window,
+                                       spec=s, mesh=mesh)
             lc.append(c)
-        x, gc = _dense_block_decode(params.global_, x, cache["global"], cfg)
+        x, gc = _dense_block_decode(params.global_, x, cache["global"], cfg,
+                                    spec=spec["global"], mesh=mesh)
         return x, {"locals": lc, "global": gc}
     if kind == "mamba_hybrid":
         mc = []
-        for p, c in zip(params.mambas, cache["mambas"]):
-            y, c = mamba_decode(p.mixer, rms_norm(x, p.ln.scale, cfg.norm_eps),
-                                c, cfg)
+        for p, c, s in zip(params.mambas, cache["mambas"], spec["mambas"]):
+            h = rms_norm(x, p.ln.scale, cfg.norm_eps)
+            y, c = _recurrent(lambda st, p=p, h=h: mamba_decode(
+                p.mixer, h, st, cfg), c, s, mesh)
             x = x + y
             mc.append(c)
         x, ac = _dense_block_decode(shared, x + _lora(params, x),
-                                    cache["attn"], cfg)
+                                    cache["attn"], cfg, spec=spec["attn"],
+                                    mesh=mesh)
         return x, {"mambas": mc, "attn": ac}
     if kind == "xlstm_super":
         mc = []
-        for p, c in zip(params.mlstms, cache["mlstms"]):
-            y, c = mlstm_decode(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
-                                c, cfg)
+        for p, c, s in zip(params.mlstms, cache["mlstms"], spec["mlstms"]):
+            h = rms_norm(x, p.ln.scale, cfg.norm_eps)
+            y, c = _recurrent(lambda st, p=p, h=h: mlstm_decode(
+                p.core, h, st, cfg), c, s, mesh)
             x = x + y
             mc.append(c)
         p = params.slstm
-        y, sc = slstm_decode(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
-                             cache["slstm"], cfg)
+        h = rms_norm(x, p.ln.scale, cfg.norm_eps)
+        y, sc = _recurrent(lambda st: slstm_decode(p.core, h, st, cfg),
+                           cache["slstm"], spec["slstm"], mesh)
         return x + y, {"mlstms": mc, "slstm": sc}
     raise ValueError(kind)
 
@@ -476,19 +523,28 @@ def decoder_decode(params: Decoder, cfg: ModelConfig, cache, token=None,
                    embedding=None, unroll: bool = False):
     """One-token decode step -> (logits (B,1,V), new_cache).  A KV cache's
     tensors are written in place and its length advances in the new
-    cache; the recurrent states are new tensors."""
+    cache; the recurrent states are new tensors.  Given a
+    ``ShardedCache`` (this rank's slices, under a model axis: the sharded
+    serving step's working module) the step runs on them (module
+    docstring) and returns a new ``ShardedCache``; the embedding and the
+    tied logits are vocab-parallel where the model axis splits the
+    vocabulary, so the logits are this rank's ``(B, 1, V / tp)``."""
+    sharded = isinstance(cache, ShardedCache)
+    tree, specs, mesh = ((cache.local, cache.specs, cache.mesh) if sharded
+                         else (cache, _no_specs(cache), None))
+    vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
     if embedding is None:
-        x = embed(params.embed.table, token).to(_dtype(cfg))
+        x = embed(params.embed.table, token, vocab).to(_dtype(cfg))
     else:
         x = embedding.to(_dtype(cfg))
     new_segs = []
-    for (kind, _, _), seg, seg_cache in zip(segments_for(cfg),
-                                            params.segments, cache):
+    for (kind, _, _), seg, seg_cache, seg_spec in zip(
+            segments_for(cfg), params.segments, tree, specs):
         new_cache = []
-        for p, c in zip(seg, seg_cache):
-            x, c = _decode_super(kind, p, x, c, cfg, params.shared)
+        for p, c, s in zip(seg, seg_cache, seg_spec):
+            x, c = _decode_super(kind, p, x, c, cfg, params.shared, s, mesh)
             new_cache.append(c)
         new_segs.append(new_cache)
     x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = unembed(params.embed.table, x)
-    return logits, new_segs
+    logits = unembed(params.embed.table, x, vocab)
+    return logits, cache.like(new_segs) if sharded else new_segs

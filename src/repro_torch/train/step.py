@@ -49,11 +49,41 @@ the model unchanged: ``tokens`` (or ``embeddings`` / ``positions``) and
 ``token`` for the decoder-only families, ``frames`` / ``dec_tokens`` and
 ``token`` for the encoder-decoder (whose decode cache holds the encoder
 memory, from ``models.encdec.encdec_prefill_memory``).
+On a mesh (``mesh=``) the serving steps compute the reference's
+``prefill_step`` and ``serve_step`` jitted under ``param_shardings`` /
+``batch_shardings`` / ``cache_shardings``, with the train step's
+machinery: the working module of this rank's model shards (held by
+the step, as the train step holds its own, but gathered once, not every
+call: again only for another ``params`` or after the step's
+``regather()``), the batch split over the data axes by
+``batch_shardings`` (computed whole where the rules shard the sequence
+instead), MoE layers routing over the whole
+batch, and the model axis splitting attention, the MLPs, the experts and
+the vocabulary as in training.  The prefill (:func:`sharded_prefill`)
+returns the last position's logits whole, ``(B, V)`` on every rank,
+gathered from the vocab-parallel logits and the data ranks.  The decode
+(:func:`sharded_decode`) takes this rank's slices of the cache
+(``distributed.sharding.ShardedCache``, from ``Model.init_cache(...,
+mesh=)`` or ``ShardedCache.place``) and the global inputs; its
+attention splits as the cache's spec says: KV heads on "model" (this
+rank's KV heads and the query heads that read them), or the sequence on
+"model" / ("data", "model") (this rank's block of slots, written by the
+rank that holds the new token's slot and read by flash-decoding over the
+group).  Computed whole on every model rank: the Mamba2 and xLSTM
+mixers, whose states are stored as the rules shard them, gathered over
+"model" for the step and sliced back (ROADMAP.md, queue 1).  The greedy
+pick (:func:`greedy_pick`) reduces ``(max, index)`` pairs over the model
+ranks rather than gathering ``(B, V)``: ``B * tp`` pairs instead of
+``B * V`` logits (gemma3's vocabulary is 262,144), and exact, since a max
+is a comparison: each rank's first maximum, then the first rank that
+reaches the global max, which is the lowest vocabulary index that does
+(the reference's ``argmax``).  On a (1, 1) mesh each step is the
+one-process step bit for bit.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -64,10 +94,10 @@ from ..device import resolve_device
 from ..distributed import compat
 from ..distributed import tp as _tp
 from ..distributed.compression import compress_tree_int8
-from ..distributed.sharding import (GATHER, SPLIT, Sharded, axis_size,
-                                    batch_shardings, compute_split, dp_axes,
-                                    local_slice, only_model, unshard,
-                                    without_model)
+from ..distributed.sharding import (GATHER, SPLIT, Sharded, ShardedCache,
+                                    axis_size, batch_shardings,
+                                    compute_split, dp_axes, local_slice,
+                                    only_model, unshard, without_model)
 from ..models import build
 from ..models.convert import tree_path
 from ..models.encdec import EncDec
@@ -77,7 +107,9 @@ from .optim import AdamWConfig, OptState, apply_updates
 
 __all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
            "loss_fn", "sharded_loss_and_grads", "working_module",
-           "gather_working"]
+           "gather_working", "sharded_prefill",
+           "sharded_decode", "sharded_prefill_memory", "whole_logits",
+           "greedy_pick"]
 
 _AUX_WEIGHT = 0.01
 
@@ -238,6 +270,31 @@ def _model_pmax(mesh):
     return lambda t: compat.pmax(t, group, axis=_tp.AXIS)
 
 
+def _keeper(cfg: ModelConfig, device):
+    """``keep(params, regather=False) -> module``: a step's working module
+    (:func:`working_module`), built at its first call and held by the
+    step; filled from ``params`` (:func:`gather_working`, a collective:
+    every rank calls it alike) where ``regather`` says so, at the first
+    call, for another ``params`` than the last call's, and after
+    ``keep.regather()``."""
+    held = []                           # [params it was filled from, module]
+
+    def keep(params: Sharded, regather: bool = False) -> nn.Module:
+        if not held:
+            held[:] = [None, working_module(cfg, params, device)]
+        if regather or held[0] is not params:
+            gather_working(params, held[1])
+            held[0] = params
+        return held[1]
+
+    def stale() -> None:
+        if held:
+            held[0] = None
+
+    keep.regather = stale
+    return keep
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
                     compress_grads: bool = False, unroll: bool = False,
                     device="cuda", mesh=None):
@@ -251,7 +308,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     dev = resolve_device(device)
     model = build(cfg, device=dev)
     opt_cfg = opt_cfg or AdamWConfig()
-    work = []
+    keep = _keeper(cfg, dev)
 
     def train_step(params, opt_state: OptState, batch):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -262,11 +319,9 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
                 grads = _grads(loss, named)
             loss, ce = loss.detach(), ce.detach()
         else:
-            if not work:
-                work.append(working_module(cfg, params, dev))
-            gather_working(params, work[0])
-            loss, ce, grads = sharded_loss_and_grads(model, params, work[0],
-                                                     batch, cfg, unroll)
+            loss, ce, grads = sharded_loss_and_grads(
+                model, params, keep(params, regather=True), batch, cfg,
+                unroll)
         if compress_grads:
             grads = compress_tree_int8(
                 grads, _leaf_of,
@@ -280,32 +335,180 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
 
 
 def make_prefill_step(cfg: ModelConfig, unroll: bool = False,
-                      device="cuda"):
+                      device="cuda", mesh=None):
     """Build ``(model, prefill_step)``: a full forward pass over a prompt
     batch that returns only the last position's logits — the serving
-    prefill phase."""
-    model = build(cfg, device=device)
+    prefill phase.  On a live ``mesh``, ``prefill_step(params, batch)``
+    takes this rank's ``Sharded`` parameters and the global batch, the
+    same on every rank, and returns the whole ``(B, V)`` logits on every
+    rank (:func:`sharded_prefill`).  Its working module is gathered at
+    the first call and for another ``params``; a caller that changes
+    ``params`` in place calls ``prefill_step.regather()`` first."""
+    dev = resolve_device(device)
+    model = build(cfg, device=dev)
+    keep = _keeper(cfg, dev)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        inputs = {k: v for k, v in batch.items() if k != "labels"}
+        inputs = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+                  if k != "labels"}
+        if mesh is not None:
+            return sharded_prefill(model, params, keep(params), inputs,
+                                   unroll)
         logits, _ = model.apply(params, **inputs, remat=False, unroll=unroll)
         return logits[:, -1, :]
 
+    prefill_step.regather = keep.regather
     return model, prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, unroll: bool = False, device="cuda"):
+def make_serve_step(cfg: ModelConfig, unroll: bool = False, device="cuda",
+                    mesh=None):
     """Build ``(model, serve_step)``: one greedy decode step — append the
     incoming token to the KV cache, return ``(next_token, cache)``.  The
-    next token is the first maximum of the logits (int32)."""
-    model = build(cfg, device=device)
+    next token is the first maximum of the logits (int32).  On a live
+    ``mesh``, ``serve_step(params, cache, inputs)`` takes this rank's
+    ``Sharded`` parameters, this rank's ``ShardedCache`` and the global
+    inputs, and returns the ``(B,)`` next tokens on every rank with the
+    new ``ShardedCache`` (:func:`sharded_decode`, :func:`greedy_pick`);
+    its working module is kept as ``make_prefill_step``'s is
+    (``serve_step.regather()``)."""
+    dev = resolve_device(device)
+    model = build(cfg, device=dev)
+    keep = _keeper(cfg, dev)
 
     @torch.no_grad()
     def serve_step(params, cache, inputs):
+        if mesh is not None:
+            inputs = {k: torch.as_tensor(v, device=dev)
+                      for k, v in inputs.items()}
+            logits, cache = sharded_decode(model, params, keep(params), cache,
+                                           inputs, unroll)
+            return greedy_pick(logits, mesh, cache.batch,
+                               cfg.padded_vocab), cache
         logits, cache = model.decode_step(params, cache, **inputs,
                                           unroll=unroll)
         next_token = torch.argmax(logits[:, -1, :], dim=-1)
         return next_token.to(torch.int32), cache
 
+    serve_step.regather = keep.regather
     return model, serve_step
+
+
+# ---------------------------------------------------------------------------
+# the serving steps on a mesh
+# ---------------------------------------------------------------------------
+
+def _main_input(inputs) -> str:
+    for k in ("tokens", "embeddings", "frames", "token", "embedding"):
+        if k in inputs:
+            return k
+    raise ValueError(f"no model input among {sorted(inputs)}")
+
+
+def _batch_split(inputs, mesh):
+    """``(inputs, split)``: this rank's slice of the global ``inputs`` and
+    the ``TokenSplit`` of the data axes where ``batch_shardings`` splits
+    the batch over them, else the whole inputs and None."""
+    dp = dp_axes(mesh)
+    specs = batch_shardings(inputs, mesh)
+    if specs[_main_input(inputs)][:1] != (dp,):
+        return inputs, None
+    group = mesh.group(dp)
+    return ({k: local_slice(v, specs[k], mesh) for k, v in inputs.items()},
+            TokenSplit(n=mesh.axis_size(dp), index=mesh.index(dp),
+                       gather=lambda c: compat.all_gather(c[None], group)))
+
+
+def _model_axis(mesh) -> Optional[_tp.ModelAxis]:
+    return _tp.ModelAxis.of(mesh) if axis_size(mesh, _tp.AXIS) > 1 else None
+
+
+@torch.no_grad()
+def sharded_prefill(model, params: Sharded, work: nn.Module, inputs,
+                    unroll: bool = False):
+    """The last position's logits of the global ``inputs`` (no labels),
+    whole ``(B, V)`` on every rank, from this rank's ``params`` and their
+    working module ``work`` (module docstring)."""
+    cfg, mesh = model.cfg, params.mesh
+    B = inputs[_main_input(inputs)].shape[0]
+    local, split = _batch_split(inputs, mesh)
+    with _tp.split_model(_model_axis(mesh)), split_tokens(split):
+        logits, _ = model.apply(work, **local, remat=False, unroll=unroll)
+    return whole_logits(logits[:, -1], mesh, B, cfg.padded_vocab)
+
+
+@torch.no_grad()
+def sharded_decode(model, params: Sharded, work: nn.Module,
+                   cache: ShardedCache, inputs, unroll: bool = False):
+    """One decode step of the global ``inputs`` on this rank's slices
+    ``cache``, with the working module ``work`` of this rank's ``params``
+    -> ``(logits, cache)``: this rank's last-position logits,
+    ``(B_l, V_l)`` (its data slice of the batch where the rules split it,
+    its block of the vocabulary where the model axis splits it: see
+    :func:`whole_logits`, :func:`greedy_pick`), and the new
+    ``ShardedCache`` (module docstring)."""
+    mesh = params.mesh
+    local, split = _batch_split(inputs, mesh)
+    with _tp.split_model(_model_axis(mesh)), split_tokens(split):
+        logits, cache = model.decode_step(work, cache, **local,
+                                          unroll=unroll)
+    return logits[:, -1], cache
+
+
+@torch.no_grad()
+def sharded_prefill_memory(model, params: Sharded, cache: ShardedCache,
+                           frames):
+    """The encoder-decoder's memory for the global ``frames`` filled into
+    this rank's slices of ``cache`` (``models.encdec.encdec_prefill_memory``
+    on a mesh) -> the new ``ShardedCache``.  Once a request batch: it
+    gathers a working module of its own for the call (a collective)."""
+    from ..models.encdec import encdec_prefill_memory
+
+    cfg, mesh = model.cfg, params.mesh
+    work = working_module(cfg, params, mesh.device)
+    gather_working(params, work)
+    local, _ = _batch_split({"frames": torch.as_tensor(
+        frames, device=mesh.device)}, mesh)
+    with _tp.split_model(_model_axis(mesh)):
+        return encdec_prefill_memory(work, cfg, local["frames"], cache)
+
+
+def whole_logits(logits, mesh, batch: int, vocab: int):
+    """``(batch, vocab)``: this rank's ``(B_l, V_l)`` logits gathered over
+    the model axis where ``V_l`` is its block of the ``vocab`` (padded)
+    columns, and over the data axes where ``B_l`` is its slice of the
+    ``batch`` rows (a collective: every rank calls it)."""
+    if logits.shape[-1] < vocab:
+        logits = compat.all_gather(logits.contiguous(),
+                                   mesh.group(_tp.AXIS), dim=-1,
+                                   axis=_tp.AXIS)
+    if logits.shape[0] < batch:
+        logits = compat.all_gather(logits.contiguous(),
+                                   mesh.group(dp_axes(mesh)), dim=0)
+    return logits
+
+
+def greedy_pick(logits, mesh, batch: int, vocab: int):
+    """The ``(batch,)`` int32 first maximum of each row of the whole
+    logits, on every rank, from this rank's ``(B_l, V_l)`` logits (as in
+    :func:`whole_logits`): each rank's first maximum and its index, the
+    ``(max, index)`` pairs gathered over the model axis, the first rank
+    whose max is the greatest (the lowest vocabulary index that reaches
+    it: the model ranks hold contiguous blocks in rank order), then the
+    data slices gathered (module docstring)."""
+    idx = torch.argmax(logits, dim=-1)
+    n = logits.shape[-1]
+    if n < vocab:
+        group = mesh.group(_tp.AXIS)
+        best = torch.gather(logits, -1, idx[:, None])
+        idx = idx[:, None] + mesh.index(_tp.AXIS) * n
+        best = compat.all_gather(best.contiguous(), group, dim=1,
+                                 axis=_tp.AXIS)
+        idx = compat.all_gather(idx.contiguous(), group, dim=1,
+                                axis=_tp.AXIS)
+        idx = torch.gather(idx, 1, torch.argmax(best, dim=1)[:, None])[:, 0]
+    if idx.shape[0] < batch:
+        idx = compat.all_gather(idx.contiguous(), mesh.group(dp_axes(mesh)),
+                                dim=0)
+    return idx.to(torch.int32)

@@ -18,6 +18,7 @@ on 8 fake CPU devices: ``XLA_FLAGS=--xla_force_host_platform_device_count
 done with one) and loads the ``.npz`` it writes.
 """
 
+import contextlib
 import os
 import subprocess
 import sys
@@ -375,3 +376,323 @@ def moments(named):
                         nu={n: t.detach() * t.detach()
                             for n, t in named.items()},
                         step=torch.tensor(3, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the serving steps on a mesh (tests/test_torch_dist_serve_*.py)
+# ---------------------------------------------------------------------------
+
+def cache_leaves(node, keys=(), at=(), top=True):
+    """``(key, at, leaf)`` for every leaf of a port cache (or of its spec
+    tree): ``key`` the reference's path to the leaf it sits in (the keys
+    joined by ``/``: the reference stacks every list of the port's but the
+    top one, the segments), ``at`` its index on those stacked axes."""
+    if isinstance(node, tuple) and hasattr(node, "_fields"):
+        for f in node._fields:
+            yield from cache_leaves(getattr(node, f), keys + (f,), at, False)
+    elif isinstance(node, dict):
+        for k, v in node.items():
+            yield from cache_leaves(v, keys + (k,), at, False)
+    elif isinstance(node, list):
+        for i, c in enumerate(node):
+            yield from (cache_leaves(c, keys + (str(i),), at, False) if top
+                        else cache_leaves(c, keys, at + (i,), False))
+    else:
+        yield "/".join(keys), at, node
+
+
+def cache_from(template, arrays, keys=(), at=(), top=True):
+    """The port cache of ``template``'s structure whose leaves are the
+    reference's ``arrays`` (``{path: array}``) at their stacked index."""
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(cache_from(getattr(template, f), arrays,
+                                           keys + (f,), at, False)
+                                for f in template._fields))
+    if isinstance(template, dict):
+        return {k: cache_from(v, arrays, keys + (k,), at, False)
+                for k, v in template.items()}
+    if isinstance(template, list):
+        return [cache_from(c, arrays, keys + (str(i),), at, False) if top
+                else cache_from(c, arrays, keys, at + (i,), False)
+                for i, c in enumerate(template)]
+    leaf = arrays["/".join(keys)][at]
+    if isinstance(template, torch.Tensor):
+        return torch.from_numpy(np.array(leaf, dtype=np.float32))
+    return int(leaf)
+
+
+def serve_inputs(cfg, z):
+    """``(batch, feed, cache0)``: the reference's prompt batch (no labels),
+    feed and first cache (``tests/_torch_dist_ref.py::serve``) from its
+    arrays ``z`` of one config, as the port's (the cache whole, in the
+    port's structure)."""
+    from repro_torch.models import build
+
+    batch = {k[6:]: torch.from_numpy(v) for k, v in z.items()
+             if k.startswith("batch/") and k != "batch/labels"}
+    feed = {}
+    for k, v in z.items():
+        if k.startswith("feed/"):
+            _, key, i = k.split("/")
+            feed.setdefault(int(i), {})[key] = torch.from_numpy(v)
+    B, T = batch[next(iter(batch))].shape[:2]
+    kw = {"mem_len": T} if cfg.encoder_decoder else {}
+    template = build(cfg, device="cpu").init_cache(
+        B, int(z["max_len"]), torch.float32, **kw)
+    cache0 = cache_from(template, {k[7:]: v for k, v in z.items()
+                                   if k.startswith("cache0/")})
+    return batch, [feed[i] for i in sorted(feed)], cache0
+
+
+def arch_view(ref, arch):
+    """The reference's arrays of ``arch`` under their plain keys."""
+    return {k[len(arch) + 1:]: v for k, v in ref.items()
+            if k.startswith(arch + "/")}
+
+
+def flat_cache(cache):
+    """``[(key, at, array or int, spec)]`` of a ``ShardedCache``'s leaves."""
+    return [(key, at, t.numpy().copy() if isinstance(t, torch.Tensor)
+             else t, spec)
+            for (key, at, t), (_, _, spec) in zip(
+                cache_leaves(cache.local), cache_leaves(cache.specs))]
+
+
+class _Created:
+    """The shapes of the real (not fake, not meta) tensors every op makes
+    inside the block."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        shapes = self.shapes = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch._subclasses.fake_tensor import FakeTensor
+
+                out = func(*args, **(kwargs or {}))
+                for t in (out if isinstance(out, (list, tuple)) else [out]):
+                    if (isinstance(t, torch.Tensor)
+                            and not isinstance(t, FakeTensor)
+                            and t.device.type != "meta"):
+                        shapes.append(tuple(t.shape))
+                return out
+
+        self.mode = Mode()
+
+
+@contextlib.contextmanager
+def spying(module, name, spy):
+    """``module.name`` replaced inside the block by a function that calls
+    ``spy`` with its arguments first."""
+    inner = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        spy(*args, **kwargs)
+        return inner(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, inner)
+
+
+def _served(ST, mesh, model, params, cache, feed, serve_step):
+    """Each step of ``serve_step`` over ``feed``: its tokens, its logits
+    (gathered whole from what it hands ``greedy_pick``) and the last
+    cache."""
+    logits, tokens = [], []
+    with spying(ST, "greedy_pick", lambda lg, m, b, v: logits.append(
+            ST.whole_logits(lg, m, b, v).numpy().copy())):
+        for inputs in feed:
+            tok, cache = serve_step(params, cache, inputs)
+            tokens.append(tok.numpy().copy())
+    return np.stack(logits), np.stack(tokens), cache
+
+
+@job
+def serve(archs, ckpt_root, ref_npz, shapes, extras=False):
+    """For each reduced config of ``archs`` (weights from the reference's
+    checkpoints under ``ckpt_root``) on each live (data, model) mesh of
+    ``shapes``, from the reference's batch, feed and first cache
+    (``ref_npz``): the sharded prefill's logits, each ``serve_step``'s
+    tokens and whole logits, the calls of ``sp_decode_attention``, this
+    rank's final cache slices with their specs, and the shapes of
+    ``init_cache(..., mesh=)``'s leaves and of every tensor it made, keyed
+    ``<arch>/<mesh>``; with ``extras``, a first-max tie across the vocab
+    shards and an SP block with no valid slot on the first mesh."""
+    from repro_torch.checkpoint import reshard
+    from repro_torch.distributed import ShardedCache, param_shardings
+    from repro_torch.distributed import sp as SP
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.train import step as ST
+
+    with np.load(ref_npz) as z:
+        ref = {k: z[k] for k in z.files}
+    meshes = [make_mesh_compat(s, ("data", "model"), device="cpu")
+              for s in shapes]
+    out = {}
+    for arch in archs:
+        cfg, module = restored(arch, f"{ckpt_root}/{arch}")
+        z = arch_view(ref, arch)
+        batch, feed, cache0 = serve_inputs(cfg, z)
+        B = next(iter(batch.values())).shape[0]
+        kw = {"mem_len": batch["frames"].shape[1]} \
+            if cfg.encoder_decoder else {}
+        for shape, mesh in zip(shapes, meshes):
+            params = reshard(module, param_shardings(module, mesh,
+                                                     cfg.n_experts), mesh)
+            model, prefill = ST.make_prefill_step(cfg, device="cpu",
+                                                  mesh=mesh)
+            _, serve_step = ST.make_serve_step(cfg, device="cpu", mesh=mesh)
+            pre = prefill(params, batch)
+            cache = ShardedCache.place(cache0, mesh, B, cfg.n_kv_heads)
+            if cfg.encoder_decoder:
+                cache = ST.sharded_prefill_memory(model, params, cache,
+                                                  batch["frames"])
+            sp_calls = []
+            with spying(SP, "sp_decode_attention",
+                        lambda *a: sp_calls.append(1)):
+                logits, tokens, cache = _served(ST, mesh, model, params,
+                                                cache, feed, serve_step)
+            made = _Created()
+            with made.mode:
+                fresh = model.init_cache(B, int(z["max_len"]),
+                                         torch.float32, mesh=mesh, **kw)
+            out[f"{arch}/{mesh_name(shape)}"] = dict(
+                coords=mesh.coords, prefill=pre.numpy().copy(),
+                logits=logits, tokens=tokens, sp_calls=len(sp_calls),
+                cache=flat_cache(cache), fresh=flat_cache(fresh),
+                made=made.shapes)
+    if extras:
+        out["tie"] = tie_pick(meshes[0])
+        out["empty_block"] = empty_block(meshes[0])
+    return out
+
+
+def tie_pick(mesh):
+    """``greedy_pick`` and ``whole_logits`` of seeded (8, 256) logits on
+    ``mesh`` (its vocab blocks of 256 / tp), with first-max ties: row 0
+    between two model ranks' blocks, row 1 inside one block, row 2
+    across a block boundary, row 3 at the last column, row 4 reached by
+    every rank; and the whole logits' first maxima."""
+    from repro_torch.train import step as ST
+
+    B, V = 8, 256
+    whole = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (B, V)).astype(np.float32))
+    n = V // mesh.axis_size("model")
+    for row, cols in ((0, (n + 6, 3 * n + 6)), (1, (5, 6)),
+                      (2, (n - 1, n)), (3, (V - 1,)),
+                      (4, tuple(i * n + 2 for i in range(V // n)))):
+        whole[row, list(cols)] = 7.0
+    b = B // mesh.axis_size("data")
+    local = whole[mesh.index("data") * b:][:b, mesh.index("model") * n:][
+        :, :n]
+    return dict(pick=ST.greedy_pick(local, mesh, B, V).numpy(),
+                whole=ST.whole_logits(local, mesh, B, V).numpy(),
+                want=torch.argmax(whole, dim=-1).numpy())
+
+
+def empty_block(mesh):
+    """``sp_decode_attention`` over the model axis on seeded q, k, v of
+    2 x 32 slots whose last model block holds no valid slot: its output
+    with that block's k / v seeded and with them set to 1e4, and the
+    whole cache's attention by softmax (f64)."""
+    from repro_torch.distributed import sp_decode_attention
+
+    rng = np.random.default_rng(4)
+    B, T, H, KV, D = 2, 32, 4, 1, 16
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, 1, H, D), (B, T, KV, D), (B, T, KV, D)))
+    n = mesh.axis_size("model")
+    t = T // n
+    valid = torch.arange(T)[None].expand(B, T) < (n - 1) * t - 3
+    mine = slice(mesh.index("model") * t, (mesh.index("model") + 1) * t)
+    group = mesh.group("model")
+    out = sp_decode_attention(q, k[:, mine], v[:, mine], valid[:, mine],
+                              group)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, (n - 1) * t:] = 1e4
+    v2[:, (n - 1) * t:] = 1e4
+    out2 = sp_decode_attention(q, k2[:, mine], v2[:, mine], valid[:, mine],
+                               group)
+    s = torch.einsum("bhd,btd->bht", q[:, 0].double(),
+                     k[:, :, 0].double()) / D ** 0.5
+    s = s.masked_fill(~valid[:, None], float("-inf"))
+    dense = torch.einsum("bht,btd->bhd", torch.softmax(s, -1),
+                         v[:, :, 0].double())[:, None]
+    return dict(out=out.numpy(), out_garbage=out2.numpy(),
+                dense=dense.numpy(), empty_rank=n - 1,
+                valid_slots=int(valid[0].sum()))
+
+
+@job
+def serve_one_rank(archs, ckpt_root, ref_npz):
+    """For each config of ``archs``: the one-process prefill and decode
+    (``make_prefill_step`` / ``make_serve_step`` without a mesh, the
+    logits of each step from ``model.decode_step`` on the same cache)
+    and the sharded ones on a (1, 1) mesh, from the same weights, batch,
+    feed and first cache: both sides' prefill logits, step logits,
+    tokens and final cache leaves; then both sides' prefill again after
+    the weights are halved in place (the mesh step told to
+    ``regather()``)."""
+    import copy
+
+    from repro_torch.checkpoint import reshard
+    from repro_torch.distributed import ShardedCache, param_shardings
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.encdec import encdec_prefill_memory
+    from repro_torch.train import step as ST
+
+    with np.load(ref_npz) as z:
+        ref = {k: z[k] for k in z.files}
+    mesh = make_mesh_compat((1, 1), ("data", "model"), device="cpu")
+    out = {}
+    for arch in archs:
+        cfg, module = restored(arch, f"{ckpt_root}/{arch}")
+        batch, feed, cache0 = serve_inputs(cfg, arch_view(ref, arch))
+        B = next(iter(batch.values())).shape[0]
+        model, prefill = ST.make_prefill_step(cfg, device="cpu")
+        _, serve_step = ST.make_serve_step(cfg, device="cpu")
+        cache = copy.deepcopy(cache0)
+        with torch.no_grad():
+            if cfg.encoder_decoder:
+                cache = encdec_prefill_memory(module, cfg, batch["frames"],
+                                              cache)
+            plain = dict(prefill=prefill(module, batch).numpy())
+            logits, tokens = [], []
+            for inputs in feed:
+                logits.append(model.decode_step(module, cache, **inputs)[0][
+                    :, -1].numpy().copy())
+                tok, cache = serve_step(module, cache, inputs)
+                tokens.append(tok.numpy())
+        plain.update(logits=np.stack(logits), tokens=np.stack(tokens),
+                     cache=[(k, a, t.numpy().copy() if isinstance(
+                         t, torch.Tensor) else t)
+                         for k, a, t in cache_leaves(cache)])
+        params = reshard(module, param_shardings(module, mesh,
+                                                 cfg.n_experts), mesh)
+        _, mprefill = ST.make_prefill_step(cfg, device="cpu", mesh=mesh)
+        _, mserve = ST.make_serve_step(cfg, device="cpu", mesh=mesh)
+        cache = ShardedCache.place(cache0, mesh, B, cfg.n_kv_heads)
+        if cfg.encoder_decoder:
+            cache = ST.sharded_prefill_memory(model, params, cache,
+                                              batch["frames"])
+        sharded = dict(prefill=mprefill(params, batch).numpy())
+        logits, tokens, cache = _served(ST, mesh, model, params, cache, feed,
+                                        mserve)
+        sharded.update(logits=logits, tokens=tokens,
+                       cache=[(k, a, t) for k, a, t, _ in flat_cache(cache)])
+        with torch.no_grad():
+            held = {t.data_ptr(): t for t in [*params.values(),
+                                              *module.parameters()]}
+            for t in held.values():
+                t.mul_(0.5)
+            mprefill.regather()
+            sharded["prefill_regathered"] = mprefill(params, batch).numpy()
+            plain["prefill_regathered"] = prefill(module, batch).numpy()
+        out[arch] = dict(plain=plain, mesh=sharded)
+    return out
