@@ -38,13 +38,14 @@ exits non-zero without the final ``ok`` line:
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
    built on the card from 1M ``sift-like`` vectors (the PQ spec from the
-   first ``PQ_MAIN_N``, 62,500: its Pólya coding runs on the host;
+   first ``PQ_MAIN_N``, 31,250: its Pólya coding runs on the host;
    k-means assignment and PQ encoding through ``l2_top1``) and served
    through ``AnnService`` (4-query requests, ``max_batch=64``,
    ``nprobe=16``, top-10) twice, with the decoded-id cache cold and then
    warm; then an ingest pass: five
-   ``add`` calls of 10,000 new vectors each (five epochs; one for the PQ
-   spec, whose Pólya coding runs on the host), and the queries served
+   ``add`` calls of 10,000 new vectors each (five epochs; for the PQ
+   spec one of the first ``PQ_ADD_ROWS``, 2,500, whose Pólya coding runs
+   on the host), and the queries served
    again.  Every kernel's launch count (and the launch shapes:
    ``seg_topk`` by ``(n, k)``, ``l2_top1`` by ``(K, d, rows)``, the rows
    of ``pq_adc`` and ``l2_dist``) is set to 0 before the build and read
@@ -77,8 +78,10 @@ exits non-zero without the final ``ok`` line:
    MB), equal before and after; an ``IVF1024,ids=roc`` plan over the first
    100,000 vectors saved and loaded (the joint ROC streams cost ~1 min at
    1M on the host), equal;
-9. graph paths, on the reference's graph workload (1M ``deep-like``
-   vectors, d = 96, seed 0, and its own 1000 queries): ``NSG32,ids=roc``
+9. graph paths, on the reference's graph workload (``GRAPH_N``, 100,000,
+   ``deep-like`` vectors, d = 96, seed 0, and its own 1000 queries: a
+   host-bound cut from 1M, whose builds took 73.6 + 43.4 s):
+   ``NSG32,ids=roc``
    built on the card (kNN through ``l2_dist`` + ``seg_topk``, the
    occlusion prune, the host's ROC coding, each timed; bits per edge, and
    the nodes a search can reach from the entry), served through
@@ -105,12 +108,12 @@ exits non-zero without the final ``ok`` line:
    reachable in both (the other queries counted).  The card's decisions
    against the CPU's: the NSG32 and HNSW16
    prunes of the first 20,000 nodes' kNN lists (and NSG32's against the
-   lists the 1M build made), HNSW's reverse edges on that subgraph (card,
+   lists the full build made), HNSW's reverse edges on that subgraph (card,
    CPU and the reference's loop), ``knn_graph`` over 10,000 vectors
    (differing only inside ``rescore_eps``) and ``np_sum_f32`` (bit-equal
-   to ``np.sum``).  ``HNSW16,ids=roc`` built over the 1M vectors and
+   to ``np.sum``).  ``HNSW16,ids=roc`` built over the same vectors and
    served cold and warm.  An ``NSG32,ids=roc`` index over the first
-   10,000 vectors after one ``add`` saved with webgraph and REC edges
+   5,000 vectors after one ``add`` saved with webgraph and REC edges
    and loaded onto the card (a host-only cut: the edge coders cost
    ~0.1-0.3 ms a node), search equal.  Every ``l2_dist`` tile and
    ``seg_topk`` ``(rows, n, k)`` these paths launched is held against its
@@ -215,7 +218,14 @@ exits non-zero without the final ``ok`` line:
    card against a CPU copy (loss, every gradient, the update, at the CPU
    tests' bounds); crash and resume through ``launch.train.main`` on
    reduced gemma3 (resumed losses within 1e-4 of the unbroken run's), and
-   whether two runs and the resumed one are equal bit for bit;
+   whether two runs and the resumed one are equal bit for bit; one step of
+   the same model and batch without activation recomputation and under
+   ``remat_policy`` "full" and "dots" (``models.remat``): the loss and
+   every gradient of the three bit-equal, or within 1e-6 of each
+   gradient's max where the card's products are not bit-stable across a
+   recomputation (the reason printed), with peak GB and ms a step (the
+   mean of 5 steps after one warm-up) for each.  The 20 steps above run
+   under the config's own policy, "full", as the reference's loss does;
 18. distributed (``repro_torch.distributed``, ``launch.mesh``, the
    sharded train step, ``checkpoint.reshard``; counts set to 0 before the
    phase here and in each spawned rank before its job, read after and
@@ -243,7 +253,7 @@ exits non-zero without the final ``ok`` line:
    of each rank's tokens bit-equal to the one-process step's), replicas
    bit-equal by digest, with ms a step, the host ms and bytes of the
    data axes' and of the model axis's collectives, each rank's peak
-   memory and its matmul FLOPs (``torch.profiler``, ``with_flops``) as
+   memory and its matmul FLOPs (``FlopCounterMode``) as
    a share of the one-process step's.  Two ranks: gemma3-1b at full
    width and depth in f32 on (data 2, model 1), one sharded step of 4 x
    512 tokens against the one-process step (loss and grad_norm within
@@ -262,7 +272,13 @@ exits non-zero without the final ``ok`` line:
    the top-2 gap exceeds that, MoE routing bit-equal, with ms a step and
    the collectives' host ms; the one-process side runs once, in this
    process, before the ranks start, so that neither side is timed while
-   the other runs.  A world of one on
+   the other runs.  Then the dry-run (``launch.dryrun``) of rank 0 of
+   the same gemma3-1b train step and serve step on a fake world of 4 in
+   this process, with fake ``cuda`` tensors: its collective calls and
+   bytes by op equal to what rank 0 counted (``compat.STATS``) over one
+   real step of each, and its ``FlopCounterMode`` FLOPs equal to rank 0's
+   under the same counter; its ``temp_bytes`` and peak printed beside the
+   real ``max_memory_allocated``, with the ratio.  A world of one on
    NCCL in this process: the sharded step on (1, 1) equal to the plain
    step bit for bit.  Any rank's failure fails the phase.
 
@@ -311,7 +327,8 @@ INGEST_ADDS, INGEST_ROWS = 5, 10_000
 # unpacked on the host at a cost that grows faster than the lists (at the
 # main path's 1M, 68.9 s + 79.3 s of the phase's 157.0 s, and 166.3 s on
 # a slower host, before the run grew past RUN_LIMIT_S there)
-CONTAINER_N = 250_000
+# (125,000 since recomputation and the dry-run grew phases 17-18)
+CONTAINER_N = 125_000
 # the PQ spec is built over the first PQ_MAIN_N vectors and grown by the
 # first add only: its Pólya coding runs on the host (the build took
 # 218.7-290 s at 1M, each add ~20-43 s), cuts of depth that keep the run
@@ -322,8 +339,14 @@ CONTAINER_N = 250_000
 # 60.3 s, on a host that ran this phase 1.2x faster than another; 910.9
 # and 1066.5 s at 125,000 on two hosts, before the distributed phase's
 # full-width (2, 2) steps took it from 40.8-64.6 s to 106.3 s)
-PQ_MAIN_N = 62_500
+# (31,250 since recomputation and the dry-run grew phases 17-18:
+# 33.0 s at 62,500)
+PQ_MAIN_N = 31_250
 PQ_INGEST_ADDS = 1
+# the PQ spec's add takes the first PQ_ADD_ROWS rows of the first add: its
+# Pólya coding runs on the host (35.9 s for 10,000 rows on a slow host,
+# since recomputation and the dry-run grew phases 17-18)
+PQ_ADD_ROWS = 2_500
 # Flat's results are held against the CPU's numpy loop over 1M vectors on
 # the first 64 queries, split over FLAT_LOOP_THREADS host threads (~0.5-0.7
 # s a query on one; 64 took 46 s)
@@ -352,6 +375,10 @@ WT_LARGE_BITS = 1 << 24
 # container round trip on a host-only cut of the base (webgraph / REC
 # coding is ~0.2-0.3 ms a node on the host)
 GRAPH_PRESET = "deep-like"
+# the graph paths' base: the first GRAPH_N vectors (a host-bound cut since
+# recomputation and the dry-run grew phases 17-18; at 1M the NSG32
+# path took 73.6 s and HNSW16 43.4 s, and a search reached 802 nodes)
+GRAPH_N = 100_000
 GRAPH_SPECS = ("NSG32,ids=roc", "HNSW16,ids=roc")
 GRAPH_EF = 32
 # The reference's builders (exact kNN, the occlusion prune, no step that
@@ -376,7 +403,9 @@ GRAPH_KNN_CHECK = 10_000
 # one-process side stopped overlapping the ranks: the container phase took
 # 54.25 s of a run's 1075.10 s of phases at 100,000, 34-40 s at 50,000 and
 # 27.34 s of 1103.52 s at 25,000)
-GRAPH_CONTAINER_N = 10_000
+# (5,000 since recomputation and the dry-run grew phases 17-18: 21.6 s
+# at 10,000)
+GRAPH_CONTAINER_N = 5_000
 NPSUM_DIMS = (7, 24, 128, 129, 960)
 # graph-step tiles (query rows, candidate columns) at which one step's
 # device path is timed against the host re-score of the same candidates
@@ -558,6 +587,13 @@ DIST_TIMEOUT_S = 600
 # start, so that nothing else uses the card or the host while either
 # side is timed
 DIST_SERVE_FILL = {"gemma3-1b": 1020, "olmoe-1b-7b": 64}
+# activation recomputation in phase 17: one step under each policy, then
+# TRAIN_REMAT_STEPS timed steps after one warm-up; gradients that are not
+# bit-equal to the step without recomputation must lie within
+# TRAIN_REMAT_TOL of their tensor's max (a cuBLAS product whose algorithm
+# differs between the forward and its recomputation would round apart)
+TRAIN_REMAT_POLICIES = ("none", "full", "dots")
+TRAIN_REMAT_STEPS, TRAIN_REMAT_TOL = 5, 1e-6
 DIST_SERVE_MAX_LEN = {"gemma3-1b": 1040, "olmoe-1b-7b": 80}
 DIST_SERVE_STEPS, DIST_SERVE_TOL = 8, 1e-4
 
@@ -3042,6 +3078,91 @@ def train_resume(workdir):
         resumed_checkpoint_bitwise_equal=same["ac"])
 
 
+def train_remat(cfg, opt_cfg, dev):
+    """Phase 17 (g): one TRAIN_BATCH step of ``cfg`` from the same weights
+    and batch without recomputation and under each ``remat_policy``: the
+    loss and each gradient against the step without (bit for bit, else
+    within TRAIN_REMAT_TOL of its tensor's max, the reason printed); then
+    each policy's peak GB and ms a step (TRAIN_REMAT_STEPS steps after one
+    warm-up, each synchronised on its metrics)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train.optim import init_opt
+    from repro_torch.train.step import loss_fn, make_train_step
+
+    B, S = TRAIN_BATCH
+    pipe = TokenPipeline(vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(1 + TRAIN_REMAT_STEPS)]
+    params = init_decoder(0, cfg, dev)
+    named = list(params.named_parameters())
+
+    def policy_cfg(policy):
+        return dataclasses.replace(
+            cfg, remat_policy="full" if policy == "none" else policy)
+
+    rep, base = {}, None
+    for policy in TRAIN_REMAT_POLICIES:
+        c = policy_cfg(policy)
+        model, _ = make_train_step(c, opt_cfg, device=dev)
+        with torch.enable_grad():
+            loss, ce = loss_fn(model, params, batches[0], c,
+                               remat=policy != "none")
+            grads = torch.autograd.grad(loss, [p for _, p in named])
+        loss, ce = loss.detach(), ce.detach()
+        if base is None:
+            base = (loss, ce, grads)
+            rep[policy] = dict(loss=float(loss))
+            continue
+        equal = torch.equal(loss, base[0]) and torch.equal(ce, base[1])
+        gaps = {}
+        for (n, _), g, w in zip(named, grads, base[2]):
+            if not torch.equal(g, w):
+                gaps[n] = float((g - w).abs().max()) / max(
+                    float(w.abs().max()), 1e-30)
+        worst = max(gaps, key=gaps.get) if gaps else None
+        if worst is not None and not gaps[worst] <= TRAIN_REMAT_TOL:
+            raise AssertionError(f"remat {policy}: gradient of {worst} "
+                                 f"{gaps[worst]} of its max from the step "
+                                 "without recomputation")
+        if not equal:
+            train_close(f"remat {policy} loss", float(loss), float(base[0]),
+                        TRAIN_REMAT_TOL)
+        rep[policy] = dict(
+            loss=float(loss), loss_bitwise_equal=equal,
+            grads_bitwise_equal=not gaps, grads_differing=len(gaps),
+            grad_gap=gaps[worst] if gaps else 0.0, grad_gap_at=worst,
+            reason=None if not gaps and equal else (
+                "the card's products are not bit-stable across a "
+                "recomputation"))
+        del grads
+    del base
+    lm_free()
+    for policy in TRAIN_REMAT_POLICIES:
+        _, step = make_train_step(policy_cfg(policy), opt_cfg, device=dev,
+                                  remat=policy != "none")
+        opt = init_opt(params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for b in batches:
+            t = time.perf_counter()
+            _, opt, m = step(params, opt, b)
+            float(m["loss"])
+            ms.append(1e3 * (time.perf_counter() - t))
+        rep[policy].update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                           warmup_ms=ms[0], ms_by_step=ms[1:],
+                           ms_mean=sum(ms[1:]) / len(ms[1:]))
+        del opt, step
+        lm_free()
+    return dict(batch=[B, S], steps=TRAIN_REMAT_STEPS, tol=TRAIN_REMAT_TOL,
+                **rep)
+
+
 def lm_training(dev):
     """Phase 17 (module docstring): gemma3-1b trained at full width and
     depth.  Counts set to 0 before, read after (no kernel of the port is
@@ -3148,6 +3269,15 @@ def lm_training(dev):
         restore_gb_s=gb / restore_s, next_losses=before,
         next_losses_bitwise_equal=after == before)
     del params, state
+    lm_free()
+
+    # (g) one step without recomputation and under "full" and "dots"
+    rep["remat"] = train_remat(cfg, opt_cfg, dev)
+    print("  remat: " + json.dumps({
+        k: {x: v[x] for x in ("peak_gb", "ms_mean", "loss_bitwise_equal",
+                              "grads_bitwise_equal", "grad_gap",
+                              "reason") if x in v}
+        for k, v in rep["remat"].items() if isinstance(v, dict)}))
     lm_free()
 
     # (e) one super-block at full width in f32, the card against the CPU
@@ -3657,6 +3787,14 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
     coll = compat.STATS.as_dict()
     if not torch.equal(torch.stack(again), torch.stack(tokens)):
         raise AssertionError(f"{arch}: two sharded decodes differ")
+    # one more step, its collectives and FLOPs counted alone (for the
+    # dry-run of the same cell)
+    cache, counted = placed(), {}
+    compat.reset_stats()
+    with counting_flops(counted):
+        serve(params, cache, {"token": seq[:, fill:fill + 1]})
+    one_step = dict(ops=op_counts(compat.STATS.as_dict()),
+                    flops=counted["flops"])
     return dict(
         arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
         prompt=list(prompt.shape), fill=fill, steps=DIST_SERVE_STEPS,
@@ -3672,7 +3810,7 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
         ms_by_step=ms, ms_mean=sum(ms) / len(ms),
         plain_ms_by_step=want["ms"],
         plain_ms_mean=sum(want["ms"]) / len(want["ms"]),
-        **collective_report(coll),
+        **collective_report(coll), one_step=one_step,
         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -3705,25 +3843,19 @@ def routing_equal(arch, what, got, want, rows):
                                  "differ from the one-process step's")
 
 
-def matmul_flops(prof):
-    """The matmul FLOPs ``torch.profiler`` (``with_flops=True``) counted
-    in ``prof``: its mm, addmm, bmm and baddbmm calls."""
-    return sum(e.flops for e in prof.key_averages()
-               if e.key in ("aten::mm", "aten::addmm", "aten::bmm",
-                            "aten::baddbmm"))
-
-
 @contextlib.contextmanager
 def counting_flops(out):
-    """Profile the block on the host (``with_flops``) and store its matmul
-    FLOPs in ``out["flops"]``."""
-    import torch
+    """Count the block's FLOPs (``torch.utils.flop_counter.
+    FlopCounterMode``: its matmuls, in every thread the block's ops run
+    in, the recomputed ones too; the dry-run's counter) into
+    ``out["flops"]``.  (``torch.profiler``'s ``with_flops`` counted each
+    op twice under another dispatch mode.)"""
+    from torch.utils.flop_counter import FlopCounterMode
 
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU],
-            with_flops=True) as prof:
+    counter = FlopCounterMode(display=False)
+    with counter:
         yield out
-    out["flops"] = matmul_flops(prof)
+    out["flops"] = counter.get_total_flops()
 
 
 @contextlib.contextmanager
@@ -3841,6 +3973,68 @@ def hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg):
                 update_max_abs=worst, update_sign_flips=flips)
 
 
+def op_counts(coll):
+    """``{op: {"calls", "bytes"}}`` of ``compat.STATS.as_dict()``."""
+    return {op: dict(calls=int(c["calls"]), bytes=int(c["bytes"]))
+            for op, c in sorted(coll.items())}
+
+
+def dist_dryrun(dev, tp, serve):
+    """Phase 18: the dry-run (``launch.dryrun.lower_cell``) of rank 0 of
+    gemma3-1b's train step (as :func:`dist_tp`) and serve step (as
+    :func:`dist_serve`) on a fake world of 4 ranks on DIST_TP_MESH in
+    this process, fake ``cuda`` tensors: its collective calls and bytes
+    by op and its ``FlopCounterMode`` FLOPs equal to rank 0's over one
+    real step of each (``tp``, ``serve``: rank 0's results), its
+    ``temp_bytes`` and peak beside the real ``max_memory_allocated``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    B, S = DIST_TRAIN_BATCH
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    cells = (
+        ("train", cfg, ShapeSpec("train", S, B, "train"), tp["step_ops"],
+         tp["flops"], tp["peak_gb"]),
+        ("decode", serve_cfg(LM_ARCH, None),
+         ShapeSpec("serve", DIST_SERVE_MAX_LEN[LM_ARCH], B, "decode"),
+         serve["one_step"]["ops"], serve["one_step"]["flops"],
+         serve["peak_gb"]))
+    out = {}
+    for kind, c, shape, ops, flops, peak in cells:
+        rec = dryrun.lower_cell(LM_ARCH, shape.name, False, device=dev,
+                                cfg=c, shape=shape, mesh_shape=DIST_TP_MESH,
+                                cache_dtype=torch.float32)
+        coll = rec["collectives"]
+        # a serving step's one-time gather is in neither: rank 0's step
+        # was not the first call of its serve step
+        got = coll["ops"]
+        if got != ops:
+            raise AssertionError(f"dry-run {kind}: collectives {got} "
+                                 f"against rank 0's {ops}")
+        if rec["cost"]["flops"] != flops:
+            raise AssertionError(f"dry-run {kind}: {rec['cost']['flops']} "
+                                 f"FLOPs against rank 0's {flops}")
+        mem = rec["memory"]
+        out[kind] = dict(
+            trace_s=rec["trace_s"], collectives_equal=True,
+            calls=sum(v["calls"] for v in got.values()),
+            bytes=sum(v["bytes"] for v in got.values()),
+            recomputed_calls=sum(coll["recompute"]["counts"].values()),
+            working_gather_calls=sum(
+                coll["working_gather"]["counts"].values()),
+            flops=rec["cost"]["flops"], flops_equal=True,
+            argument_gb=mem["argument_bytes"] / 1e9,
+            temp_gb=mem["temp_bytes"] / 1e9,
+            peak_gb=mem["peak_bytes"] / 1e9, real_peak_gb=peak,
+            peak_over_real=mem["peak_bytes"] / 1e9 / peak,
+            differs_from_reference=rec["differs_from_reference"])
+    return out
+
+
 def collective_report(coll):
     """``compat.STATS`` of a step: each collective, and the host ms of the
     data axes' and of the model axis's (``model:`` keys)."""
@@ -3940,12 +4134,6 @@ def dist_tp(dev, arch, n_layers=None):
     B, S = DIST_TRAIN_BATCH
     batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
         vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0).batch_at(0).items()}
-    # the profiler's first start in a process takes seconds: every rank
-    # pays it here at once, not rank 0 alone in its turn below and the
-    # others inside the timed step
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU]):
-        pass
     want_routes = []
     keep, keep_mu, plain = one_process_turns(
         cfg, opt_cfg, specs, mesh, batch, dev, flops=dist.get_rank() == 0,
@@ -3986,6 +4174,7 @@ def dist_tp(dev, arch, n_layers=None):
         arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
         batch=[B, S], plain=plain, ms=1e3 * s, **m, **gaps,
         **collective_report(coll), flops=counted["flops"], peak_gb=peak,
+        step_ops=op_counts(coll),
         local_gb=sum(t.numel() * t.element_size()
                      for t in params.values()) / 1e9,
         split={k: sum(v == k for v in split.values())
@@ -4162,6 +4351,10 @@ def distributed(dev):
     for key in ("serve", "serve_moe"):
         rep[key] = serve_report([r[key] for r in four])
     t = time.perf_counter()
+    rep["dryrun"] = dict(dist_dryrun(dev, four[0]["tp"], four[0]["serve"]),
+                         seconds=time.perf_counter() - t)
+    print("  dryrun: " + json.dumps(rep["dryrun"]))
+    t = time.perf_counter()
     two, two_launches = run_dist("two", 2, work)
     rep["two_ranks_s"] = time.perf_counter() - t
     rep["train"] = dict(plain=two[0]["plain"], sharded=two[0]["sharded"],
@@ -4201,7 +4394,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="database vectors of the main path (sift-like) "
-                    "and of the graph paths (deep-like)")
+                    "and, up to GRAPH_N, of the graph paths (deep-like)")
     ap.add_argument("--queries", type=int, default=1000)
     args = ap.parse_args(argv)
 
@@ -4313,7 +4506,8 @@ def main(argv=None) -> int:
                 torch.from_numpy(queries).to(dev), TOPK)
             report, counts, spec_shapes, assignment, idx = serve(
                 spec, base[:n_spec], queries, spec_gt,
-                adds[:PQ_INGEST_ADDS] if "PQ" in spec else adds, dev)
+                [a[:PQ_ADD_ROWS] for a in adds[:PQ_INGEST_ADDS]]
+                if "PQ" in spec else adds, dev)
             print("  " + json.dumps(report))
             for k, v in counts.items():
                 main_path[k] = main_path.get(k, 0) + v
@@ -4405,8 +4599,9 @@ def main(argv=None) -> int:
                 tiles[t] = tiles.get(t, 0) + c
 
     del base, queries, gt, adds
-    with phase(f"data {GRAPH_PRESET} n={args.n}"):
-        base, queries = make_dataset(GRAPH_PRESET, args.n, args.queries,
+    graph_n = min(args.n, GRAPH_N)
+    with phase(f"data {GRAPH_PRESET} n={graph_n}"):
+        base, queries = make_dataset(GRAPH_PRESET, graph_n, args.queries,
                                      seed=0)
         base_dev = torch.from_numpy(base).to(dev)
         queries_dev = torch.from_numpy(queries).to(dev)
@@ -4425,7 +4620,7 @@ def main(argv=None) -> int:
     del nsg_idx
     from repro_torch.ann.graph_scan import KERNEL_MIN_CUDA
 
-    nav_n = min(args.n, GRAPH_NAV_N)
+    nav_n = min(graph_n, GRAPH_NAV_N)
     with phase(f"graph path {GRAPH_SPECS[0]} n={nav_n}, navigable"):
         nav_gt = exact_topk(base_dev[:nav_n], queries_dev, TOPK)
         nav, counts, gshapes, nav_idx, _ = serve_graph(

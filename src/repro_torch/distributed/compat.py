@@ -26,11 +26,19 @@ rank's input) and the seconds it took on the host's clock, each call
 ended by the collective's own wait; :func:`reset_stats` sets them to 0.
 A collective called with ``axis=`` is counted under ``"<axis>:<op>"``
 (``distributed.tp`` passes ``"model"``), the others under the op's name.
+Each is also counted by the mesh axes its group spans
+(:meth:`CollectiveStats.by_axes`: ``"data,model:all_gather"``; a group
+of ``launch.mesh.make_mesh_compat`` is described as ``"mesh:<axes>"``).
+Inside :func:`counted_apart` a collective is counted in ``APART[name]``
+as well: the recomputed forward of a checkpointed block
+(``models.remat``, ``"recompute"``) and the fill of a working module
+(``train.step.gather_working``, ``"working_gather"``) are counted so.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
 import os
 import time
@@ -40,8 +48,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["init_distributed", "psum", "pmax", "all_gather", "ppermute",
-           "axis_index", "host_staged", "STATS", "reset_stats",
-           "CollectiveStats"]
+           "axis_index", "host_staged", "STATS", "APART", "reset_stats",
+           "counted_apart", "CollectiveStats"]
 
 # the collectives torch's gloo backend takes CUDA tensors for
 _GLOO_CUDA = ("all_reduce", "broadcast")
@@ -53,25 +61,53 @@ class CollectiveStats:
     calls: Dict[str, int] = dataclasses.field(default_factory=dict)
     bytes: Dict[str, int] = dataclasses.field(default_factory=dict)
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # "<mesh axes>:<op>" -> [calls, bytes]
+    axes: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
 
-    def add(self, op: str, nbytes: int, seconds: float) -> None:
+    def add(self, op: str, nbytes: int, seconds: float,
+            axes: Optional[str] = None) -> None:
         self.calls[op] = self.calls.get(op, 0) + 1
         self.bytes[op] = self.bytes.get(op, 0) + nbytes
         self.seconds[op] = self.seconds.get(op, 0.0) + seconds
+        if axes is not None:
+            tally = self.axes.setdefault(f"{axes}:{op.rpartition(':')[2]}",
+                                         [0, 0])
+            tally[0] += 1
+            tally[1] += nbytes
 
     def as_dict(self) -> dict:
         return {op: dict(calls=self.calls[op], bytes=self.bytes[op],
                          seconds=self.seconds[op]) for op in self.calls}
 
+    def by_axes(self) -> dict:
+        """``{"<mesh axes>:<op>": {"calls", "bytes"}}``."""
+        return {k: dict(calls=c, bytes=b) for k, (c, b) in self.axes.items()}
+
+    def clear(self) -> None:
+        for d in (self.calls, self.bytes, self.seconds, self.axes):
+            d.clear()
+
 
 STATS = CollectiveStats()
+APART: Dict[str, CollectiveStats] = {}
+_APART: contextvars.ContextVar = contextvars.ContextVar("apart", default=())
 
 
 def reset_stats() -> None:
-    """Set every count of ``STATS`` to 0."""
-    STATS.calls.clear()
-    STATS.bytes.clear()
-    STATS.seconds.clear()
+    """Set every count of ``STATS`` to 0 and empty ``APART``."""
+    STATS.clear()
+    APART.clear()
+
+
+@contextlib.contextmanager
+def counted_apart(name: str):
+    """Count the collectives called inside the block in ``APART[name]``
+    too (``STATS`` counts them as ever)."""
+    token = _APART.set(_APART.get() + (name,))
+    try:
+        yield
+    finally:
+        _APART.reset(token)
 
 
 def init_distributed(device="cuda", backend: Optional[str] = None,
@@ -108,17 +144,29 @@ def host_staged(group, x: torch.Tensor, op: str) -> bool:
             and dist.get_backend(group) == "gloo")
 
 
+def _mesh_axes(group) -> Optional[str]:
+    """The mesh axes a group of ``make_mesh_compat`` spans (``"data"``,
+    ``"data,model"``), from its description; None for another group."""
+    desc = getattr(group, "group_desc", "") if group is not None else ""
+    return desc[len("mesh:"):] if desc.startswith("mesh:") else None
+
+
 @contextlib.contextmanager
-def _timed(op: str, x: torch.Tensor, axis: Optional[str] = None):
+def _timed(op: str, x: torch.Tensor, group, axis: Optional[str] = None):
     t = time.perf_counter()
     yield
-    STATS.add(op if axis is None else f"{axis}:{op}",
-              x.numel() * x.element_size(), time.perf_counter() - t)
+    name = op if axis is None else f"{axis}:{op}"
+    nbytes, seconds = x.numel() * x.element_size(), time.perf_counter() - t
+    axes = _mesh_axes(group)
+    STATS.add(name, nbytes, seconds, axes)
+    for apart in _APART.get():
+        APART.setdefault(apart, CollectiveStats()).add(name, nbytes, seconds,
+                                                       axes)
 
 
 def _all_reduce(x: torch.Tensor, group, op, axis) -> torch.Tensor:
     y = x.clone()
-    with _timed("all_reduce", x, axis):
+    with _timed("all_reduce", x, group, axis):
         dist.all_reduce(y, op=op, group=group)
     return y
 
@@ -138,7 +186,7 @@ def all_gather(x: torch.Tensor, group, dim: int = 0,
     """Every rank's ``x`` concatenated along ``dim`` in the order of the
     ranks of ``group`` (``jax.lax.all_gather(..., tiled=True)``)."""
     staged = host_staged(group, x, "all_gather")
-    with _timed("all_gather", x, axis):
+    with _timed("all_gather", x, group, axis):
         src = (x.detach().cpu() if staged else x.detach()).contiguous()
         parts = [torch.empty_like(src)
                  for _ in range(dist.get_world_size(group))]
@@ -160,7 +208,7 @@ def ppermute(x: torch.Tensor, group,
     if len(send) > 1 or len(recv) > 1:
         raise ValueError(f"perm {perm} is not a permutation")
     staged = host_staged(group, x, "ppermute")
-    with _timed("ppermute", x):
+    with _timed("ppermute", x, group):
         src = (x.detach().cpu() if staged else x.detach()).contiguous()
         out = torch.zeros_like(src)
         if send and send[0] == me:

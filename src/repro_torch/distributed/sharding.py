@@ -480,24 +480,34 @@ class ShardedCache:
                  device) -> "ShardedCache":
         """A fresh cache at this rank's local shapes only: ``make(whole)``
         builds the cache on the CPU, the whole one where ``whole`` (here
-        under ``FakeTensorMode``: shapes and dtypes, no storage, for the
-        specs) else one of one sequence and one slot, whose leaves give
-        each tensor's fill value (zero, or a stabiliser's -1e9)."""
-        from torch._subclasses.fake_tensor import FakeTensorMode
+        under a ``FakeTensorMode`` of its own: shapes and dtypes, no
+        storage, for the specs) else one of one sequence and one slot,
+        whose leaves give each tensor's fill value (zero, or a
+        stabiliser's -1e9).  Both are made outside any fake mode the
+        caller runs in (a dry-run's, ``launch.dryrun``), so the fill is
+        read from real values; the local tensors are made in the caller's
+        mode."""
+        from torch._subclasses.fake_tensor import (FakeTensorMode,
+                                                   unset_fake_temporarily)
 
-        with FakeTensorMode():
-            shapes = make(True)
-        specs = cache_shardings(shapes, mesh, batch, n_kv_heads)
-
-        def alloc(fake, spec, one):
+        def fill_of(one):
             fill = one.reshape(-1)[0]
             if not bool((one == fill).all()):
                 raise ValueError("a cache leaf is not one value throughout")
-            return torch.full(_local_shape(fake.shape, spec, mesh),
-                              fill.item(), dtype=fake.dtype, device=device)
+            return fill.item()
 
-        return cls(map_cache(alloc, shapes, specs, make(False)), specs,
-                   mesh, batch)
+        with unset_fake_temporarily():
+            with FakeTensorMode():
+                shapes = make(True)
+            fills = map_cache(fill_of, make(False))
+        specs = cache_shardings(shapes, mesh, batch, n_kv_heads)
+
+        def alloc(fake, spec, fill):
+            return torch.full(_local_shape(fake.shape, spec, mesh), fill,
+                              dtype=fake.dtype, device=device)
+
+        return cls(map_cache(alloc, shapes, specs, fills), specs, mesh,
+                   batch)
 
     def like(self, local: Any) -> "ShardedCache":
         """``local`` (slices of the same layout) as a ShardedCache."""

@@ -15,6 +15,8 @@ groups, created on every rank in the same order (``torch.distributed``
 requires it).  A group's rank order is the row-major order of its axes,
 so a rank's index in the group of an axis tuple is its shard's index
 along a dimension sharded over that tuple, as in a ``PartitionSpec``.
+Each group is described as ``"mesh:<axes>"`` (``"mesh:data,model"``),
+which ``distributed.compat`` counts its collectives by.
 :func:`use_mesh` makes a mesh the current one (:func:`current_mesh`), the
 mesh a call takes when it is given none.
 """
@@ -128,7 +130,8 @@ def make_mesh_compat(shape: Sequence[int], axes: Sequence[str],
                                        sizes)
                                 for v in itertools.product(
                                     *(range(sizes[a]) for a in sub))])
-            groups[sub], _ = dist.new_subgroups_by_enumeration(members)
+            groups[sub], _ = dist.new_subgroups_by_enumeration(
+                members, group_desc="mesh:" + ",".join(sub))
     return Mesh(sizes, groups=groups, coords=coords, device=device)
 
 

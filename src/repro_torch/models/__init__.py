@@ -3,7 +3,9 @@ the encoder-decoder (whisper)."""
 
 from .convert import params_from_jax
 from .encdec import EncDec, EncDecCache
-from .model import Model, build, count_params, model_flops
+from .model import (Model, build, count_params, decode_input_specs,
+                    input_specs, model_flops)
 
 __all__ = ["EncDec", "EncDecCache", "Model", "build", "count_params",
-           "model_flops", "params_from_jax"]
+           "decode_input_specs", "input_specs", "model_flops",
+           "params_from_jax"]

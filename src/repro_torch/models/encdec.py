@@ -13,8 +13,12 @@ Parameters are an :class:`EncDec` module whose names are the reference
 tree's keys (``enc_blocks.<i>.attn.wq.kernel``,
 ``dec_blocks.<i>.cross.wk.kernel``, ...), so ``params_from_jax`` loads
 ``init_encdec``'s tree by name.  The reference scans its stacked layers;
-here they are a list looped over in order (``remat=`` and ``unroll=`` are
-accepted and change no result).
+here they are a list looped over in order (``unroll=`` is accepted and
+changes no result).  With ``remat`` and grad enabled each encoder block
+and each decoder block (self-attention, cross-attention over the memory,
+MLP) runs through ``models.remat.remat_call`` under
+``cfg.remat_policy``, as the reference checkpoints its encoder and
+decoder bodies.
 
 On a mesh (``distributed.sharding.ShardedCache``, the sharded serving
 steps) :func:`encdec_prefill_memory` runs the encoder split over the
@@ -36,6 +40,7 @@ from ..device import resolve_device
 from ..distributed import tp as _tp
 from ..distributed.sharding import ShardedCache, local_slice
 from . import attention as _attn
+from .remat import remat_call
 from .attention import (
     Attention,
     KVCache,
@@ -164,8 +169,28 @@ def encdec_encode(params: EncDec, cfg: ModelConfig, frames,
     x = frames.to(_dtype(cfg))
     positions = _positions(B, S, x.device)
     for p in params.enc_blocks:
-        x = _dense_block(p, x, positions, cfg, causal=False)
+        if remat:
+            x = remat_call(cfg, _enc_block, p, x, positions, cfg)
+        else:
+            x = _enc_block(p, x, positions, cfg)
     return rms_norm(x, params.enc_norm.scale, cfg.norm_eps)
+
+
+def _enc_block(p, x, positions, cfg):
+    return _dense_block(p, x, positions, cfg, causal=False)
+
+
+def _dec_block(p, x, memory, positions, cfg):
+    x = x + attention(p.self_attn, rms_norm(x, p.ln1.scale, cfg.norm_eps),
+                      positions, cfg, causal=True)
+    h = rms_norm(x, p.ln_x.scale, cfg.norm_eps)
+    c = cross_attention(p.cross, h, memory, cfg)
+    if c is None:
+        mk, mv = _cross_kv(p.cross, memory, cfg)
+        c = _cross_attend(p.cross, h, mk, mv, cfg)
+    x = x + c
+    return x + mlp_apply(p.mlp, rms_norm(x, p.ln2.scale, cfg.norm_eps),
+                         cfg.d_ff)
 
 
 def encdec_apply(params: EncDec, cfg: ModelConfig, frames, dec_tokens,
@@ -174,22 +199,16 @@ def encdec_apply(params: EncDec, cfg: ModelConfig, frames, dec_tokens,
     model axis (``distributed.tp``: the sharded train step's working
     module) every block splits as the decoder's do, and the logits are
     this rank's ``V / tp`` of the padded vocabulary."""
-    memory = encdec_encode(params, cfg, frames)
+    memory = encdec_encode(params, cfg, frames, remat=remat)
     B, S = dec_tokens.shape
     vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
     x = embed(params.embed.table, dec_tokens, vocab).to(_dtype(cfg))
     positions = _positions(B, S, x.device)
     for p in params.dec_blocks:
-        x = x + attention(p.self_attn, rms_norm(x, p.ln1.scale, cfg.norm_eps),
-                          positions, cfg, causal=True)
-        h = rms_norm(x, p.ln_x.scale, cfg.norm_eps)
-        c = cross_attention(p.cross, h, memory, cfg)
-        if c is None:
-            mk, mv = _cross_kv(p.cross, memory, cfg)
-            c = _cross_attend(p.cross, h, mk, mv, cfg)
-        x = x + c
-        x = x + mlp_apply(p.mlp, rms_norm(x, p.ln2.scale, cfg.norm_eps),
-                          cfg.d_ff)
+        if remat:
+            x = remat_call(cfg, _dec_block, p, x, memory, positions, cfg)
+        else:
+            x = _dec_block(p, x, memory, positions, cfg)
     x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
     logits = unembed(params.embed.table, x, vocab)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -11,8 +11,15 @@ The port of ``repro.models.transformer``.  Layer stacks are grouped into
 
 The reference scans stacked params with ``lax.scan``; here a
 :class:`Decoder` module holds each segment as a list of super-blocks and
-loops over them in the reference's layer order (``unroll=`` and
-``remat=`` are accepted and change no result).  zamba2's shared
+loops over them in the reference's layer order (``unroll=`` is
+accepted and changes no result).  With ``remat`` (the default, as the
+reference's) and grad enabled, each super-block runs through
+``models.remat.remat_call`` under ``cfg.remat_policy``, the unit the
+reference's ``jax.checkpoint`` wraps: its activations are recomputed in
+the backward pass (``"full"``) or all but its products with no batch
+dimensions (``"dots"``); the hybrid's shared attention block is
+recomputed inside each super-block it is handed to, and an MoE block's
+Switch loss comes out of the block.  zamba2's shared
 attention block is held once, by the :class:`Decoder`
 (``shared_attn.block``), and handed to each hybrid super-block, as the
 reference hands ``shared``.  Decode threads a cache per super-block
@@ -51,6 +58,7 @@ from .attention import (
 from .layers import MLP, Embedding, RMSNorm, _he, cast, embed, mlp_apply, \
     rms_norm, unembed, vocab_axis
 from .moe import MoE, moe_apply
+from .remat import remat_call
 from .ssm import Mamba, init_mamba_cache, mamba_apply, mamba_decode
 from .xlstm import (
     MLstm,
@@ -378,7 +386,9 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
     axis (``distributed.tp``: the sharded train step's working module) the
     blocks split their compute, the embedding is vocab-parallel and the
     logits are this rank's ``(B, S, V / tp)``; the Mamba2 and xLSTM
-    mixers compute whole on every model rank."""
+    mixers compute whole on every model rank.  ``remat`` recomputes each
+    super-block in the backward pass under ``cfg.remat_policy`` (module
+    docstring)."""
     vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
     if embeddings is None:
         x = embed(params.embed.table, tokens, vocab).to(_dtype(cfg))
@@ -393,7 +403,12 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (kind, _, _), seg in zip(segments_for(cfg), params.segments):
         for p in seg:
-            x, aux = _apply_super(kind, p, x, positions, cfg, params.shared)
+            if remat:
+                x, aux = remat_call(cfg, _apply_super, kind, p, x, positions,
+                                    cfg, params.shared)
+            else:
+                x, aux = _apply_super(kind, p, x, positions, cfg,
+                                      params.shared)
             if aux is not None:
                 aux_total = aux_total + aux
     x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)

@@ -77,7 +77,9 @@ def init_opt(params) -> OptState:
     nu = {n: torch.zeros_like(m) for n, m in mu.items()}
     if isinstance(params, Sharded):
         mu, nu = params.like(mu), params.like(nu)
-    return OptState(mu=mu, nu=nu, step=torch.zeros((), dtype=torch.int32))
+    with _on_host():
+        step = torch.zeros((), dtype=torch.int32)
+    return OptState(mu=mu, nu=nu, step=step)
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
@@ -102,6 +104,15 @@ def _host_cos(x: torch.Tensor) -> torch.Tensor:
 
 def _host_step(step) -> torch.Tensor:
     return torch.as_tensor(step, dtype=torch.int32).cpu()
+
+
+def _on_host():
+    """The schedule's context: real host tensors, also inside a
+    ``FakeTensorMode`` (a dry-run's, ``launch.dryrun``), since the step
+    count is a real number there too and the cosine reads its value."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    return unset_fake_temporarily()
 
 
 def lr_at(step, cfg: AdamWConfig) -> torch.Tensor:
@@ -155,11 +166,13 @@ def apply_updates(params, grads: Dict[str, torch.Tensor],
                                for n, _ in named))
     clip = torch.minimum(_f32(1.0, gnorm),
                          _f32(cfg.grad_clip, gnorm) / (gnorm + 1e-9))
-    step = _host_step(state.step)
+    with _on_host():
+        step = _host_step(state.step)
+        lr = lr_at(step, cfg)
+        b1c, b2c = (1 - torch.pow(_f32(b, step), step.float() + 1)
+                    for b in (cfg.b1, cfg.b2))
+        next_step = step + 1
     dev = gnorm.device
-    lr = lr_at(step, cfg)
-    b1c, b2c = (1 - torch.pow(_f32(b, step), step.float() + 1)
-                for b in (cfg.b1, cfg.b2))
     lr_d, b1c_d, b2c_d = (x.to(dev) for x in (lr, b1c, b2c))
     for n, p in named:
         g = grads[n]
@@ -173,4 +186,4 @@ def apply_updates(params, grads: Dict[str, torch.Tensor],
         delta += cfg.weight_decay * p.float()
         p.copy_(p.float() - lr_d * delta)
     metrics = {"grad_norm": gnorm, "lr": lr}
-    return params, OptState(mu=state.mu, nu=state.nu, step=step + 1), metrics
+    return params, OptState(mu=state.mu, nu=state.nu, step=next_step), metrics

@@ -1,8 +1,11 @@
 """Train / prefill / decode step builders — the port of
 ``repro.train.step``.
 
-``make_train_step``: CE loss (pad-masked, MoE-aux added), gradients by
-``torch.autograd`` over the module's parameters, AdamW (``.optim``).
+``make_train_step``: CE loss (pad-masked, MoE-aux added), each
+super-block's activations recomputed in the backward pass under
+``cfg.remat_policy`` (``models.remat``; on a mesh the recomputed blocks
+issue their collectives again), gradients by ``torch.autograd`` over the
+module's parameters, AdamW (``.optim``).
 Gradient compression (int8, the reference's quantize-dequantize, one
 scale a leaf of the reference's tree) is applied when ``compress_grads``
 — see ``repro_torch.distributed.compression``.
@@ -121,15 +124,14 @@ def _leaf_of(name: str):
 
 
 def _loss_sums(model, params, batch: Dict[str, Any], cfg: ModelConfig,
-               unroll: bool = False):
+               unroll: bool = False, remat: bool = True):
     """``(nll, mask, aux)``: the per-label f32 NLL (0 at padding), the
-    mask of the labels that count and the MoE blocks' Switch loss."""
+    mask of the labels that count and the MoE blocks' Switch loss; each
+    super-block recomputed in the backward pass under
+    ``cfg.remat_policy`` where ``remat`` (``models.remat``)."""
     labels = batch["labels"]
     inputs = {k: v for k, v in batch.items() if k != "labels"}
-    # remat is accepted as the reference's and changes no result: the port
-    # keeps every activation (gemma3-1b at B * S = 2048 fits on 80 GB
-    # without recomputation)
-    logits, aux = model.apply(params, **inputs, remat=True, unroll=unroll)
+    logits, aux = model.apply(params, **inputs, remat=remat, unroll=unroll)
     mask = (labels >= 0) & (labels < cfg.vocab_size)
     vocab = _tp.axis_for(cfg.padded_vocab)
     if vocab is None:
@@ -161,11 +163,14 @@ def _vocab_parallel_nll(logits, labels, axis):
 
 
 def loss_fn(model, params, batch: Dict[str, Any], cfg: ModelConfig,
-            unroll: bool = False):
+            unroll: bool = False, remat: bool = True):
     """``(ce + _AUX_WEIGHT * aux, ce)``: the mean next-token cross-entropy
     in f32 over the labels inside ``[0, vocab_size)`` (the others are
-    padding and count nothing), plus the MoE blocks' Switch loss."""
-    nll, mask, aux = _loss_sums(model, params, batch, cfg, unroll)
+    padding and count nothing), plus the MoE blocks' Switch loss.
+    ``remat`` recomputes each super-block in the backward pass under
+    ``cfg.remat_policy``, as the reference's loss always does; False
+    keeps every activation."""
+    nll, mask, aux = _loss_sums(model, params, batch, cfg, unroll, remat)
     ce = nll.sum() / torch.clamp(mask.sum(), min=1)
     return ce + _AUX_WEIGHT * aux, ce
 
@@ -202,7 +207,7 @@ def gather_working(params: Sharded, module: nn.Module) -> None:
     ``SPLIT`` leaf gathered over the data axes only, every other leaf
     whole (a collective: every rank of the mesh calls it)."""
     split = compute_split(params.specs, module.cfg, params.mesh)
-    with torch.no_grad():
+    with torch.no_grad(), compat.counted_apart("working_gather"):
         for n, p in module.named_parameters():
             if split[n] == SPLIT:
                 p.copy_(unshard(params[n], without_model(params.specs[n]),
@@ -213,7 +218,7 @@ def gather_working(params: Sharded, module: nn.Module) -> None:
 
 def sharded_loss_and_grads(model, params: Sharded, module,
                            batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                           unroll: bool = False):
+                           unroll: bool = False, remat: bool = True):
     """``(loss, ce, grads)`` of the global ``batch`` on ``params.mesh``: the
     reference's loss over the whole batch and its gradients, from this
     rank's slice of the batch where ``batch_shardings`` splits it over
@@ -239,7 +244,8 @@ def sharded_loss_and_grads(model, params: Sharded, module,
     with _tp.split_model(axis):
         if specs["labels"][:1] != (dp,):
             with torch.enable_grad():
-                loss, ce = loss_fn(model, module, batch, cfg, unroll=unroll)
+                loss, ce = loss_fn(model, module, batch, cfg, unroll=unroll,
+                                   remat=remat)
                 grads = _grads(loss, named)
             return loss.detach(), ce.detach(), stored(grads)
         group = mesh.group(dp)
@@ -250,7 +256,8 @@ def sharded_loss_and_grads(model, params: Sharded, module,
         ts = TokenSplit(n=mesh.axis_size(dp), index=mesh.index(dp),
                         gather=lambda c: compat.all_gather(c[None], group))
         with torch.enable_grad(), split_tokens(ts):
-            nll, _, aux = _loss_sums(model, module, local, cfg, unroll)
+            nll, _, aux = _loss_sums(model, module, local, cfg, unroll,
+                                     remat)
             nll_sum = nll.sum()
             grads = stored(_grads(nll_sum / count + _AUX_WEIGHT * aux,
                                   named))
@@ -297,14 +304,17 @@ def _keeper(cfg: ModelConfig, device):
 
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
                     compress_grads: bool = False, unroll: bool = False,
-                    device="cuda", mesh=None):
+                    device="cuda", mesh=None, remat: bool = True):
     """Build ``(model, train_step)``.  ``train_step(params, opt_state,
     batch) -> (params, opt_state, metrics)`` updates ``params`` (the
     module) and the moments in place; ``batch`` holds tensors or numpy
     arrays (moved to ``device``); ``metrics`` holds ``loss``, ``ce``,
     ``grad_norm`` and ``lr`` as f32 scalar tensors on the device (reading
     one synchronises).  On a live ``mesh`` ``params`` is this rank's ``Sharded`` parameters and ``batch``
-    the global batch, the same on every rank (module docstring)."""
+    the global batch, the same on every rank (module docstring).
+    ``remat`` (the reference's loss always recomputes) recomputes each
+    super-block in the backward pass under ``cfg.remat_policy``; False
+    keeps every activation."""
     dev = resolve_device(device)
     model = build(cfg, device=dev)
     opt_cfg = opt_cfg or AdamWConfig()
@@ -315,13 +325,14 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
         if mesh is None:
             named = list(params.named_parameters())
             with torch.enable_grad():
-                loss, ce = loss_fn(model, params, batch, cfg, unroll=unroll)
+                loss, ce = loss_fn(model, params, batch, cfg, unroll=unroll,
+                                   remat=remat)
                 grads = _grads(loss, named)
             loss, ce = loss.detach(), ce.detach()
         else:
             loss, ce, grads = sharded_loss_and_grads(
                 model, params, keep(params, regather=True), batch, cfg,
-                unroll)
+                unroll, remat)
         if compress_grads:
             grads = compress_tree_int8(
                 grads, _leaf_of,

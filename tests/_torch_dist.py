@@ -696,3 +696,81 @@ def serve_one_rank(archs, ckpt_root, ref_npz):
             plain["prefill_regathered"] = prefill(module, batch).numpy()
         out[arch] = dict(plain=plain, mesh=sharded)
     return out
+
+
+@job
+def dryrun_twin(cells):
+    """Each cell ``(arch, kind, B, S)`` of tests/test_torch_dryrun.py on a
+    live (2, 2) mesh: one call of the reduced config's step, built by
+    ``launch.dryrun.build_cell`` from real weights (seed 0), with
+    ``compat``'s counts of it as the dry-run keeps them
+    (``dryrun.step_counts``) and its FLOPs under ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.distributed import compat
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh_compat
+
+    mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for arch, kind, B, S in cells:
+        cfg = reduced(get_config(arch))
+        _, run = dryrun.build_cell(cfg, ShapeSpec("t", S, B, kind), kind,
+                                   mesh, "cpu", seed=0)
+        compat.reset_stats()
+        flops = FlopCounterMode(display=False)
+        with flops:
+            run()
+        out[f"{arch}/{kind}"] = dict(counts=dryrun.step_counts(kind),
+                                     flops=flops.get_total_flops())
+    return out
+
+
+@job
+def remat_sharded(archs, B, S):
+    """``sharded_loss_and_grads`` of each reduced config of ``archs`` on a
+    live (2, 2) mesh, from weights drawn from seed 0 and numpy-seeded
+    tokens, without recomputation and under ``remat_policy`` "full" and
+    "dots": ``{arch: {policy: loss, ce, grads (this rank's, numpy), the
+    recomputed collectives}}``."""
+    import dataclasses
+
+    from repro_torch.checkpoint import reshard
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import compat, param_shardings
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build
+    from repro_torch.train.step import (gather_working,
+                                        sharded_loss_and_grads,
+                                        working_module)
+
+    mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+    out = {}
+    for arch in archs:
+        cfg = reduced(get_config(arch))
+        module = build(cfg, device="cpu").init(0)
+        params = reshard(module, param_shardings(module, mesh,
+                                                 cfg.n_experts), mesh)
+        toks = np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                 "labels": torch.from_numpy(toks[:, 1:])}
+        work = working_module(cfg, params, "cpu")
+        gather_working(params, work)
+        out[arch] = {}
+        for policy in ("none", "full", "dots"):
+            c = dataclasses.replace(cfg, remat_policy="full"
+                                    if policy == "none" else policy)
+            compat.reset_stats()
+            loss, ce, grads = sharded_loss_and_grads(
+                build(c, device="cpu"), params, work, batch, c,
+                remat=policy != "none")
+            recomputed = compat.APART.get("recompute")
+            out[arch][policy] = dict(
+                loss=loss.numpy().copy(), ce=ce.numpy().copy(),
+                grads=_np(grads),
+                recomputed={} if recomputed is None
+                else recomputed.as_dict())
+    return out
