@@ -242,7 +242,9 @@ exits non-zero without the final ``ok`` line:
    (2, 2) mesh, replicas bit-equal, losses against the plain step; a
    reduced checkpoint resharded onto (2, 2) and (4, 1), every shard its
    slice bit for bit; then the model axis's split at full width, f32,
-   on (data 2, model 2), one step of 4 x 512 tokens each: gemma3-1b at
+   on (data 2, model 2), one step of 4 x 512 tokens each, every sharded
+   train step gathering its weights layer by layer inside each
+   recomputed super-block (``distributed.fsdp``): gemma3-1b at
    full depth (its 4 heads split, its one KV head's ``wk`` / ``wv``
    gathered, the MLP column- / row-parallel, the embedding, logits and
    loss vocab-parallel) and olmoe-1b-7b cut to 2 of its 16 layers (32
@@ -253,14 +255,19 @@ exits non-zero without the final ``ok`` line:
    of each rank's tokens bit-equal to the one-process step's), replicas
    bit-equal by digest, with ms a step, the host ms and bytes of the
    data axes' and of the model axis's collectives, each rank's peak
-   memory and its matmul FLOPs (``FlopCounterMode``) as
-   a share of the one-process step's.  Two ranks: gemma3-1b at full
+   memory (since it built its model, and the step's own), the leaves it
+   gathered and the most gathered bytes alive at once
+   (``compat.GATHERED``), and its matmul FLOPs (``FlopCounterMode``) as
+   a share of the one-process step's; olmoe's loss and gradients are
+   also computed once before its step from the same state and compared
+   bit for bit with the step's (printed, not a failure: the expert
+   buffer's scatter and its backward may use float atomics).  Two ranks: gemma3-1b at full
    width and depth in f32 on (data 2, model 1), one sharded step of 4 x
    512 tokens against the one-process step (loss and grad_norm within
    1e-5 relative, each gradient within 1e-4 of its tensor's max, each
    updated weight within lr (1e-2 + du)), with ms a step, the
-   host-staged collectives' time and each rank's peak memory, printed
-   beside the (2, 2) step's.  The serving steps on (data 2, model 2) at
+   host-staged collectives' time, each rank's peak memory and gathered
+   bytes, printed beside the (2, 2) step's (``per_layer``).  The serving steps on (data 2, model 2) at
    the same widths (``make_prefill_step`` / ``make_serve_step`` with
    ``mesh=``): the sharded prefill of 4 x 512 prompts against the
    one-process prefill, then 8 sharded serve steps from a one-process f32
@@ -277,7 +284,8 @@ exits non-zero without the final ``ok`` line:
    this process, with fake ``cuda`` tensors: its collective calls and
    bytes by op equal to what rank 0 counted (``compat.STATS``) over one
    real step of each, and its ``FlopCounterMode`` FLOPs equal to rank 0's
-   under the same counter; its ``temp_bytes`` and peak printed beside the
+   under the same counter, the train step's gathered leaves and bytes
+   equal to rank 0's; its ``temp_bytes`` and peak printed beside the
    real ``max_memory_allocated``, with the ratio.  A world of one on
    NCCL in this process: the sharded step on (1, 1) equal to the plain
    step bit for bit.  Any rank's failure fails the phase.
@@ -3572,7 +3580,8 @@ def dist_four(ckpt_dir):
     """The DIST_WORLD-rank job of phase 18: SP decode, GPipe, reduced
     sharded steps on (2, 2), reshard, and the full-width steps whose
     compute the model axis splits (gemma3-1b, olmoe-1b-7b cut to
-    DIST_TP_MOE_LAYERS layers)."""
+    DIST_TP_MOE_LAYERS layers, whose loss and gradients are also
+    computed twice from one state and compared bit for bit)."""
     import torch
     import torch.distributed as dist
 
@@ -3584,7 +3593,7 @@ def dist_four(ckpt_dir):
     lm_free()
     rep["tp"] = dist_tp(dev, LM_ARCH)
     lm_free()
-    rep["tp_moe"] = dist_tp(dev, MOE_ARCH, DIST_TP_MOE_LAYERS)
+    rep["tp_moe"] = dist_tp(dev, MOE_ARCH, DIST_TP_MOE_LAYERS, repeat=True)
     lm_free()
     rep["serve"] = dist_serve(dev, LM_ARCH, None, ckpt_dir)
     lm_free()
@@ -3985,8 +3994,10 @@ def dist_dryrun(dev, tp, serve):
     :func:`dist_serve`) on a fake world of 4 ranks on DIST_TP_MESH in
     this process, fake ``cuda`` tensors: its collective calls and bytes
     by op and its ``FlopCounterMode`` FLOPs equal to rank 0's over one
-    real step of each (``tp``, ``serve``: rank 0's results), its
-    ``temp_bytes`` and peak beside the real ``max_memory_allocated``."""
+    real step of each (``tp``, ``serve``: rank 0's results), the train
+    step's per-layer gathers (leaves and bytes) equal to rank 0's, its
+    ``temp_bytes`` and peak beside the real ``max_memory_allocated`` and
+    its most gathered bytes alive beside rank 0's."""
     import dataclasses
 
     import torch
@@ -4018,6 +4029,12 @@ def dist_dryrun(dev, tp, serve):
         if rec["cost"]["flops"] != flops:
             raise AssertionError(f"dry-run {kind}: {rec['cost']['flops']} "
                                  f"FLOPs against rank 0's {flops}")
+        gathered = coll["gathered"]
+        if kind == "train" and (gathered["calls"], gathered["bytes"]) != (
+                tp["gathered_calls"], tp["gathered_bytes"]):
+            raise AssertionError(f"dry-run train: gathered {gathered} "
+                                 f"against rank 0's {tp['gathered_calls']} "
+                                 f"leaves, {tp['gathered_bytes']} bytes")
         mem = rec["memory"]
         out[kind] = dict(
             trace_s=rec["trace_s"], collectives_equal=True,
@@ -4031,6 +4048,10 @@ def dist_dryrun(dev, tp, serve):
             temp_gb=mem["temp_bytes"] / 1e9,
             peak_gb=mem["peak_bytes"] / 1e9, real_peak_gb=peak,
             peak_over_real=mem["peak_bytes"] / 1e9 / peak,
+            gathered_calls=gathered["calls"],
+            gathered_peak_gb=gathered["peak"] / 1e9,
+            real_gathered_peak_gb=tp["gathered_peak_gb"]
+            if kind == "train" else None,
             differs_from_reference=rec["differs_from_reference"])
     return out
 
@@ -4086,28 +4107,105 @@ def dist_two():
     lm_free()
     opt = init_opt(params)
     _, mstep = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
+    before = peak_then_reset()
     torch.cuda.synchronize()
     dist.barrier()          # the ranks start the timed step together
     compat.reset_stats()
     (params, opt, m), s = timed(lambda: mstep(params, opt, batch))
     coll = compat.STATS.as_dict()
+    memory = step_memory(before)
     m = {k: float(v) for k, v in m.items()}
     gaps = hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg)
     return dict(plain=plain, sharded=dict(
         mesh=list(DIST_TRAIN_MESH), batch=[B, S], ms=1e3 * s, **m, **gaps,
-        **collective_report(coll),
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        **collective_report(coll), **memory,
         local_gb=sum(t.numel() * t.element_size()
                      for t in params.values()) / 1e9))
 
 
-def dist_tp(dev, arch, n_layers=None):
+def step_memory(before_gb):
+    """A sharded step's memory a rank, read after it: ``peak_gb``, the
+    allocator's peak since the rank built its model (``before_gb``, the
+    peak read and reset just before the step, and the step's own), the
+    step's own peak, and ``compat.GATHERED``: the leaves the per-layer
+    gather gathered and the most gathered bytes alive at once."""
+    import torch
+    from repro_torch.distributed import compat
+
+    step = torch.cuda.max_memory_allocated() / 1e9
+    gathered = compat.GATHERED.as_dict()
+    return dict(peak_gb=max(before_gb, step), step_peak_gb=step,
+                gathered_calls=gathered["calls"],
+                gathered_bytes=gathered["bytes"],
+                gathered_gb=gathered["bytes"] / 1e9,
+                gathered_peak_gb=gathered["peak"] / 1e9,
+                gathered_alive_after=gathered["alive"])
+
+
+def peak_then_reset():
+    """The allocator's peak so far (GB), its counter reset."""
+    import torch
+
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    return peak
+
+
+@contextlib.contextmanager
+def keeping_grads(out):
+    """Keep the gradients the train step hands AdamW inside the block in
+    ``out`` (name -> tensor; the step leaves them as they are)."""
+    from repro_torch.train import step as ST
+
+    inner = ST.apply_updates
+
+    def keep(params, grads, *args, **kwargs):
+        out.update(grads)
+        return inner(params, grads, *args, **kwargs)
+
+    ST.apply_updates = keep
+    try:
+        yield out
+    finally:
+        ST.apply_updates = inner
+
+
+def repeat_report(first, loss, grads):
+    """Whether a sharded step's loss and every gradient shard equal, bit
+    for bit, those of ``first`` (``(loss, grads)`` on the host: the same
+    loss and gradients computed once before from the same state), and
+    the largest gap of a gradient that does not, against its tensor's
+    max."""
+    import torch
+
+    loss0, grads0 = first
+    unequal, worst, worst_at = 0, 0.0, None
+    for n, g in grads.items():
+        a, b = grads0[n], g.detach().cpu()
+        if not torch.equal(a, b):
+            unequal += 1
+            gap = float((a.double() - b.double()).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+            if gap > worst:
+                worst, worst_at = gap, n
+    loss = loss.detach().cpu()
+    return dict(loss_bit_equal=bool(torch.equal(loss0, loss)),
+                loss_gap=abs(float(loss0) - float(loss)),
+                grads_bit_equal=unequal == 0, grads_unequal=unequal,
+                grads=len(grads), max_gap=worst, max_gap_at=worst_at)
+
+
+def dist_tp(dev, arch, n_layers=None, repeat=False):
     """``arch`` at full width (f32; depth cut to ``n_layers`` where given)
     on DIST_TP_MESH, its compute split over the model axis: the
     one-process step a rank at a time (its matmul FLOPs counted on rank
     0's turn), then one sharded step (each rank's matmul FLOPs counted),
     held against it at the TRAIN_*_TOL bounds; MoE routing of each
-    rank's tokens bit-equal to the one-process step's; digests of this
+    rank's tokens bit-equal to the one-process step's; each rank's peak
+    memory and the per-layer gather's counts (:func:`step_memory`); with
+    ``repeat``, the loss and gradients computed once more before the
+    step from the same state, held bit for bit against the step's
+    (:func:`repeat_report`; reported, not a failure); digests of this
     rank's shards that other ranks also hold, for the parent's replica
     check (phase 18, 3d)."""
     import dataclasses
@@ -4122,7 +4220,7 @@ def dist_tp(dev, arch, n_layers=None):
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models.transformer import Decoder, init_decoder
     from repro_torch.train.optim import AdamWConfig, init_opt
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import make_train_step, sharded_loss_and_grads
 
     cfg = dataclasses.replace(get_config(arch), dtype="float32")
     if n_layers:
@@ -4144,15 +4242,25 @@ def dist_tp(dev, arch, n_layers=None):
     del p
     lm_free()
     opt = init_opt(params)
-    _, mstep = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
-    routes, counted = [], {}
-    with recording_routing(routes), counting_flops(counted):
+    model, mstep = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
+    first = None
+    if repeat:
+        loss0, _, grads0 = sharded_loss_and_grads(model, params, batch, cfg)
+        first = (loss0.cpu(), {n: g.cpu() for n, g in grads0.items()})
+        del loss0, grads0
+    routes, counted, kept = [], {}, {}
+    before = peak_then_reset()
+    with recording_routing(routes), counting_flops(counted), \
+            keeping_grads(kept):
         torch.cuda.synchronize()
         dist.barrier()      # the ranks start the timed step together
         compat.reset_stats()
         (params, opt, m), s = timed(lambda: mstep(params, opt, batch))
     coll = compat.STATS.as_dict()
-    peak = torch.cuda.max_memory_allocated() / 1e9
+    memory = step_memory(before)
+    repeated = None if first is None else repeat_report(first, m["loss"],
+                                                        kept)
+    kept.clear()
     m = {k: float(v) for k, v in m.items()}
     gaps = hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg)
     if len(routes) != len(want_routes):
@@ -4173,8 +4281,8 @@ def dist_tp(dev, arch, n_layers=None):
     return dict(
         arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
         batch=[B, S], plain=plain, ms=1e3 * s, **m, **gaps,
-        **collective_report(coll), flops=counted["flops"], peak_gb=peak,
-        step_ops=op_counts(coll),
+        **collective_report(coll), flops=counted["flops"], **memory,
+        repeat=repeated, step_ops=op_counts(coll),
         local_gb=sum(t.numel() * t.element_size()
                      for t in params.values()) / 1e9,
         split={k: sum(v == k for v in split.values())
@@ -4229,6 +4337,9 @@ def tp_report(ranks):
         flops_share_of_a_data_rank=[x * data for x in share],
         ms_by_rank=[r["ms"] for r in ranks],
         peak_gb_by_rank=[r["peak_gb"] for r in ranks],
+        step_peak_gb_by_rank=[r["step_peak_gb"] for r in ranks],
+        gathered_peak_gb_by_rank=[r["gathered_peak_gb"] for r in ranks],
+        repeat_by_rank=[r["repeat"] for r in ranks],
         model_axis_ms_by_rank=[r["model_axis_ms"] for r in ranks],
         data_axis_ms_by_rank=[r["data_axis_ms"] for r in ranks])
 
@@ -4358,10 +4469,23 @@ def distributed(dev):
     two, two_launches = run_dist("two", 2, work)
     rep["two_ranks_s"] = time.perf_counter() - t
     rep["train"] = dict(plain=two[0]["plain"], sharded=two[0]["sharded"],
-                        peak_gb_by_rank=[r["sharded"]["peak_gb"]
-                                         for r in two],
-                        collective_ms_by_rank=[r["sharded"]["collective_ms"]
-                                               for r in two])
+                        **{f"{k}_by_rank": [r["sharded"][k] for r in two]
+                           for k in ("ms", "peak_gb", "step_peak_gb",
+                                     "gathered_peak_gb", "collective_ms")})
+    # the per-layer gather's steps: each rank's memory and time
+    rep["per_layer"] = {
+        name: {k: r[f"{k}_by_rank"] for k in (
+            "ms", "peak_gb", "step_peak_gb", "gathered_peak_gb")}
+        for name, r in ((f"{LM_ARCH} 2x1", rep["train"]),
+                        (f"{LM_ARCH} 2x2", rep["tp"]),
+                        (f"{MOE_ARCH} 2x2", rep["tp_moe"]))}
+    for name, r in ((f"{LM_ARCH} 2x1", two[0]["sharded"]),
+                    (f"{LM_ARCH} 2x2", rep["tp"]),
+                    (f"{MOE_ARCH} 2x2", rep["tp_moe"])):
+        rep["per_layer"][name].update(gathered_calls=r["gathered_calls"],
+                                      gathered_gb=r["gathered_gb"])
+    rep["per_layer"][f"{MOE_ARCH} 2x2"]["repeat"] = rep["tp_moe"][
+        "repeat_by_rank"]
     # gemma3-1b's full-width step on (2, 1) beside (2, 2)
     one, tp = two[0]["sharded"], rep["tp"]
     rep["tp_beside_2x1"] = {

@@ -2,8 +2,9 @@
 collectives (``compat``), the sharding rules, the placement of tensors
 and of decode caches by them (``Sharded``, ``ShardedCache``) and each
 parameter's compute split over the "model" axis (``sharding``), the
-tensor-parallel operators of that split (``tp``),
-sequence-parallel decode attention (``sp``), GPipe pipelining (``pp``)
+tensor-parallel operators of that split (``tp``), the sharded train
+step's weights gathered layer by layer (``fsdp``), sequence-parallel
+decode attention (``sp``), GPipe pipelining (``pp``)
 and int8 gradient compression (``compression``).  The sharded train
 step is ``train.step.make_train_step(..., mesh=)``; the serving steps on
 a mesh are ``train.step.make_prefill_step(..., mesh=)`` and

@@ -6,7 +6,8 @@ it, ``sp.py`` and ``pp.py`` call ``jax.lax``'s collectives over a named
 mesh axis.  Here a mesh axis is a process group
 (``launch.mesh.Mesh.group``), and these functions are those collectives,
 named after them: :func:`psum`, :func:`pmax`, :func:`all_gather`
-(concatenating, as ``all_gather(..., tiled=True)``), :func:`ppermute` and
+(concatenating, as ``all_gather(..., tiled=True)``), :func:`reduce_scatter`
+(``psum_scatter(..., tiled=True)``), :func:`ppermute` and
 :func:`axis_index`.  Every collective of the port goes through this
 module.  Each returns a new tensor and leaves its input as it was.
 
@@ -31,8 +32,16 @@ Each is also counted by the mesh axes its group spans
 of ``launch.mesh.make_mesh_compat`` is described as ``"mesh:<axes>"``).
 Inside :func:`counted_apart` a collective is counted in ``APART[name]``
 as well: the recomputed forward of a checkpointed block
-(``models.remat``, ``"recompute"``) and the fill of a working module
-(``train.step.gather_working``, ``"working_gather"``) are counted so.
+(``models.remat``, ``"recompute"``) and the gathers of weights (the
+train step's, layer by layer, ``distributed.fsdp``; the serving steps'
+working module, ``train.step.gather_working``: ``"working_gather"``)
+are counted so.
+
+``GATHERED`` counts the weights the train step gathers layer by layer
+(``distributed.fsdp``): the leaves gathered, their bytes, the bytes of
+gathered storage alive now and the most alive at once since the last
+:func:`reset_stats` (which sets the first two to 0 and the high-water
+mark to what is alive then).
 """
 
 from __future__ import annotations
@@ -41,15 +50,18 @@ import contextlib
 import contextvars
 import dataclasses
 import os
+import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-__all__ = ["init_distributed", "psum", "pmax", "all_gather", "ppermute",
-           "axis_index", "host_staged", "STATS", "APART", "reset_stats",
-           "counted_apart", "CollectiveStats"]
+__all__ = ["init_distributed", "psum", "pmax", "all_gather",
+           "reduce_scatter", "ppermute", "axis_index", "host_staged", "STATS",
+           "APART", "GATHERED", "reset_stats", "counted_apart",
+           "CollectiveStats", "GatheredBytes"]
 
 # the collectives torch's gloo backend takes CUDA tensors for
 _GLOO_CUDA = ("all_reduce", "broadcast")
@@ -88,15 +100,56 @@ class CollectiveStats:
             d.clear()
 
 
+class GatheredBytes:
+    """The weights gathered layer by layer (module docstring): ``calls``
+    (leaves gathered), ``bytes`` (their gathered bytes), ``alive`` (bytes
+    of gathered storage not yet freed) and ``peak`` (the most alive at
+    once).  Storage is freed in whatever thread drops it last (the
+    autograd engine's, on CUDA), so the counts move under a lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.calls = self.bytes = self.alive = self.peak = 0
+
+    def gathered(self, t: torch.Tensor) -> None:
+        """Count ``t``, a gathered weight, alive until its storage is
+        freed."""
+        storage = t.untyped_storage()
+        nbytes = storage.nbytes()
+        with self._lock:
+            self.calls += 1
+            self.bytes += nbytes
+            self.alive += nbytes
+            self.peak = max(self.peak, self.alive)
+        weakref.finalize(storage, self._freed, nbytes)
+
+    def _freed(self, nbytes: int) -> None:
+        with self._lock:
+            self.alive -= nbytes
+
+    def as_dict(self) -> dict:
+        with self._lock:
+            return dict(calls=self.calls, bytes=self.bytes, alive=self.alive,
+                        peak=self.peak)
+
+    def clear(self) -> None:
+        with self._lock:
+            self.calls = self.bytes = 0
+            self.peak = self.alive
+
+
 STATS = CollectiveStats()
 APART: Dict[str, CollectiveStats] = {}
+GATHERED = GatheredBytes()
 _APART: contextvars.ContextVar = contextvars.ContextVar("apart", default=())
 
 
 def reset_stats() -> None:
-    """Set every count of ``STATS`` to 0 and empty ``APART``."""
+    """Set every count of ``STATS`` to 0, empty ``APART`` and restart
+    ``GATHERED``'s counts (module docstring)."""
     STATS.clear()
     APART.clear()
+    GATHERED.clear()
 
 
 @contextlib.contextmanager
@@ -192,6 +245,32 @@ def all_gather(x: torch.Tensor, group, dim: int = 0,
                  for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, src, group=group)
         out = torch.cat(parts, dim=dim)
+        if staged:
+            out = out.to(x.device)
+    return out
+
+
+# torch 2.13 renames reduce_scatter_tensor; older releases have only it
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+
+
+def reduce_scatter(x: torch.Tensor, group, dim: int = 0,
+                   axis: Optional[str] = None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group``, cut along ``dim`` into
+    one equal block a rank, this rank's block (``jax.lax.psum_scatter(...,
+    scatter_dimension=dim, tiled=True)``)."""
+    n = dist.get_world_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    staged = host_staged(group, x, "reduce_scatter")
+    with _timed("reduce_scatter", x, group, axis):
+        src = (x.detach().cpu() if staged else x.detach()).movedim(
+            dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // n, *src.shape[1:]))
+        _REDUCE_SCATTER(out, src, group=group)
+        out = out.movedim(0, dim).contiguous()
         if staged:
             out = out.to(x.device)
     return out

@@ -60,7 +60,7 @@ def compress_tree_int8(grads: Dict[str, torch.Tensor],
                        ) -> Dict[str, torch.Tensor]:
     """Simulate the int8 all-reduce path: quantize-dequantize each leaf.
     Where the gradients are this rank's shards of the leaves (the sharded
-    step's, split over the "model" axis), ``reduce_max`` maps the stacked
+    step's, split over the mesh's axes), ``reduce_max`` maps the stacked
     per-leaf peaks to their max over the ranks that split them (a
     ``pmax``), so every shard takes the whole leaf's scale."""
     scales = _scales(grads, leaf_of, reduce_max)

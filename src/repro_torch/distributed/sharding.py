@@ -407,12 +407,6 @@ class Sharded(dict):
         """``local`` (shards of the same names and specs) as a Sharded."""
         return Sharded(local, self.specs, self.shapes, self.mesh)
 
-    def data_slice(self, name: str, t: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of ``t``, a tensor whole over every axis but
-        "model", where it is this rank's model shard (the layout of the
-        sharded step's gradients)."""
-        return local_slice(t, without_model(self.specs[name]), self.mesh)
-
     def whole(self, name: str) -> torch.Tensor:
         """The whole tensor ``name``, gathered (a collective: every rank of
         the mesh calls it, in the same order)."""

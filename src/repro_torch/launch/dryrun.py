@@ -28,16 +28,19 @@ they translate: ``arch``, ``shape``, ``kind``, ``mesh``, ``n_devices``,
 in place of ``lower_s`` / ``compile_s``), ``memory`` (this rank's
 ``argument_bytes``: parameter, optimizer, batch and cache; the step's
 ``output_bytes`` that are no argument; ``temp_bytes``, the peak over the
-arguments, the working module of the step included; ``peak_bytes`` and
+arguments, the gathered weights of the step included; ``peak_bytes`` and
 ``MemTracker``'s ``peak_by_kind`` at it, on the step's device, the
 arguments counted as "Other"; ``code_bytes`` and ``alias_bytes`` None),
 ``cost.flops`` (this rank's, forward, backward,
 recomputation and optimizer), ``collectives`` (one step's ``bytes`` and
 ``counts`` under the reference's kinds, ``by_axes`` by the mesh axes of
 each group, ``ops`` as ``compat.STATS`` names them; ``working_gather``
-apart: the fill of the step's working module, in every train step but
-once for the serving steps, which is not in their step's counts;
-``recompute`` apart: the calls the recomputed blocks issue again),
+apart: the train step's gathers of weights, layer by layer and again
+where a block is recomputed, in its counts, or the serving steps' fill
+of their working module, once, not in their step's counts; ``recompute``
+apart: the calls the recomputed blocks issue again; ``gathered``:
+``compat.GATHERED``, the train step's gathered leaves, their bytes and
+the most bytes of them alive at once),
 ``model_flops_global``, ``remat_policy`` and ``differs_from_reference``,
 which names where the port partitions otherwise than the reference's
 GSPMD program (ROADMAP.md, queue 1).  A collective's bytes are this
@@ -92,6 +95,7 @@ _KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
           "collective-permute")
 # compat's op names -> the reference's HLO kinds
 _KIND_OF = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+            "reduce_scatter": "reduce-scatter",
             "ppermute": "collective-permute"}
 
 
@@ -188,12 +192,13 @@ def _zeros_like_spec(specs: Dict[str, torch.Tensor], device):
 def differs_from_reference(cfg: ModelConfig, shape: ShapeSpec, kind: str,
                            mesh) -> list:
     """Where this cell's step partitions otherwise than the reference's
-    GSPMD program (ROADMAP.md, queue 1, items 1-3)."""
+    GSPMD program (ROADMAP.md, queue 1)."""
     out = []
     dp = dp_axes(mesh)
-    if mesh.axis_size(dp) > 1:
-        out.append("weights gathered whole over the data axes for the whole "
-                   "step (the working module), not layer by layer")
+    if kind != "train" and mesh.axis_size(dp) > 1:
+        out.append("weights gathered whole over the data axes once and held "
+                   "across calls (the serving step's working module), not "
+                   "layer by layer")
     if axis_size(mesh, "model") > 1 and cfg.family in ("hybrid", "ssm"):
         out.append("Mamba2 / xLSTM mixers gathered and computed whole on "
                    "every model rank")
@@ -256,8 +261,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, kind: str, mesh,
 def step_counts(kind: str) -> dict:
     """``compat``'s counts of one call of a cell's step, as the record
     keeps them: ``ops`` and ``by_axes`` of the step (for the serving
-    steps without the working module's one-time gather), the gather and
-    the recomputed calls apart (module docstring)."""
+    steps without the working module's one-time gather), the gathers and
+    the recomputed calls apart, and ``compat.GATHERED`` (module
+    docstring)."""
     none = compat.CollectiveStats()
     gather = compat.APART.get("working_gather", none)
     recompute = compat.APART.get("recompute", none)
@@ -270,7 +276,9 @@ def step_counts(kind: str) -> dict:
                                "ops": _counts(gather.as_dict()),
                                "in_step": kind == "train"},
             "recompute": {**collective_bytes(_counts(recompute.as_dict())),
-                          "ops": _counts(recompute.as_dict())}}
+                          "ops": _counts(recompute.as_dict())},
+            "gathered": {k: v for k, v in compat.GATHERED.as_dict().items()
+                         if k != "alive"}}
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool,
@@ -313,8 +321,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
             rec["collectives"] = step_counts(kind)
         finally:
             compat.reset_stats()
-        # the step's device only: the working module is built from one on
-        # the meta device, which holds no memory
+        # the step's device only: the modules the sharded steps fill are
+        # built on the meta device, which holds no memory
         peaks = [v for d, v in tracker.get_tracker_snapshot("peak").items()
                  if d.type == torch.device(device).type]
         peak = sum(v["Total"] for v in peaks)

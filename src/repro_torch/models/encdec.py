@@ -18,7 +18,8 @@ changes no result).  With ``remat`` and grad enabled each encoder block
 and each decoder block (self-attention, cross-attention over the memory,
 MLP) runs through ``models.remat.remat_call`` under
 ``cfg.remat_policy``, as the reference checkpoints its encoder and
-decoder bodies.
+decoder bodies; in the sharded train step each block gathers its own
+weights inside that call (``distributed.fsdp``).
 
 On a mesh (``distributed.sharding.ShardedCache``, the sharded serving
 steps) :func:`encdec_prefill_memory` runs the encoder split over the
@@ -37,6 +38,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import fsdp as _fsdp
 from ..distributed import tp as _tp
 from ..distributed.sharding import ShardedCache, local_slice
 from . import attention as _attn
@@ -177,10 +179,11 @@ def encdec_encode(params: EncDec, cfg: ModelConfig, frames,
 
 
 def _enc_block(p, x, positions, cfg):
-    return _dense_block(p, x, positions, cfg, causal=False)
+    return _dense_block(_fsdp.gathered(p), x, positions, cfg, causal=False)
 
 
 def _dec_block(p, x, memory, positions, cfg):
+    p = _fsdp.gathered(p)
     x = x + attention(p.self_attn, rms_norm(x, p.ln1.scale, cfg.norm_eps),
                       positions, cfg, causal=True)
     h = rms_norm(x, p.ln_x.scale, cfg.norm_eps)
@@ -196,9 +199,12 @@ def _dec_block(p, x, memory, positions, cfg):
 def encdec_apply(params: EncDec, cfg: ModelConfig, frames, dec_tokens,
                  remat: bool = True, unroll: bool = False):
     """Training/prefill forward -> (logits (B, S_dec, V), aux 0).  Under a
-    model axis (``distributed.tp``: the sharded train step's working
-    module) every block splits as the decoder's do, and the logits are
-    this rank's ``V / tp`` of the padded vocabulary."""
+    model axis (``distributed.tp``: the sharded steps) every block splits
+    as the decoder's do, and the logits are this rank's ``V / tp`` of the
+    padded vocabulary.  In the sharded train step the leaves outside the
+    blocks are gathered here and each block's inside its own call
+    (``distributed.fsdp``)."""
+    params = _fsdp.gathered(params)
     memory = encdec_encode(params, cfg, frames, remat=remat)
     B, S = dec_tokens.shape
     vocab = vocab_axis(params.embed.table, cfg.padded_vocab)

@@ -141,8 +141,8 @@ def mlp(x, wi_gate, wi_up, wo, axis=None):
 
 def mlp_apply(params: "MLP", x, d_ff: int):
     """``params`` (an :class:`MLP` of width ``d_ff``) on ``x``: split over
-    the current model axis where ``d_ff`` divides it (the working module
-    of the sharded train step holds this rank's shards), else whole."""
+    the current model axis where ``d_ff`` divides it (the sharded steps
+    hand it this rank's model shards), else whole."""
     axis = _tp.axis_for(d_ff)
     if axis is not None:
         _tp.check_local(params.wi_gate.kernel, 1, d_ff, axis, "mlp.wi_gate")

@@ -32,10 +32,10 @@ share of the probability mean (the slices' losses sum to the reference's).
 Each data rank still sizes its ``(E, C, d)`` buffer by the whole batch
 and fills only its own slots.
 
-Under a model axis that splits the experts (``distributed.tp``, the
-sharded train step's working module), each model rank holds ``E / tp``
-contiguous experts and runs the batched matmuls over their rows of the
-buffer only; the router's logits are whole (its kernel gathered, the
+Under a model axis that splits the experts (``distributed.tp``: the
+sharded steps hand it this rank's model shards), each model rank holds
+``E / tp`` contiguous experts and runs the batched matmuls over their
+rows of the buffer only; the router's logits are whole (its kernel gathered, the
 routing computed alike on every model rank), the gate weights enter by
 ``copy`` (their gradient summed over the model ranks), and each rank's
 combined output, which holds only its experts' contributions, is

@@ -45,6 +45,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..distributed import fsdp as _fsdp
 from ..distributed import tp as _tp
 from ..distributed.sharding import (ShardedCache, local_slice, only_model,
                                     unshard)
@@ -287,7 +288,10 @@ def _lora(params: MambaHybrid, x):
 
 
 def _apply_super(kind, params, x, positions, cfg, shared=None):
-    """Forward one super-block; returns (x, aux_loss or None)."""
+    """Forward one super-block; returns (x, aux_loss or None).  In the
+    sharded train step its weights are gathered here, inside the block
+    that ``remat_call`` recomputes (``distributed.fsdp``)."""
+    params = _fsdp.gathered(params)
     if kind in ("dense_block", "local_only"):
         w = cfg.sliding_window if (
             kind == "local_only"
@@ -383,12 +387,16 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
                   unroll: bool = False):
     """Forward pass -> (logits (B,S,V), aux_loss): the MoE blocks' Switch
     losses summed over layers (0 for the other families).  Under a model
-    axis (``distributed.tp``: the sharded train step's working module) the
-    blocks split their compute, the embedding is vocab-parallel and the
+    axis (``distributed.tp``: the sharded steps) the blocks split their
+    compute, the embedding is vocab-parallel and the
     logits are this rank's ``(B, S, V / tp)``; the Mamba2 and xLSTM
-    mixers compute whole on every model rank.  ``remat`` recomputes each
-    super-block in the backward pass under ``cfg.remat_policy`` (module
-    docstring)."""
+    mixers compute whole on every model rank.  In the sharded train step
+    ``params`` holds this rank's shards: the leaves outside the
+    super-blocks (the embedding, the final norm, the shared block) are
+    gathered here, once, and each super-block's inside its own call
+    (``distributed.fsdp``).  ``remat`` recomputes each super-block in the
+    backward pass under ``cfg.remat_policy`` (module docstring)."""
+    params = _fsdp.gathered(params)
     vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
     if embeddings is None:
         x = embed(params.embed.table, tokens, vocab).to(_dtype(cfg))

@@ -17,12 +17,11 @@ Parameters are an ``nn.Module`` (``models.transformer.Decoder``,
 gradients, ``mu`` and ``nu`` are dicts keyed by parameter name, the
 moments f32 whatever the parameters' dtype.  On a mesh the parameters
 are this rank's shards (``distributed.sharding.Sharded``): the moments
-are shards of the same specs (optimizer state shardings mirror params),
-the gradients are the sharded step's (this rank's model shard of each
-tensor the rules split over "model", whole over the data axes), their
-global norm is the ``psum`` over "model" of each rank's squares of its
-shards plus, once, the squares of the tensors left whole on that axis,
-and each rank updates its own slices.  A parameter written in
+and the gradients (the sharded step's) are shards of the same specs
+(optimizer state shardings mirror params), their global norm is the
+``psum`` of each rank's squares over every mesh axis that splits a
+tensor, a shard held by several ranks counted once, and each rank
+updates its own slices.  A parameter written in
 place moves its version counter, so ``models.layers.cast`` drops its kept
 bf16 copy and the next serve step reads the new weights.
 """
@@ -39,7 +38,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from ..distributed import compat
-from ..distributed.sharding import Sharded, axis_size, only_model
+from ..distributed.sharding import Sharded
 
 __all__ = ["AdamWConfig", "OptState", "init_opt", "apply_updates", "lr_at"]
 
@@ -132,21 +131,19 @@ def lr_at(step, cfg: AdamWConfig) -> torch.Tensor:
 
 
 def _sharded_norm(params: Sharded, grads) -> torch.Tensor:
-    """The global norm of gradients held as model shards: the ``psum`` over
-    "model" of the squares of each rank's shards, plus, once, those of
-    the tensors the rules leave whole on that axis (the same on every
-    model rank)."""
-    dev = next(iter(grads.values())).device
-    own = torch.zeros((), dtype=torch.float32, device=dev)
-    rest = torch.zeros((), dtype=torch.float32, device=dev)
+    """The global norm of gradients held as shards of their parameters'
+    specs: each rank's squares of its shards summed by the set of mesh
+    axes that split them, each sum ``psum``-ed over those axes (a shard
+    that other ranks hold replicas of is counted once), the sums added."""
+    mesh, sums = params.mesh, {}
     for n in params:
-        sq = grads[n].float().square().sum()
-        if any(only_model(params.specs[n])):
-            own = own + sq
-        else:
-            rest = rest + sq
-    own = compat.psum(own, params.mesh.group("model"), axis="model")
-    return torch.sqrt(own + rest)
+        used = {a for axes in params.specs[n] if axes
+                for a in ((axes,) if isinstance(axes, str) else axes)}
+        key = tuple(a for a in mesh.axis_names if a in used)
+        sums[key] = sums.get(key, 0) + grads[n].float().square().sum()
+    total = sum(compat.psum(sq, mesh.group(axes)) if axes else sq
+                for axes, sq in sums.items())
+    return torch.sqrt(total)
 
 
 @torch.no_grad()
@@ -159,7 +156,7 @@ def apply_updates(params, grads: Dict[str, torch.Tensor],
     module or a ``Sharded`` set of this rank's slices (module
     docstring)."""
     named = _named(params)
-    if isinstance(params, Sharded) and axis_size(params.mesh, "model") > 1:
+    if isinstance(params, Sharded):
         gnorm = _sharded_norm(params, grads)
     else:
         gnorm = torch.sqrt(sum(grads[n].float().square().sum()
@@ -175,10 +172,7 @@ def apply_updates(params, grads: Dict[str, torch.Tensor],
     dev = gnorm.device
     lr_d, b1c_d, b2c_d = (x.to(dev) for x in (lr, b1c, b2c))
     for n, p in named:
-        g = grads[n]
-        if isinstance(params, Sharded):
-            g = params.data_slice(n, g)
-        g = g.float() * clip
+        g = grads[n].float() * clip
         m, v = state.mu[n], state.nu[n]
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g.square())

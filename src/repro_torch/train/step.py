@@ -13,13 +13,18 @@ On a mesh (``mesh=``) ``make_train_step`` builds the sharded step, which
 computes the reference's ``train_step`` jitted under its
 ``param_shardings`` / ``batch_shardings``.  Each rank holds its shards of
 the parameters and of ``mu`` / ``nu`` (``distributed.sharding.Sharded``,
-placed by ``checkpoint.reshard``).  A step fills a working module of
-this rank's local shapes (:func:`working_module`, :func:`gather_working`):
-each leaf that ``sharding.compute_split`` marks ``SPLIT`` is gathered
-over the data axes only and stays this rank's model shard, every other
-leaf is gathered whole.  The ranks of the "model" axis then split the
-compute as the reference's GSPMD-partitioned step does
-(``distributed.tp``): attention on this rank's heads (``wq``
+placed by ``checkpoint.reshard``).  The weights are gathered layer by
+layer, as the reference's FSDP rules have GSPMD gather them
+(``distributed.fsdp``): each super-block gathers its own leaves inside
+its call, and again where the backward pass recomputes it, and its
+gradients are reduced back to this rank's shards inside the block's
+backward pass; the leaves outside the super-blocks (the embedding, the
+final norm, zamba2's shared block, whisper's encoder norm) are gathered
+once, at their use.  A leaf that ``sharding.compute_split`` marks
+``SPLIT`` is gathered over the data axes only and stays this rank's
+model shard, every other leaf is gathered whole.  The ranks of the
+"model" axis then split the compute as the reference's GSPMD-partitioned
+step does (``distributed.tp``): attention on this rank's heads (``wq``
 column-parallel, ``wo`` row-parallel; K/V on its KV heads, or from the
 whole gathered ``wk`` / ``wv`` whose gradients are summed over "model"),
 else on its block of the query sequence with K/V gathered
@@ -32,19 +37,18 @@ _vocab_parallel_nll`).  The batch splits over the data axes by
 batch is computed whole on every data rank); the loss comes from global
 sums (the NLL sum and the label count ``psum``-ed over the data axes,
 MoE layers routing over the whole batch: ``models.moe.split_tokens``);
-each gradient is taken back to its parameter's model layout and
-``psum``-ed over the data axes; the int8 compression applies to the
-reduced gradient where asked (each leaf's scale the ``pmax`` over
-"model" of its shards'), and AdamW clips by the global norm (the model
-ranks' squares ``psum``-ed, a leaf left whole counted once) and updates
-each rank's own slices.  On a model axis of one rank nothing is split
-and the step is the data-parallel one, bit for bit.  Not split:
+each gradient comes out as this rank's shard of its parameter's, at its
+stored local shape (reduce-scattered over the data axes that shard it,
+``psum``-ed over the others); the int8 compression applies to it where
+asked (each leaf's scale the ``pmax`` of its shards' over the mesh), and
+AdamW clips by the global norm (each rank's squares ``psum``-ed over the
+axes that split them, a replicated shard counted once) and updates each
+rank's own slices.  On a model axis of one rank nothing is split; on a
+(1, 1) mesh the step is the one-process step, bit for bit.  Not split:
 zamba2's Mamba2 and xlstm's mLSTM / sLSTM mixers, whose packed
 projections do not line up with a contiguous model shard (computed whole
-on every model rank);
-each data rank still runs its MoE experts over an ``(E / tp, C, d)``
-buffer sized by the whole batch; the weights are gathered for the whole
-step, not layer by layer: ROADMAP.md, queue 1.
+on every model rank); each data rank still runs its MoE experts over an
+``(E / tp, C, d)`` buffer sized by the whole batch: ROADMAP.md, queue 1.
 ``make_prefill_step``: forward only, returns the last position's logits.
 ``make_serve_step``: one greedy decode step against a KV cache.
 The serving steps run without autograd.  Every step hands its inputs to
@@ -55,10 +59,11 @@ memory, from ``models.encdec.encdec_prefill_memory``).
 On a mesh (``mesh=``) the serving steps compute the reference's
 ``prefill_step`` and ``serve_step`` jitted under ``param_shardings`` /
 ``batch_shardings`` / ``cache_shardings``, with the train step's
-machinery: the working module of this rank's model shards (held by
-the step, as the train step holds its own, but gathered once, not every
-call: again only for another ``params`` or after the step's
-``regather()``), the batch split over the data axes by
+machinery but for one thing: each holds a working module of this rank's
+model shards, whole over the data axes (:func:`working_module`, filled
+by :func:`gather_working`), gathered at its first call and again only
+for another ``params`` or after the step's ``regather()``, not layer by
+layer (ROADMAP.md, queue 1); the batch split over the data axes by
 ``batch_shardings`` (computed whole where the rules shard the sequence
 instead), MoE layers routing over the whole
 batch, and the model axis splitting attention, the MLPs, the experts and
@@ -97,7 +102,8 @@ from ..device import resolve_device
 from ..distributed import compat
 from ..distributed import tp as _tp
 from ..distributed.compression import compress_tree_int8
-from ..distributed.sharding import (GATHER, SPLIT, Sharded, ShardedCache,
+from ..distributed.fsdp import LayerGather, gathering
+from ..distributed.sharding import (SPLIT, Sharded, ShardedCache,
                                     axis_size, batch_shardings,
                                     compute_split, dp_axes, local_slice,
                                     only_model, unshard, without_model)
@@ -183,8 +189,8 @@ def _grads(loss, named):
 
 
 def working_module(cfg: ModelConfig, params: Sharded, device) -> nn.Module:
-    """The module a rank computes the sharded step with: the model's
-    parameters at this rank's local shapes, a model shard where
+    """The module a rank computes the sharded serving steps with: the
+    model's parameters at this rank's local shapes, a model shard where
     ``compute_split`` says ``SPLIT`` (whole over the data axes), else the
     whole tensor; filled by :func:`gather_working` (storage only:
     ``torch.empty``)."""
@@ -216,38 +222,31 @@ def gather_working(params: Sharded, module: nn.Module) -> None:
                 p.copy_(params.whole(n))
 
 
-def sharded_loss_and_grads(model, params: Sharded, module,
+def sharded_loss_and_grads(model, params: Sharded,
                            batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                            unroll: bool = False, remat: bool = True):
     """``(loss, ce, grads)`` of the global ``batch`` on ``params.mesh``: the
     reference's loss over the whole batch and its gradients, from this
     rank's slice of the batch where ``batch_shardings`` splits it over
     the data axes, else from the whole batch, with the compute split over
-    the "model" axis (module docstring).  ``module`` is the working module
-    (:func:`working_module`, filled by :func:`gather_working`).  Each
-    gradient is in the layout its parameter is stored in over "model"
-    (this rank's model shard, or whole where the rules leave it whole)
-    and whole over the data axes, the same on every data rank."""
+    the "model" axis and each block's weights gathered inside its own
+    call (module docstring).  Each gradient is this rank's shard of its
+    parameter's, at the parameter's stored local shape, summed over the
+    data ranks inside the backward pass."""
     mesh = params.mesh
-    split = compute_split(params.specs, cfg, mesh)
     axis = _tp.ModelAxis.of(mesh) if axis_size(mesh, _tp.AXIS) > 1 else None
-    named = list(module.named_parameters())
     dp = dp_axes(mesh)
     specs = batch_shardings(batch, mesh)
-
-    def stored(grads):
-        # a leaf gathered whole over "model" back to this rank's shard
-        return {n: local_slice(g, only_model(params.specs[n]), mesh)
-                .contiguous() if split[n] == GATHER else g
-                for n, g in grads.items()}
-
-    with _tp.split_model(axis):
-        if specs["labels"][:1] != (dp,):
+    split = specs["labels"][:1] == (dp,)
+    plan = LayerGather(cfg, params, reduce=split)
+    named = list(plan.module.named_parameters())
+    with _tp.split_model(axis), gathering(plan):
+        if not split:
             with torch.enable_grad():
-                loss, ce = loss_fn(model, module, batch, cfg, unroll=unroll,
-                                   remat=remat)
+                loss, ce = loss_fn(model, plan.module, batch, cfg,
+                                   unroll=unroll, remat=remat)
                 grads = _grads(loss, named)
-            return loss.detach(), ce.detach(), stored(grads)
+            return loss.detach(), ce.detach(), grads
         group = mesh.group(dp)
         local = {k: local_slice(v, specs[k], mesh) for k, v in batch.items()}
         labels = local["labels"]
@@ -256,25 +255,23 @@ def sharded_loss_and_grads(model, params: Sharded, module,
         ts = TokenSplit(n=mesh.axis_size(dp), index=mesh.index(dp),
                         gather=lambda c: compat.all_gather(c[None], group))
         with torch.enable_grad(), split_tokens(ts):
-            nll, _, aux = _loss_sums(model, module, local, cfg, unroll,
+            nll, _, aux = _loss_sums(model, plan.module, local, cfg, unroll,
                                      remat)
             nll_sum = nll.sum()
-            grads = stored(_grads(nll_sum / count + _AUX_WEIGHT * aux,
-                                  named))
-    for n in grads:     # one tensor at a time: one extra in memory
-        grads[n] = compat.psum(grads[n], group)
+            grads = _grads(nll_sum / count + _AUX_WEIGHT * aux, named)
     ce = compat.psum(nll_sum.detach(), group) / count
     loss = ce + _AUX_WEIGHT * compat.psum(aux.detach(), group)
     return loss, ce, grads
 
 
-def _model_pmax(mesh):
-    """The max over the "model" axis, for the int8 scales of gradients
-    held as model shards; None where the axis has one rank."""
-    if axis_size(mesh, _tp.AXIS) == 1:
+def _mesh_pmax(mesh):
+    """The max over the whole mesh, for the int8 scales of gradients held
+    as shards (a rank holding a replica of a shard adds nothing to a
+    max); None on a mesh of one rank."""
+    if mesh.size == 1:
         return None
-    group = mesh.group(_tp.AXIS)
-    return lambda t: compat.pmax(t, group, axis=_tp.AXIS)
+    group = mesh.group(mesh.axis_names)
+    return lambda t: compat.pmax(t, group)
 
 
 def _keeper(cfg: ModelConfig, device):
@@ -318,7 +315,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
     dev = resolve_device(device)
     model = build(cfg, device=dev)
     opt_cfg = opt_cfg or AdamWConfig()
-    keep = _keeper(cfg, dev)
 
     def train_step(params, opt_state: OptState, batch):
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -331,12 +327,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig | None = None,
             loss, ce = loss.detach(), ce.detach()
         else:
             loss, ce, grads = sharded_loss_and_grads(
-                model, params, keep(params, regather=True), batch, cfg,
-                unroll, remat)
+                model, params, batch, cfg, unroll, remat)
         if compress_grads:
             grads = compress_tree_int8(
                 grads, _leaf_of,
-                None if mesh is None else _model_pmax(mesh))
+                None if mesh is None else _mesh_pmax(mesh))
         params, opt_state, metrics = apply_updates(params, grads, opt_state,
                                                    opt_cfg)
         metrics = {"loss": loss, "ce": ce, **metrics}

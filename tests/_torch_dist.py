@@ -237,26 +237,45 @@ def mesh_name(shape):
     return "x".join(map(str, shape))
 
 
+@contextlib.contextmanager
+def recording_gathers(seen):
+    """``seen[name]`` = the shape of the tensor each leaf is gathered to
+    (or used as, where nothing gathers it) by the sharded train step's
+    per-layer gather (``distributed.fsdp``) inside the block."""
+    from repro_torch.distributed import fsdp
+
+    inner = fsdp.LayerGather._gather
+
+    def record(self, name, p):
+        out = inner(self, name, p)
+        seen[name] = tuple(out.shape)
+        return out
+
+    fsdp.LayerGather._gather = record
+    try:
+        yield seen
+    finally:
+        fsdp.LayerGather._gather = inner
+
+
 @job
 def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
     """One sharded step (with the int8 compression where ``compress``) on
     each live (data, model) mesh of ``shapes`` in turn, from the
     reference's weights and batch, keyed by the mesh's name (``2x4``):
     the gradients, the step's metrics, this rank's shards of the
-    parameters and moments, and what the model axis split: the working
-    module's shapes and each leaf's ``compute_split``, the logits' shape
-    and the expert count of each ``torch.bmm`` of the loss.  The
-    gradients of ``sharded_loss_and_grads`` are this rank's model
-    shards: they are gathered whole over "model" here."""
+    parameters and moments, and what the model axis split: the shapes
+    the per-layer gather gave each leaf and each leaf's
+    ``compute_split``, the logits' shape and the expert count of each
+    ``torch.bmm`` of the loss.  The gradients of
+    ``sharded_loss_and_grads`` are this rank's shards of the parameters'
+    specs: they are gathered whole here."""
     from repro_torch.checkpoint import reshard
-    from repro_torch.distributed import param_shardings, tp
-    from repro_torch.distributed.sharding import (compute_split, only_model,
-                                                  unshard)
+    from repro_torch.distributed import compat, fsdp, param_shardings, tp
+    from repro_torch.distributed.sharding import compute_split, unshard
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.train import optim as PO
-    from repro_torch.train.step import (gather_working, make_train_step,
-                                        sharded_loss_and_grads,
-                                        working_module)
+    from repro_torch.train.step import make_train_step, sharded_loss_and_grads
 
     cfg, module = restored(arch, ckpt_dir)
     with np.load(ref_npz) as z:
@@ -271,9 +290,7 @@ def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
         model, step = make_train_step(cfg, PO.AdamWConfig(**OPT),
                                       compress_grads=compress, device="cpu",
                                       mesh=mesh)
-        work = working_module(cfg, params, "cpu")
-        gather_working(params, work)
-        experts = []
+        experts, work = [], {}
         bmm = torch.bmm
 
         def counted(a, b):
@@ -281,26 +298,88 @@ def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
             return bmm(a, b)
 
         torch.bmm = counted
+        compat.reset_stats()
         try:
-            loss, ce, grads = sharded_loss_and_grads(model, params, work,
-                                                     batch, cfg)
+            with recording_gathers(work):
+                loss, ce, grads = sharded_loss_and_grads(model, params,
+                                                         batch, cfg)
         finally:
             torch.bmm = bmm
-        grads = {n: unshard(g, only_model(specs[n]), mesh)
-                 for n, g in grads.items()}
+        gathered = compat.GATHERED.as_dict()
+        local = {n: tuple(g.shape) for n, g in grads.items()}
+        grads = {n: unshard(g, specs[n], mesh) for n, g in grads.items()}
         inputs = {k: v for k, v in batch.items() if k != "labels"}
-        with torch.no_grad(), tp.split_model(tp.ModelAxis.of(mesh)):
-            logits = model.apply(work, **inputs)[0]
+        plan = fsdp.LayerGather(cfg, params, reduce=False)
+        with torch.no_grad(), tp.split_model(tp.ModelAxis.of(mesh)), \
+                fsdp.gathering(plan):
+            logits = model.apply(plan.module, **inputs)[0]
         params, opt, m = step(params, opt, batch)
         out[mesh_name(shape)] = dict(
             coords=mesh.coords, specs=specs, grads=_np(grads),
+            grad_shapes=local,
             grad_loss=float(loss), grad_ce=float(ce),
             metrics={k: float(v) for k, v in m.items()},
             params=_np(params), mu=_np(opt.mu), nu=_np(opt.nu),
             step=int(opt.step),
-            split=compute_split(specs, cfg, mesh),
-            work={n: tuple(p.shape) for n, p in work.named_parameters()},
-            logits=tuple(logits.shape), experts=experts)
+            split=compute_split(specs, cfg, mesh), work=work,
+            gathered=gathered, logits=tuple(logits.shape), experts=experts)
+    return out
+
+
+@job
+def layer_gather(archs, root, shapes, bound_layers):
+    """:func:`train` of each reduced config of ``archs`` (the reference's
+    weights and batch under ``root/<arch>``, ``root/<arch>.npz``) on
+    each mesh of ``shapes``, keyed by the arch, and under ``"bound"``
+    :func:`gather_bound` on the same meshes."""
+    out = {arch: train(arch, f"{root}/{arch}", f"{root}/{arch}.npz", shapes)
+           for arch in archs}
+    out["bound"] = gather_bound(shapes, bound_layers)
+    return out
+
+
+def gather_bound(shapes, n_layers, B=4, S=32):
+    """Reduced qwen2-72b cut to ``n_layers`` blocks, weights from seed 0,
+    numpy-seeded tokens: on each live (data, model) mesh of ``shapes``
+    and under ``remat_policy`` "full" and "dots", one
+    ``sharded_loss_and_grads``: ``compat.GATHERED`` over it and after it,
+    and the bytes each leaf is gathered to (the leaves that some axis
+    gathers), keyed ``<mesh>/<policy>``."""
+    import dataclasses
+
+    from repro_torch.checkpoint import reshard
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import compat, param_shardings
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build
+    from repro_torch.train.step import sharded_loss_and_grads
+
+    cfg = dataclasses.replace(reduced(get_config("qwen2-72b")),
+                              n_layers=n_layers)
+    module = build(cfg, device="cpu").init(0)
+    toks = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+             "labels": torch.from_numpy(toks[:, 1:])}
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh_compat(shape, ("data", "model"), device="cpu")
+        params = reshard(module, param_shardings(module, mesh,
+                                                 cfg.n_experts), mesh)
+        for policy in ("full", "dots"):
+            c = dataclasses.replace(cfg, remat_policy=policy)
+            work = {}
+            compat.reset_stats()
+            with recording_gathers(work):
+                _, _, grads = sharded_loss_and_grads(build(c, device="cpu"),
+                                                     params, batch, c)
+            during = compat.GATHERED.as_dict()
+            del grads
+            out[f"{mesh_name(shape)}/{policy}"] = dict(
+                gathered=during, after=compat.GATHERED.as_dict(),
+                sizes={n: int(np.prod(s)) * params[n].element_size()
+                       for n, s in work.items()
+                       if s != tuple(params[n].shape)})
     return out
 
 
@@ -742,9 +821,7 @@ def remat_sharded(archs, B, S):
     from repro_torch.distributed import compat, param_shardings
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import build
-    from repro_torch.train.step import (gather_working,
-                                        sharded_loss_and_grads,
-                                        working_module)
+    from repro_torch.train.step import sharded_loss_and_grads
 
     mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
     out = {}
@@ -757,15 +834,13 @@ def remat_sharded(archs, B, S):
             0, cfg.vocab_size, (B, S + 1)).astype(np.int32)
         batch = {"tokens": torch.from_numpy(toks[:, :-1]),
                  "labels": torch.from_numpy(toks[:, 1:])}
-        work = working_module(cfg, params, "cpu")
-        gather_working(params, work)
         out[arch] = {}
         for policy in ("none", "full", "dots"):
             c = dataclasses.replace(cfg, remat_policy="full"
                                     if policy == "none" else policy)
             compat.reset_stats()
             loss, ce, grads = sharded_loss_and_grads(
-                build(c, device="cpu"), params, work, batch, c,
+                build(c, device="cpu"), params, batch, c,
                 remat=policy != "none")
             recomputed = compat.APART.get("recompute")
             out[arch][policy] = dict(

@@ -152,7 +152,8 @@ TP_MESHES = ((2, 4), (4, 2), (1, 8))
 
 
 def hold_split(ref, ranks, arch, name):
-    """What each rank computed with on mesh ``name``: a leaf that
+    """What each rank computed with on mesh ``name`` (the shapes the
+    per-layer gather gave each leaf): a leaf that
     ``compute_split`` marks ``split`` has its whole's shape with its
     model-split dimension cut tp times (``1/tp`` of the elements), every
     other leaf its whole shape; the logits' last dimension is the padded

@@ -2,8 +2,8 @@
 
 * For reduced gemma3 and reduced olmoe, train and decode cells (4 x 32)
   on a fake world of 4 on a (2, 2) mesh count, for rank 0, the same
-  collective calls and bytes (by op, by mesh axes, the working module's
-  gather and the recomputed calls apart) and the same ``FlopCounterMode``
+  collective calls and bytes (by op, by mesh axes, the gathers of
+  weights and the recomputed calls apart) and the same ``FlopCounterMode``
   FLOPs as four real gloo ranks running the same step on real weights
   (``tests/_torch_dist.py::dryrun_twin``): equal, not within a bound,
   since both sides count shapes.  The record's peak is the step's
