@@ -4173,7 +4173,7 @@ def keeping_grads(out):
 def repeat_report(first, loss, grads):
     """Whether a sharded step's loss and every gradient shard equal, bit
     for bit, those of ``first`` (``(loss, grads)`` on the host: the same
-    loss and gradients computed once before from the same state), and
+    loss and gradients computed before from the same state), and
     the largest gap of a gradient that does not, against its tensor's
     max."""
     import torch
@@ -4203,8 +4203,10 @@ def dist_tp(dev, arch, n_layers=None, repeat=False):
     held against it at the TRAIN_*_TOL bounds; MoE routing of each
     rank's tokens bit-equal to the one-process step's; each rank's peak
     memory and the per-layer gather's counts (:func:`step_memory`); with
-    ``repeat``, the loss and gradients computed once more before the
-    step from the same state, held bit for bit against the step's
+    ``repeat``, the loss and gradients computed twice more before the
+    step from the same state, bare and under the step's two dispatch
+    modes (the FLOP counter, the routing recorder), held bit for bit
+    against each other and the second against the step's
     (:func:`repeat_report`; reported, not a failure); digests of this
     rank's shards that other ranks also hold, for the parent's replica
     check (phase 18, 3d)."""
@@ -4243,11 +4245,15 @@ def dist_tp(dev, arch, n_layers=None, repeat=False):
     lm_free()
     opt = init_opt(params)
     model, mstep = make_train_step(cfg, opt_cfg, device=dev, mesh=mesh)
-    first = None
+    def on_host():
+        loss, _, grads = sharded_loss_and_grads(model, params, batch, cfg)
+        return loss.cpu(), {n: g.cpu() for n, g in grads.items()}
+
+    bare = moded = None
     if repeat:
-        loss0, _, grads0 = sharded_loss_and_grads(model, params, batch, cfg)
-        first = (loss0.cpu(), {n: g.cpu() for n, g in grads0.items()})
-        del loss0, grads0
+        bare = on_host()
+        with recording_routing([]), counting_flops({}):
+            moded = on_host()
     routes, counted, kept = [], {}, {}
     before = peak_then_reset()
     with recording_routing(routes), counting_flops(counted), \
@@ -4258,8 +4264,9 @@ def dist_tp(dev, arch, n_layers=None, repeat=False):
         (params, opt, m), s = timed(lambda: mstep(params, opt, batch))
     coll = compat.STATS.as_dict()
     memory = step_memory(before)
-    repeated = None if first is None else repeat_report(first, m["loss"],
-                                                        kept)
+    repeated = None if bare is None else dict(
+        bare_vs_modes=repeat_report(bare, *moded),
+        modes_vs_step=repeat_report(moded, m["loss"], kept))
     kept.clear()
     m = {k: float(v) for k, v in m.items()}
     gaps = hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg)

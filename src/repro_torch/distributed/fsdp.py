@@ -24,22 +24,21 @@ same in eager code:
   the autograd engine's thread, where the caller's context variables
   are unset.
 * :class:`LayerGather`, the step's plan: this rank's shard of every
-  parameter held by a module of the model's structure (:meth:`
-  LayerGather.module`, built on the meta device and filled with
-  autograd leaves that share the shards' storage), the ``blocks`` (each
-  super-block; whisper's encoder and decoder blocks) and
-  :meth:`LayerGather.view`, which gives a module of the same structure
-  whose leaves are the gathered tensors.
-* :func:`gathered`, the models' hook (``transformer.decoder_apply``,
-  ``_apply_super``; ``encdec``): under :func:`gathering`, a block's
-  function calls it first on its own parameters, so the gather runs
-  inside ``models.remat.remat_call`` and is recomputed with the block;
-  the model's own function calls it on the whole module, which gathers
-  the leaves outside the blocks (the embedding table, also the tied
-  logits', the final norm, zamba2's shared block, whisper's encoder
-  norm) once, at their use, their gradients reduced once.  Outside
-  :func:`gathering` it returns its argument: the one-process steps and
-  the serving steps compute as before.
+  parameter held by a module of the model's structure (:attr:`
+  LayerGather.module`, from ``models.module_of``: autograd leaves that
+  share the shards' storage) and :meth:`LayerGather.view`, which gives a
+  module of it with its leaves gathered.
+* :func:`gathered`, the models' hook, called where a module's weights
+  are used: under :func:`gathering`, a block's function
+  (``transformer._apply_super``; ``encdec._enc_block``, ``_dec_block``)
+  calls it first on its own parameters, so the gather runs inside
+  ``models.remat.remat_call`` and is recomputed with the block; the
+  model's own function calls it on each module outside the blocks (the
+  embedding table, also the tied logits', the final norm, zamba2's
+  shared block, whisper's encoder norm) once, at its use, its gradients
+  reduced once.  The block boundary is where the models call it.
+  Outside :func:`gathering` it returns its argument: the one-process
+  steps and the serving steps compute as before.
 
 Under "full" and "dots" nothing gathered is kept between a block's
 forward and its backward ("dots" keeps the outputs of the products, not
@@ -123,61 +122,38 @@ class _Gather(torch.autograd.Function):
         return _to_stored(g, ctx.leaf), None
 
 
-def _blocks_of(module: nn.Module):
-    """The blocks of ``module`` (a ``Decoder`` or an ``EncDec``), each
-    gathered at its own call: every super-block of every segment, or
-    whisper's encoder and decoder blocks."""
-    if hasattr(module, "segments"):
-        return [sup for seg in module.segments for sup in seg]
-    return [*module.enc_blocks, *module.dec_blocks]
-
-
 class LayerGather:
     """The sharded train step's plan for this rank's ``params``
-    (``sharding.Sharded``): :attr:`module`, the model's structure on the
-    meta device holding, as its parameters, autograd leaves that share
-    this rank's shards' storage (the tensors the step's gradients are
-    taken with respect to), and :meth:`view` (module docstring).
-    ``reduce`` says whether the data ranks compute different slices of
-    the batch, so that a gradient is summed over them."""
+    (``sharding.Sharded``): :attr:`module`, a module of the model's
+    structure whose parameters are autograd leaves that share this
+    rank's shards' storage (``models.module_of``: the tensors the step's
+    gradients are taken with respect to), and :meth:`view` (module
+    docstring).  ``reduce`` says whether the data ranks compute different
+    slices of the batch, so that a gradient is summed over them."""
 
-    def __init__(self, cfg, params, reduce: bool):
-        from ..models.encdec import EncDec
-        from ..models.transformer import Decoder
-
+    def __init__(self, module: nn.Module, params, reduce: bool):
         mesh = params.mesh
-        split = compute_split(params.specs, cfg, mesh)
-        module = (EncDec if cfg.encoder_decoder else Decoder)(
-            cfg, device="meta")
+        split = compute_split(params.specs, module.cfg, mesh)
         self.leaves: Dict[str, Optional[_Leaf]] = {}
-        for name, _ in list(module.named_parameters()):
+        for name, _ in module.named_parameters():
             spec = params.specs[name]
             layout = without_model(spec) if split[name] == SPLIT else spec
             self.leaves[name] = _Leaf(spec, layout, split[name] == GATHER,
                                       mesh, reduce) \
                 if reduce or _axes_of(layout) else None
-            owner, _, leaf = name.rpartition(".")
-            setattr(module.get_submodule(owner), leaf, nn.Parameter(
-                params[name].detach(), requires_grad=True))
         self.module = module
         self._names = {id(m): f"{n}." if n else ""
                        for n, m in module.named_modules()}
-        self._blocks = {id(m) for m in _blocks_of(module)}
 
     def view(self, module: nn.Module) -> nn.Module:
-        """``module`` (the step's :attr:`module` or one of its blocks) with
-        its leaves gathered, but those inside the blocks it holds, which
-        it keeps as they are; a view given again is returned as it is."""
-        if getattr(module, "_gathered_view", False):
-            return module
+        """``module`` (a module of :attr:`module`'s) with every leaf of it
+        gathered."""
         if id(module) not in self._names:
             raise ValueError(f"{type(module).__name__} is no module of this "
                              "step's parameters")
-        return self._copy(module, self._names[id(module)], True)
+        return self._copy(module, self._names[id(module)])
 
-    def _copy(self, module, prefix: str, top: bool):
-        if not top and id(module) in self._blocks:
-            return module
+    def _copy(self, module, prefix: str):
         new = object.__new__(type(module))
         new.__dict__.update(module.__dict__)
         # the leaves as plain attributes: a view has no parameters of its
@@ -186,10 +162,8 @@ class LayerGather:
         new.__dict__["_parameters"] = {}
         new.__dict__.update({n: self._gather(prefix + n, p)
                              for n, p in module._parameters.items()})
-        new.__dict__["_modules"] = {
-            n: self._copy(m, f"{prefix}{n}.", False)
-            for n, m in module._modules.items()}
-        new.__dict__["_gathered_view"] = True
+        new.__dict__["_modules"] = {n: self._copy(m, f"{prefix}{n}.")
+                                    for n, m in module._modules.items()}
         return new
 
     def _gather(self, name: str, p: torch.Tensor) -> torch.Tensor:

@@ -175,7 +175,7 @@ def encdec_encode(params: EncDec, cfg: ModelConfig, frames,
             x = remat_call(cfg, _enc_block, p, x, positions, cfg)
         else:
             x = _enc_block(p, x, positions, cfg)
-    return rms_norm(x, params.enc_norm.scale, cfg.norm_eps)
+    return rms_norm(x, _fsdp.gathered(params.enc_norm).scale, cfg.norm_eps)
 
 
 def _enc_block(p, x, positions, cfg):
@@ -201,22 +201,22 @@ def encdec_apply(params: EncDec, cfg: ModelConfig, frames, dec_tokens,
     """Training/prefill forward -> (logits (B, S_dec, V), aux 0).  Under a
     model axis (``distributed.tp``: the sharded steps) every block splits
     as the decoder's do, and the logits are this rank's ``V / tp`` of the
-    padded vocabulary.  In the sharded train step the leaves outside the
-    blocks are gathered here and each block's inside its own call
-    (``distributed.fsdp``)."""
-    params = _fsdp.gathered(params)
+    padded vocabulary.  In the sharded train step the modules outside the
+    blocks are gathered at their use, once each, and each block's inside
+    its own call (``distributed.fsdp``)."""
     memory = encdec_encode(params, cfg, frames, remat=remat)
     B, S = dec_tokens.shape
-    vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
-    x = embed(params.embed.table, dec_tokens, vocab).to(_dtype(cfg))
+    table = _fsdp.gathered(params.embed).table
+    vocab = vocab_axis(table, cfg.padded_vocab)
+    x = embed(table, dec_tokens, vocab).to(_dtype(cfg))
     positions = _positions(B, S, x.device)
     for p in params.dec_blocks:
         if remat:
             x = remat_call(cfg, _dec_block, p, x, memory, positions, cfg)
         else:
             x = _dec_block(p, x, memory, positions, cfg)
-    x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = unembed(params.embed.table, x, vocab)
+    x = rms_norm(x, _fsdp.gathered(params.final_norm).scale, cfg.norm_eps)
+    logits = unembed(table, x, vocab)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, NamedTuple
 
 import torch
+from torch import nn
 
 from ..configs.base import ModelConfig, ShapeSpec
 from ..device import resolve_device
@@ -28,8 +29,8 @@ from ..distributed.sharding import ShardedCache
 from . import encdec as _encdec
 from . import transformer as _tf
 
-__all__ = ["Model", "build", "count_params", "model_flops", "input_specs",
-           "decode_input_specs"]
+__all__ = ["Model", "build", "module_of", "count_params", "model_flops",
+           "input_specs", "decode_input_specs"]
 
 
 class Model(NamedTuple):
@@ -93,6 +94,19 @@ def build(cfg: ModelConfig, device="cuda") -> Model:
             mesh, batch, cfg.n_kv_heads, device)
 
     return Model(cfg, init_fn, apply_fn, decode_fn, cache_fn)
+
+
+def module_of(cfg: ModelConfig, fill: Callable[[str], torch.Tensor]
+              ) -> nn.Module:
+    """The parameters' module of ``cfg`` (a ``Decoder`` or an ``EncDec``)
+    built on the ``meta`` device, each parameter ``name`` then set to a
+    ``Parameter`` of ``fill(name)`` (which shares its storage)."""
+    module = (_encdec.EncDec if cfg.encoder_decoder else _tf.Decoder)(
+        cfg, device="meta")
+    for name, _ in list(module.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        setattr(module.get_submodule(owner), leaf, nn.Parameter(fill(name)))
+    return module
 
 
 # ---------------------------------------------------------------------------

@@ -391,15 +391,16 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
     compute, the embedding is vocab-parallel and the
     logits are this rank's ``(B, S, V / tp)``; the Mamba2 and xLSTM
     mixers compute whole on every model rank.  In the sharded train step
-    ``params`` holds this rank's shards: the leaves outside the
-    super-blocks (the embedding, the final norm, the shared block) are
-    gathered here, once, and each super-block's inside its own call
+    ``params`` holds this rank's shards: the modules outside the
+    super-blocks (the embedding, the shared block, the final norm) are
+    gathered here, once each, and each super-block's inside its own call
     (``distributed.fsdp``).  ``remat`` recomputes each super-block in the
     backward pass under ``cfg.remat_policy`` (module docstring)."""
-    params = _fsdp.gathered(params)
-    vocab = vocab_axis(params.embed.table, cfg.padded_vocab)
+    table = _fsdp.gathered(params.embed).table
+    shared = None if params.shared is None else _fsdp.gathered(params.shared)
+    vocab = vocab_axis(table, cfg.padded_vocab)
     if embeddings is None:
-        x = embed(params.embed.table, tokens, vocab).to(_dtype(cfg))
+        x = embed(table, tokens, vocab).to(_dtype(cfg))
         B, S = tokens.shape
     else:
         x = embeddings.to(_dtype(cfg))
@@ -413,14 +414,13 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
         for p in seg:
             if remat:
                 x, aux = remat_call(cfg, _apply_super, kind, p, x, positions,
-                                    cfg, params.shared)
+                                    cfg, shared)
             else:
-                x, aux = _apply_super(kind, p, x, positions, cfg,
-                                      params.shared)
+                x, aux = _apply_super(kind, p, x, positions, cfg, shared)
             if aux is not None:
                 aux_total = aux_total + aux
-    x = rms_norm(x, params.final_norm.scale, cfg.norm_eps)
-    logits = unembed(params.embed.table, x, vocab)
+    x = rms_norm(x, _fsdp.gathered(params.final_norm).scale, cfg.norm_eps)
+    logits = unembed(table, x, vocab)
     return logits, aux_total
 
 

@@ -107,11 +107,9 @@ from ..distributed.sharding import (SPLIT, Sharded, ShardedCache,
                                     axis_size, batch_shardings,
                                     compute_split, dp_axes, local_slice,
                                     only_model, unshard, without_model)
-from ..models import build
+from ..models import build, module_of
 from ..models.convert import tree_path
-from ..models.encdec import EncDec
 from ..models.moe import TokenSplit, split_tokens
-from ..models.transformer import Decoder
 from .optim import AdamWConfig, OptState, apply_updates
 
 __all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
@@ -195,17 +193,16 @@ def working_module(cfg: ModelConfig, params: Sharded, device) -> nn.Module:
     whole tensor; filled by :func:`gather_working` (storage only:
     ``torch.empty``)."""
     split = compute_split(params.specs, cfg, params.mesh)
-    module = (EncDec if cfg.encoder_decoder else Decoder)(cfg, device="meta")
-    for name, _ in list(module.named_parameters()):
+
+    def empty(name):
         shape = list(params.shapes[name])
         if split[name] == SPLIT:
             for dim, axes in enumerate(only_model(params.specs[name])):
                 if axes:
                     shape[dim] //= params.mesh.axis_size(axes)
-        owner, _, leaf = name.rpartition(".")
-        setattr(module.get_submodule(owner), leaf,
-                nn.Parameter(torch.empty(shape, device=device)))
-    return module
+        return torch.empty(shape, device=device)
+
+    return module_of(cfg, empty)
 
 
 def gather_working(params: Sharded, module: nn.Module) -> None:
@@ -238,7 +235,8 @@ def sharded_loss_and_grads(model, params: Sharded,
     dp = dp_axes(mesh)
     specs = batch_shardings(batch, mesh)
     split = specs["labels"][:1] == (dp,)
-    plan = LayerGather(cfg, params, reduce=split)
+    plan = LayerGather(module_of(cfg, lambda n: params[n].detach()), params,
+                       reduce=split)
     named = list(plan.module.named_parameters())
     with _tp.split_model(axis), gathering(plan):
         if not split:
@@ -275,18 +273,17 @@ def _mesh_pmax(mesh):
 
 
 def _keeper(cfg: ModelConfig, device):
-    """``keep(params, regather=False) -> module``: a step's working module
+    """``keep(params) -> module``: a serving step's working module
     (:func:`working_module`), built at its first call and held by the
     step; filled from ``params`` (:func:`gather_working`, a collective:
-    every rank calls it alike) where ``regather`` says so, at the first
-    call, for another ``params`` than the last call's, and after
-    ``keep.regather()``."""
+    every rank calls it alike) at the first call, for another ``params``
+    than the last call's, and after ``keep.regather()``."""
     held = []                           # [params it was filled from, module]
 
-    def keep(params: Sharded, regather: bool = False) -> nn.Module:
+    def keep(params: Sharded) -> nn.Module:
         if not held:
             held[:] = [None, working_module(cfg, params, device)]
-        if regather or held[0] is not params:
+        if held[0] is not params:
             gather_working(params, held[1])
             held[0] = params
         return held[1]

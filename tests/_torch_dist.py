@@ -274,6 +274,7 @@ def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
     from repro_torch.distributed import compat, fsdp, param_shardings, tp
     from repro_torch.distributed.sharding import compute_split, unshard
     from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import module_of
     from repro_torch.train import optim as PO
     from repro_torch.train.step import make_train_step, sharded_loss_and_grads
 
@@ -309,7 +310,8 @@ def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
         local = {n: tuple(g.shape) for n, g in grads.items()}
         grads = {n: unshard(g, specs[n], mesh) for n, g in grads.items()}
         inputs = {k: v for k, v in batch.items() if k != "labels"}
-        plan = fsdp.LayerGather(cfg, params, reduce=False)
+        plan = fsdp.LayerGather(
+            module_of(cfg, lambda n: params[n].detach()), params, False)
         with torch.no_grad(), tp.split_model(tp.ModelAxis.of(mesh)), \
                 fsdp.gathering(plan):
             logits = model.apply(plan.module, **inputs)[0]
