@@ -213,8 +213,10 @@ exits non-zero without the final ``ok`` line:
    tokens/s and the share of the 6 N D bound at the bf16 peak; the
    optimizer alone against its 28 bytes a weight; one step traced by
    ``torch.profiler``; ``save_checkpoint`` / ``restore_checkpoint`` of
-   (params, OptState), 12.0 GB, with seconds, the restored state training
-   on to the same next two losses; one super-block (6 layers, f32) on the
+   (params, OptState) of gemma3-1b cut to 6 layers after one step (5.5
+   GB; the 26-layer state's 12.0 GB until PR 28), with seconds, the
+   restored state training on to the same next two losses; one
+   super-block (6 layers, f32) on the
    card against a CPU copy (loss, every gradient, the update, at the CPU
    tests' bounds); crash and resume through ``launch.train.main`` on
    reduced gemma3 (resumed losses within 1e-4 of the unbroken run's), and
@@ -271,15 +273,27 @@ exits non-zero without the final ``ok`` line:
    the same widths (``make_prefill_step`` / ``make_serve_step`` with
    ``mesh=``): the sharded prefill of 4 x 512 prompts against the
    one-process prefill, then 8 sharded serve steps from a one-process f32
-   cache placed by ``cache_shardings`` (gemma3-1b: filled to 1020 tokens,
-   past its 512-token window, its caches sharded by slot over "model"
-   and read by flash-decoding, the rings wrapping again at 1024;
+   cache placed by ``cache_shardings`` (gemma3-1b: filled to 508 tokens,
+   its caches sharded by slot over "model" and read by flash-decoding,
+   its 512-slot rings wrapping inside the sharded steps;
    olmoe-1b-7b: 64 tokens, its 16 KV heads split), each step's logits
    within 1e-4 of the one-process step's scale and its tokens equal where
    the top-2 gap exceeds that, MoE routing bit-equal, with ms a step and
    the collectives' host ms; the one-process side runs once, in this
    process, before the ranks start, so that neither side is timed while
-   the other runs.  Then the dry-run (``launch.dryrun``) of rank 0 of
+   the other runs.  Then zamba2-2.7b and xlstm-1.3b at full width, each
+   cut to one super-block (6 Mamba2 layers and the shared block; 5 mLSTM
+   and 1 sLSTM), their mixers split by head over the model axis: one
+   sharded step of 4 x 512 tokens each against the one-process step at
+   the same bounds (xlstm: its sharded gradients within 3.32e-4, its
+   train-step tests' bound, of each leaf's max of the one-process
+   gradients in f64, and against the one-process f32 step within twice
+   that step's own gap from f64, whose f32 gradients on the card lie
+   far from f64 at this batch; grad_norm within 3.32e-4), and the
+   sharded prefill of 4 x 512 prompts
+   against the one-process prefill within 1e-4 of the logits' scale,
+   each rank's matmul FLOPs share printed beside the predicted one
+   (``mixers``).  Then the dry-run (``launch.dryrun``) of rank 0 of
    the same gemma3-1b train step and serve step on a fake world of 4 in
    this process, with fake ``cuda`` tensors: its collective calls and
    bytes by op equal to what rank 0 counted (``compat.STATS``) over one
@@ -543,10 +557,18 @@ TRAIN_LOSS_DROP = 0.3
 TRAIN_OPT_REPS = 3
 TRAIN_CPU_BATCH = (1, 64)
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, TRAIN_UPDATE_TOL = 1e-5, 1e-4, 1e-2
+# xlstm's gradient and grad_norm bound in the train-step tests
+# (tests/_torch_train.py XLSTM_GRAD_TOL: twice the reference's own f32
+# gradients' gap from their f64 values)
+TRAIN_XLSTM_GRAD_TOL = 3.32e-4
 TRAIN_RESUME_ARGV = ["--arch", LM_ARCH, "--reduced", "--batch", "4",
                      "--seq", "32", "--ckpt-every", "10", "--steps", "30",
                      "--log-every", "100", "--device", "cuda"]
 TRAIN_RESUME_RTOL = 1e-4
+# the checkpoint round trip's model: gemma3-1b cut to TRAIN_CKPT_LAYERS
+# layers after one step (host-bound writes and reads, cut for phase 18's
+# growth: the whole model's state is 12.0 GB)
+TRAIN_CKPT_LAYERS = 6
 
 # The distribution layer (repro_torch.distributed, launch.mesh, the sharded
 # train step, checkpoint.reshard) on DIST_WORLD ranks that share cuda:0
@@ -580,21 +602,35 @@ RESHARD_MESHES = ((2, 2), (4, 1))
 # olmoe-1b-7b cut to DIST_TP_MOE_LAYERS of its 16, f32, one step of
 # DIST_TRAIN_BATCH on DIST_TP_MESH against the one-process step
 DIST_TP_MESH, DIST_TP_MOE_LAYERS = (2, 2), 2
+# the Mamba2 and xLSTM mixers split by head over the model axis: zamba2-2.7b
+# and xlstm-1.3b at full width, each cut to one super-block of
+# DIST_TP_MIXER_LAYERS layers (6 Mamba2 layers and the shared block; 5
+# mLSTM and 1 sLSTM), f32, one step of DIST_TRAIN_BATCH on DIST_TP_MESH
+# against the one-process step, and the mesh prefill of DIST_TRAIN_BATCH
+# prompts against the one-process prefill within DIST_SERVE_TOL of the
+# logits' scale; each rank's matmul FLOPs printed beside
+# DIST_TP_MIXER_SHARE, the share of the one-process step's predicted from
+# the weights' shapes (one data half of the batch, the mixers, the
+# shared block, LoRA and the logits over tp = 2)
+DIST_TP_MIXER_ARCHS, DIST_TP_MIXER_LAYERS = (HYBRID_ARCH, XLSTM_ARCH), 6
+DIST_TP_MIXER_SHARE = {HYBRID_ARCH: 0.251, XLSTM_ARCH: 0.250}
 DIST_TIMEOUT_S = 600
 # the serving steps on DIST_TP_MESH at the same widths (gemma3-1b's full
 # depth, olmoe-1b-7b's DIST_TP_MOE_LAYERS layers, f32): the sharded
 # prefill of DIST_TRAIN_BATCH prompts against the one-process prefill;
 # then, from a one-process f32 cache of DIST_SERVE_MAX_LEN slots filled by
-# DIST_SERVE_FILL decode steps (gemma3: past its 512-token window, every
-# local ring wrapped once) and placed by cache_shardings, DIST_SERVE_STEPS
-# sharded serve steps (gemma3's cache sharded by slot over "model", its
-# rings wrapping again at 1024; olmoe's by KV head), each step's logits
+# DIST_SERVE_FILL decode steps and placed by cache_shardings,
+# DIST_SERVE_STEPS sharded serve steps (gemma3's cache sharded by slot
+# over "model", its 512-slot local rings wrapping inside the sharded
+# steps, at 512: a fill of 508 in place of 1020 since PR 28, host-bound
+# one-process steps cut for the phase's growth; olmoe's by KV head),
+# each step's logits
 # within DIST_SERVE_TOL of the one-process step's scale and its tokens
 # equal where the top-2 gap exceeds that; MoE routing bit-equal.  The
 # one-process side is computed once, by this process before the ranks
 # start, so that nothing else uses the card or the host while either
 # side is timed
-DIST_SERVE_FILL = {"gemma3-1b": 1020, "olmoe-1b-7b": 64}
+DIST_SERVE_FILL = {"gemma3-1b": 508, "olmoe-1b-7b": 64}
 # activation recomputation in phase 17: one step under each policy, then
 # TRAIN_REMAT_STEPS timed steps after one warm-up; gradients that are not
 # bit-equal to the step without recomputation must lie within
@@ -602,7 +638,7 @@ DIST_SERVE_FILL = {"gemma3-1b": 1020, "olmoe-1b-7b": 64}
 # differs between the forward and its recomputation would round apart)
 TRAIN_REMAT_POLICIES = ("none", "full", "dots")
 TRAIN_REMAT_STEPS, TRAIN_REMAT_TOL = 5, 1e-6
-DIST_SERVE_MAX_LEN = {"gemma3-1b": 1040, "olmoe-1b-7b": 80}
+DIST_SERVE_MAX_LEN = {"gemma3-1b": 528, "olmoe-1b-7b": 80}
 DIST_SERVE_STEPS, DIST_SERVE_TOL = 8, 1e-4
 
 class Phases:
@@ -3251,8 +3287,17 @@ def lm_training(dev):
     b = batch_at(TRAIN_STEPS + 1)
     rep["trace"] = lm_trace(lambda: train_one(b), steps=1)
 
-    # (d) the checkpoint of (params, OptState) written and read back: the
+    del params, state
+    lm_free()
+
+    # (d) the checkpoint of (params, OptState) of the model cut to
+    # TRAIN_CKPT_LAYERS layers after one step, written and read back: the
     # restored state trains on to the same two next losses
+    cfg_ck = dataclasses.replace(cfg, n_layers=TRAIN_CKPT_LAYERS)
+    _, step = make_train_step(cfg_ck, opt_cfg, device=dev)
+    params = init_decoder(0, cfg_ck, dev)
+    state = dict(opt=init_opt(params))
+    train_one(batch_at(0))
     ck = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ck, ignore_errors=True)
     nxt = [batch_at(TRAIN_STEPS + 2 + i) for i in range(2)]
@@ -3272,11 +3317,12 @@ def lm_training(dev):
     for x, y in zip(after, before):
         train_close("next loss after restore", x, y, TRAIN_LOSS_TOL)
     rep["checkpoint"] = dict(
-        step=manifest["step"], keys=len(manifest["keys"]), gb=gb,
-        save_s=save_s, restore_s=restore_s, save_gb_s=gb / save_s,
+        layers=TRAIN_CKPT_LAYERS, step=manifest["step"],
+        keys=len(manifest["keys"]), gb=gb, save_s=save_s,
+        restore_s=restore_s, save_gb_s=gb / save_s,
         restore_gb_s=gb / restore_s, next_losses=before,
         next_losses_bitwise_equal=after == before)
-    del params, state
+    del params, state, step
     lm_free()
 
     # (g) one step without recomputation and under "full" and "dots"
@@ -3581,7 +3627,9 @@ def dist_four(ckpt_dir):
     sharded steps on (2, 2), reshard, and the full-width steps whose
     compute the model axis splits (gemma3-1b, olmoe-1b-7b cut to
     DIST_TP_MOE_LAYERS layers, whose loss and gradients are also
-    computed twice from one state and compared bit for bit)."""
+    computed twice from one state and compared bit for bit), served;
+    then zamba2-2.7b's and xlstm-1.3b's super-blocks, their mixers split
+    by head, trained one step and prefilled."""
     import torch
     import torch.distributed as dist
 
@@ -3599,6 +3647,13 @@ def dist_four(ckpt_dir):
     lm_free()
     rep["serve_moe"] = dist_serve(dev, MOE_ARCH, DIST_TP_MOE_LAYERS,
                                   ckpt_dir)
+    for arch in DIST_TP_MIXER_ARCHS:
+        lm_free()
+        rep[f"tp {arch}"] = dist_tp(dev, arch, DIST_TP_MIXER_LAYERS,
+                                    f64=arch == XLSTM_ARCH)
+        lm_free()
+        rep[f"prefill {arch}"] = dist_prefill(dev, arch,
+                                              DIST_TP_MIXER_LAYERS, ckpt_dir)
     return rep
 
 
@@ -3622,12 +3677,110 @@ def serve_inputs(cfg, arch):
     from repro_torch.data import TokenPipeline
 
     B, S = DIST_TRAIN_BATCH
-    prompt = TokenPipeline(vocab=cfg.vocab_size, batch=B, seq_len=S,
-                           seed=1).batch_at(0)["tokens"]
+    prompt = serve_prompt(cfg)
     seq = TokenPipeline(vocab=cfg.vocab_size, batch=B,
                         seq_len=DIST_SERVE_FILL[arch] + DIST_SERVE_STEPS,
                         seed=2).batch_at(0)["tokens"]
-    return torch.from_numpy(prompt), torch.from_numpy(seq)
+    return prompt, torch.from_numpy(seq)
+
+
+def serve_prompt(cfg):
+    """The serving phase's prompts, DIST_TRAIN_BATCH ``(B, S)`` tokens."""
+    import torch
+    from repro_torch.data import TokenPipeline
+
+    B, S = DIST_TRAIN_BATCH
+    return torch.from_numpy(TokenPipeline(
+        vocab=cfg.vocab_size, batch=B, seq_len=S, seed=1).batch_at(0)[
+            "tokens"])
+
+
+def checked_prefill(arch, prefill, params, prompt, want, routes):
+    """The sharded ``prefill`` of ``prompt`` from this rank's ``params``,
+    twice: the first call gathers the step's working module, the second
+    is timed with its collectives counted (``compat.STATS``) and each MoE
+    routing appended to ``routes``; its logits within DIST_SERVE_TOL of
+    the one-process prefill's (``want["prefill"]``; raises where not) ->
+    ``(gap, first call's s, s, collectives)`` (phase 18)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import compat
+
+    dist.barrier()
+    _, first_s = timed(lambda: prefill(params, {"tokens": prompt}))
+    dist.barrier()
+    compat.reset_stats()
+    with recording_routing(routes):
+        pre, pre_s = timed(lambda: prefill(params, {"tokens": prompt}))
+    coll = compat.STATS.as_dict()
+    gap = serve_gap(pre, want["prefill"])
+    if not gap <= DIST_SERVE_TOL:
+        raise AssertionError(f"{arch}: sharded prefill {gap} of the "
+                             "logits' scale from the one-process prefill")
+    return gap, first_s, pre_s, coll
+
+
+def prefill_oracle(dev, arch, n_layers, workdir):
+    """The one-process prefill of the serving phase's prompts for ``arch``
+    (depth cut to ``n_layers``), once, in this process before the ranks
+    start (phase 18), with its ms; saved on the host for the ranks."""
+    import os
+
+    import torch
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train.step import make_prefill_step
+
+    cfg = serve_cfg(arch, n_layers)
+    prompt = serve_prompt(cfg).to(dev)
+    p = init_decoder(0, cfg, dev)
+    _, prefill = make_prefill_step(cfg, device=dev)
+    prefill(p, {"tokens": prompt})      # the process's first at this shape
+    pre, pre_s = timed(lambda: prefill(p, {"tokens": prompt}))
+    path = serve_oracle_path(workdir, arch)
+    torch.save(dict(prefill=pre.cpu(), prefill_ms=1e3 * pre_s),
+               str(path) + ".part")
+    os.replace(str(path) + ".part", path)
+    del p
+    lm_free()
+
+
+def dist_prefill(dev, arch, n_layers, ckpt_dir):
+    """``arch`` at full width (f32; depth cut to ``n_layers``) prefilled on
+    DIST_TP_MESH, its mixers split by head over the model axis: the
+    sharded prefill of the serving phase's prompts against the
+    one-process prefill this script's own process computed
+    (:func:`prefill_oracle`), with ms, the collectives and peak memory
+    (phase 18)."""
+    import torch
+    from repro_torch.checkpoint import reshard
+    from repro_torch.distributed import param_shardings
+    from repro_torch.distributed.sharding import compute_split
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models.transformer import init_decoder
+    from repro_torch.train import step as ST
+
+    cfg = serve_cfg(arch, n_layers)
+    prompt = serve_prompt(cfg).to(dev)
+    mesh = make_mesh_compat(DIST_TP_MESH, ("data", "model"), device=dev)
+    p = init_decoder(0, cfg, dev)
+    specs = param_shardings(p, mesh, cfg.n_experts)
+    params = reshard(p, specs, mesh)
+    del p
+    lm_free()
+    want = torch.load(serve_oracle_path(Path(ckpt_dir).parent, arch),
+                      weights_only=False)
+    torch.cuda.reset_peak_memory_stats()
+    _, prefill = ST.make_prefill_step(cfg, device=dev, mesh=mesh)
+    gap, first_s, pre_s, coll = checked_prefill(arch, prefill, params,
+                                                prompt, want, [])
+    split = compute_split(specs, cfg, mesh)
+    return dict(
+        arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
+        prompt=list(prompt.shape), tol=DIST_SERVE_TOL, prefill_gap=gap,
+        first_prefill_ms=1e3 * first_s, prefill_ms=1e3 * pre_s,
+        plain_prefill_ms=want["prefill_ms"], **collective_report(coll),
+        split={k: sum(v == k for v in split.values())
+               for k in ("split", "select", "gather", "replicated")},
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def serve_oracle(dev, arch, n_layers, workdir):
@@ -3727,20 +3880,9 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
     torch.cuda.reset_peak_memory_stats()
     model, prefill = ST.make_prefill_step(cfg, device=dev, mesh=mesh)
     _, serve = ST.make_serve_step(cfg, device=dev, mesh=mesh)
-    dist.barrier()
-    # the first call gathers the step's working module, the second is
-    # timed and checked
-    _, first_s = timed(lambda: prefill(params, {"tokens": prompt}))
     pre_routes = []
-    dist.barrier()
-    compat.reset_stats()
-    with recording_routing(pre_routes):
-        pre, pre_s = timed(lambda: prefill(params, {"tokens": prompt}))
-    pre_coll = compat.STATS.as_dict()
-    pre_gap = serve_gap(pre, want["prefill"])
-    if not pre_gap <= DIST_SERVE_TOL:
-        raise AssertionError(f"{arch}: sharded prefill {pre_gap} of the "
-                             "logits' scale from the one-process prefill")
+    pre_gap, first_s, pre_s, pre_coll = checked_prefill(
+        arch, prefill, params, prompt, want, pre_routes)
     b = B // mesh.axis_size("data")
     mine = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
     S = prompt.shape[1]
@@ -3936,11 +4078,12 @@ def one_process_turns(cfg, opt_cfg, specs, mesh, batch, dev, flops=False,
     return keep, keep_mu, out
 
 
-def hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg):
+def hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg,
+                       grad_tol=TRAIN_GRAD_TOL, norm_tol=TRAIN_LOSS_TOL):
     """The sharded step's metrics, gradients (the first step's ``mu / (1 -
     b1)``) and updated weights against the one-process step's at the
-    TRAIN_*_TOL bounds (raises where one is outside); returns the
-    gaps."""
+    TRAIN_*_TOL bounds (``grad_tol`` for the gradients, ``norm_tol`` for
+    grad_norm; raises where one is outside); returns the gaps."""
     import torch
     import torch.distributed as dist
 
@@ -3949,8 +4092,7 @@ def hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg):
     ce_gap = train_close("sharded against one-process ce", m["ce"],
                          plain["ce"], TRAIN_LOSS_TOL)
     norm_gap = train_close("sharded against one-process grad_norm",
-                           m["grad_norm"], plain["grad_norm"],
-                           TRAIN_LOSS_TOL)
+                           m["grad_norm"], plain["grad_norm"], norm_tol)
     # the first step's clipped gradient is mu / (1 - b1) on both sides;
     # each tensor's gap is taken against its whole tensor's max
     c1 = 1 - opt_cfg.b1
@@ -3962,10 +4104,10 @@ def hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg):
         gaps[n] = float((opt.mu[n].double() - keep_mu[n].double())
                         .abs().max()) / c1 / max(scale, 1e-30)
     grad_at = max(gaps, key=gaps.get)
-    if not gaps[grad_at] <= TRAIN_GRAD_TOL:
+    if not gaps[grad_at] <= grad_tol:
         raise AssertionError(f"sharded step: gradient of {grad_at} "
                              f"{gaps[grad_at]} of its max (tolerance "
-                             f"{TRAIN_GRAD_TOL})")
+                             f"{grad_tol})")
     lr, eps, worst, flips = m["lr"], opt_cfg.eps, 0.0, 0
     for n, t in params.items():
         gg = opt.mu[n].double() / c1
@@ -4195,7 +4337,67 @@ def repeat_report(first, loss, grads):
                 grads=len(grads), max_gap=worst, max_gap_at=worst_at)
 
 
-def dist_tp(dev, arch, n_layers=None, repeat=False):
+def one_process_f32_f64(cfg, batch, dev):
+    """The one-process gradients of ``cfg``'s loss on ``batch`` from
+    ``init_decoder(0, ...)``, in f32 and with the weights and activations
+    cast to f64: ``(f32, f64)``, each leaf in f64 on the host."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build
+    from repro_torch.models.transformer import init_decoder
+
+    out = []
+    for dtype in ("float32", "float64"):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = init_decoder(0, cfg, dev).to(getattr(torch, dtype))
+        p.cfg = c
+        _, grads = train_grads(build(c, device=dev), p, batch, c)
+        out.append({n: g.double().cpu() for n, g in grads.items()})
+        del p, grads
+        lm_free()
+    return tuple(out)
+
+
+def sharded_against_f64(kept, specs, mesh, ref):
+    """The sharded step's gradients (``kept``: this rank's shards, as the
+    step hands them to AdamW) gathered whole, each leaf's gap from the
+    one-process f64 gradient over that gradient's max, beside the
+    one-process f32 gradient's own gap (``ref``: :func:`
+    one_process_f32_f64`'s pair on rank 0, None on the others; the
+    largest gaps broadcast from rank 0).  Raises on every rank where the
+    sharded gap exceeds TRAIN_XLSTM_GRAD_TOL (phase 18, xlstm)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import unshard
+
+    whole = {n: unshard(g.contiguous(), specs[n], mesh)
+             for n, g in kept.items()}
+    gaps, at = torch.zeros(2, dtype=torch.float64), None
+    if ref is not None:
+        g32, g64 = ref
+
+        def gap(a, b):
+            return float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-300)
+
+        one = {n: gap(g32[n], g64[n]) for n in g64}
+        split = {n: gap(whole[n].double().cpu(), g64[n]) for n in g64}
+        at = dict(one_process_f32=max(one, key=one.get),
+                  sharded=max(split, key=split.get))
+        gaps = torch.tensor([max(one.values()), max(split.values())],
+                            dtype=torch.float64)
+    dist.broadcast(gaps, src=0)
+    one_gap, split_gap = gaps.tolist()
+    if not split_gap <= TRAIN_XLSTM_GRAD_TOL:
+        raise AssertionError(f"sharded step: a gradient {split_gap} of its "
+                             "max from the one-process f64 gradient "
+                             f"(tolerance {TRAIN_XLSTM_GRAD_TOL})")
+    return dict(one_process_f32_gap=one_gap, sharded_gap=split_gap,
+                tol=TRAIN_XLSTM_GRAD_TOL, worst_leaf=at)
+
+
+def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
     """``arch`` at full width (f32; depth cut to ``n_layers`` where given)
     on DIST_TP_MESH, its compute split over the model axis: the
     one-process step a rank at a time (its matmul FLOPs counted on rank
@@ -4207,9 +4409,13 @@ def dist_tp(dev, arch, n_layers=None, repeat=False):
     step from the same state, bare and under the step's two dispatch
     modes (the FLOP counter, the routing recorder), held bit for bit
     against each other and the second against the step's
-    (:func:`repeat_report`; reported, not a failure); digests of this
-    rank's shards that other ranks also hold, for the parent's replica
-    check (phase 18, 3d)."""
+    (:func:`repeat_report`; reported, not a failure); with ``f64``
+    (xlstm), the sharded step's gradients also held against the
+    one-process gradients in f64 (:func:`sharded_against_f64`) and the
+    one-process f32 step's gradients at twice their own gap from those,
+    the train-step tests' form of xlstm's bound; digests of this rank's
+    shards that other ranks also hold, for the parent's replica check
+    (phase 18, 3d)."""
     import dataclasses
 
     import torch
@@ -4238,6 +4444,11 @@ def dist_tp(dev, arch, n_layers=None, repeat=False):
     keep, keep_mu, plain = one_process_turns(
         cfg, opt_cfg, specs, mesh, batch, dev, flops=dist.get_rank() == 0,
         routes=want_routes)
+    ref = None
+    if f64:
+        if dist.get_rank() == 0:
+            ref = one_process_f32_f64(cfg, batch, dev)
+        dist.barrier()
     torch.cuda.reset_peak_memory_stats()
     p = init_decoder(0, cfg, dev)
     params = reshard(p, specs, mesh)
@@ -4267,9 +4478,18 @@ def dist_tp(dev, arch, n_layers=None, repeat=False):
     repeated = None if bare is None else dict(
         bare_vs_modes=repeat_report(bare, *moded),
         modes_vs_step=repeat_report(moded, m["loss"], kept))
+    against_f64 = None if not f64 else sharded_against_f64(kept, specs,
+                                                           mesh, ref)
     kept.clear()
+    del ref
     m = {k: float(v) for k, v in m.items()}
-    gaps = hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg)
+    tols = {}
+    if f64:     # xlstm: PR 22's form of its bound, measured at this width
+        tols = dict(grad_tol=max(TRAIN_XLSTM_GRAD_TOL,
+                                 2 * against_f64["one_process_f32_gap"]),
+                    norm_tol=TRAIN_XLSTM_GRAD_TOL)
+    gaps = hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg,
+                              **tols)
     if len(routes) != len(want_routes):
         raise AssertionError(f"{arch}: {len(routes)} MoE routings against "
                              f"the one-process step's {len(want_routes)}")
@@ -4289,11 +4509,11 @@ def dist_tp(dev, arch, n_layers=None, repeat=False):
         arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
         batch=[B, S], plain=plain, ms=1e3 * s, **m, **gaps,
         **collective_report(coll), flops=counted["flops"], **memory,
-        repeat=repeated, step_ops=op_counts(coll),
+        repeat=repeated, against_f64=against_f64, step_ops=op_counts(coll),
         local_gb=sum(t.numel() * t.element_size()
                      for t in params.values()) / 1e9,
         split={k: sum(v == k for v in split.values())
-               for k in ("split", "gather", "replicated")},
+               for k in ("split", "select", "gather", "replicated")},
         routing=dict(layers=len(routes), bit_equal=True,
                      edge_gap=[r["edge_gap"] for r in routes],
                      dropped=[int((~r["keep"]).sum()) for r in routes]),
@@ -4364,6 +4584,42 @@ def serve_report(ranks):
     return dict(first, ms_mean_by_rank=[r["ms_mean"] for r in ranks],
                 model_axis_ms_by_rank=[r["model_axis_ms"] for r in ranks],
                 sp_calls_by_rank=[r["sp_calls"] for r in ranks],
+                peak_gb_by_rank=[r["peak_gb"] for r in ranks])
+
+
+def mixer_report(rep):
+    """The mixers' split in phase 18's report ``rep``: for each of
+    DIST_TP_MIXER_ARCHS each rank's share of the one-process step's matmul
+    FLOPs beside the prediction, ms, peak GB and the model axis's calls
+    and bytes a step, the leaves' splits, the prefill's gap and ms."""
+    out = {}
+    for arch in DIST_TP_MIXER_ARCHS:
+        tp, pre = rep[f"tp {arch}"], rep[f"prefill {arch}"]
+        out[arch] = dict(
+            flops_share_by_rank=tp["flops_share_by_rank"],
+            predicted_share=DIST_TP_MIXER_SHARE[arch],
+            ms_by_rank=tp["ms_by_rank"], plain_ms=tp["plain"]["ms"],
+            peak_gb_by_rank=tp["peak_gb_by_rank"],
+            model_axis_calls=tp["model_axis_calls"],
+            model_axis_gb=tp["model_axis_gb"], split=tp["split"],
+            loss_gap=tp["loss_gap"], grad_gap=tp["grad_gap"],
+            against_f64=tp["against_f64"],
+            prefill_gap=pre["prefill_gap"],
+            prefill_ms_by_rank=pre["prefill_ms_by_rank"],
+            plain_prefill_ms=pre["plain_prefill_ms"])
+    return out
+
+
+def prefill_report(ranks):
+    """Phase 18's report of a :func:`dist_prefill` run: rank 0's, with every
+    rank's ms and peak memory; the ranks' gaps must agree (each holds the
+    whole logits)."""
+    first = ranks[0]
+    if any(r["prefill_gap"] != first["prefill_gap"] for r in ranks[1:]):
+        raise AssertionError(f"{first['arch']}: the ranks' prefill logits "
+                             "differ")
+    return dict(first, prefill_ms_by_rank=[r["prefill_ms"] for r in ranks],
+                model_axis_ms_by_rank=[r["model_axis_ms"] for r in ranks],
                 peak_gb_by_rank=[r["peak_gb"] for r in ranks])
 
 
@@ -4448,6 +4704,8 @@ def distributed(dev):
     t = time.perf_counter()
     serve_oracle(torch.device(dev), LM_ARCH, None, work)
     serve_oracle(torch.device(dev), MOE_ARCH, DIST_TP_MOE_LAYERS, work)
+    for arch in DIST_TP_MIXER_ARCHS:
+        prefill_oracle(torch.device(dev), arch, DIST_TP_MIXER_LAYERS, work)
     rep["serve_oracles_s"] = time.perf_counter() - t
     t = time.perf_counter()
     four, four_launches = run_dist("four", DIST_WORLD, work,
@@ -4468,6 +4726,12 @@ def distributed(dev):
         rep[key] = tp_report([r[key] for r in four])
     for key in ("serve", "serve_moe"):
         rep[key] = serve_report([r[key] for r in four])
+    for arch in DIST_TP_MIXER_ARCHS:
+        rep[f"tp {arch}"] = tp_report([r[f"tp {arch}"] for r in four])
+        rep[f"prefill {arch}"] = prefill_report(
+            [r[f"prefill {arch}"] for r in four])
+    rep["mixers"] = mixer_report(rep)
+    print("  mixers: " + json.dumps(rep["mixers"]))
     t = time.perf_counter()
     rep["dryrun"] = dict(dist_dryrun(dev, four[0]["tp"], four[0]["serve"]),
                          seconds=time.perf_counter() - t)

@@ -12,10 +12,12 @@ same in eager code:
 * :class:`_Gather`, an autograd function on one leaf: forward, this
   rank's stored shard gathered into the tensor the block computes with
   (a leaf that ``sharding.compute_split`` marks ``SPLIT`` over the data
-  axes only, so it stays this rank's model shard; a ``GATHER`` or
-  ``REPLICATED`` leaf whole); backward, the gradient taken back to the
-  stored shard's layout: a ``GATHER`` leaf sliced to its model shard (its
-  gradient is the same on every model rank: ``distributed.tp``), then
+  axes only, so it stays this rank's model shard; a ``SELECT``,
+  ``GATHER`` or ``REPLICATED`` leaf whole); backward, the gradient taken
+  back to the stored shard's layout: a ``SELECT`` or ``GATHER`` leaf
+  sliced to its model shard (its gradient is the same on every model
+  rank: ``distributed.tp``; a ``SELECT`` leaf's is summed over the model
+  ranks by ``tp.select``), then
   ``compat.reduce_scatter`` over the data axes that shard it and
   ``compat.psum`` over those that do not (the data ranks computed
   different slices of the batch), or this rank's slice alone where every
@@ -62,7 +64,7 @@ import torch
 from torch import nn
 
 from . import compat
-from .sharding import (GATHER, SPLIT, compute_split, dp_axes, local_slice,
+from .sharding import (SPLIT, compute_split, dp_axes, local_slice,
                        only_model, unshard, without_model)
 
 __all__ = ["LayerGather", "gathering", "gathered"]
@@ -76,8 +78,9 @@ def _axes_of(spec) -> Tuple[str, ...]:
 class _Leaf(NamedTuple):
     """How one parameter is gathered and its gradient reduced: its stored
     ``spec``, the ``layout`` it is gathered to (the spec of the tensor the
-    block computes with, over the stored shard), whether it is ``GATHER``
-    (``model``: sliced back to its model shard), the ``mesh``, and
+    block computes with, over the stored shard), whether it is gathered
+    whole over "model" (``model``: sliced back to its model shard), the
+    ``mesh``, and
     whether the data ranks computed different slices of the batch
     (``reduce``)."""
     spec: Tuple
@@ -138,7 +141,7 @@ class LayerGather:
         for name, _ in module.named_parameters():
             spec = params.specs[name]
             layout = without_model(spec) if split[name] == SPLIT else spec
-            self.leaves[name] = _Leaf(spec, layout, split[name] == GATHER,
+            self.leaves[name] = _Leaf(spec, layout, split[name] != SPLIT,
                                       mesh, reduce) \
                 if reduce or _axes_of(layout) else None
         self.module = module

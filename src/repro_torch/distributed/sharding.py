@@ -60,9 +60,11 @@ __all__ = [
     "unshard",
     "Sharded",
     "SPLIT",
+    "SELECT",
     "GATHER",
     "REPLICATED",
     "compute_split",
+    "mixer_heads",
     "attention_split",
     "without_model",
     "only_model",
@@ -305,8 +307,23 @@ def only_model(spec: Spec) -> Spec:
 # the compute split over the "model" axis (distributed.tp)
 # ---------------------------------------------------------------------------
 
-SPLIT, GATHER, REPLICATED = "split", "gather", "replicated"
+SPLIT, SELECT, GATHER, REPLICATED = ("split", "select", "gather",
+                                     "replicated")
 _ATTN = ("attn", "self_attn", "cross")
+# the mixers' leaves by the dimension of this rank's heads' model shard
+# (head-major, so a contiguous shard holds whole heads), and their packed
+# leaves, whose segments split by head one by one: gathered whole, each
+# rank selects its heads' parts (models.ssm, models.xlstm)
+_MIXER_SPLIT = {
+    "mamba": {"A_log": 0, "D": 0, "dt_bias": 0, "norm.scale": 0,
+              "out_proj.kernel": 0},
+    "mlstm": {"wq.kernel": 1, "wk.kernel": 1, "wv.kernel": 1,
+              "wz.kernel": 1, "w_gates.kernel": 1, "w_gates.bias": 0,
+              "norm.scale": 0, "wo.kernel": 0},
+    "slstm": {"norm.scale": 0, "wo.kernel": 0},
+}
+_MIXER_SELECT = {"mamba": ("in_proj.kernel", "conv.kernel"), "mlstm": (),
+                 "slstm": ("wx.kernel", "wx.bias", "r")}
 
 
 def attention_split(cfg, tp: int, seq_len: int) -> Optional[str]:
@@ -321,10 +338,52 @@ def attention_split(cfg, tp: int, seq_len: int) -> Optional[str]:
     return "seq" if seq_len % tp == 0 else None
 
 
+def mixer_heads(cfg) -> int:
+    """The head count by which the Mamba2 (zamba2) or xLSTM mixers split
+    over the model axis, 0 for a config without them."""
+    if cfg.family == "hybrid":
+        return cfg.n_ssm_heads
+    return cfg.n_heads if cfg.mlstm_slstm_pattern else 0
+
+
+def _mixer_leaf(name: str) -> Optional[Tuple[str, str]]:
+    """``(mixer, leaf)`` of a Mamba2 / mLSTM / sLSTM parameter (``"mamba"``,
+    ``"mlstm"`` or ``"slstm"``, and its name inside the mixer), else
+    None."""
+    parts = name.split(".")
+    for i, p in enumerate(parts):
+        if p == "mixer" and i >= 2 and parts[i - 2] == "mambas":
+            return "mamba", ".".join(parts[i + 1:])
+        if p == "core" and i >= 1:
+            kind = "mlstm" if parts[i - 2:i - 1] == ["mlstms"] else "slstm"
+            return kind, ".".join(parts[i + 1:])
+    return None
+
+
+def _split_of(name: str, cfg, tp: int, mixers: bool):
+    """``(SPLIT, dim)`` where a model rank computes with its own shard of
+    parameter ``name`` along ``dim``, ``(SELECT, None)`` where it computes
+    with its heads' parts of the whole tensor, else ``(None, None)``.  A
+    mixer's leaves split where its mixer does (``mixers``, and its head
+    count divides ``tp``)."""
+    leaf = _mixer_leaf(name)
+    if leaf is None:
+        dim = _split_dim(name, cfg, tp)
+        return (None, None) if dim is None else (SPLIT, dim)
+    if not mixers or mixer_heads(cfg) % tp:
+        return None, None
+    kind, rest = leaf
+    if rest in _MIXER_SELECT[kind]:
+        return SELECT, None
+    if rest not in _MIXER_SPLIT[kind]:
+        raise ValueError(f"{name}: a {kind} leaf of no known layout")
+    return SPLIT, _MIXER_SPLIT[kind][rest]
+
+
 def _split_dim(name: str, cfg, tp: int) -> Optional[int]:
-    """The dimension of parameter ``name`` along which a model rank
-    computes with its own shard, or None where it computes with the whole
-    tensor."""
+    """The dimension of parameter ``name`` (no mixer's) along which a model
+    rank computes with its own shard, or None where it computes with the
+    whole tensor."""
     parts = name.split(".")
     leaf, owner = parts[-2:], parts[-3] if len(parts) > 2 else ""
     if name == "embed.table":
@@ -351,35 +410,45 @@ def _split_dim(name: str, cfg, tp: int) -> Optional[int]:
     return None
 
 
-def compute_split(specs: Dict[str, Spec], cfg, mesh) -> Dict[str, str]:
+def compute_split(specs: Dict[str, Spec], cfg, mesh,
+                  mixers: bool = True) -> Dict[str, str]:
     """For each parameter (``specs``: ``param_shardings``), how the ranks
-    of the "model" axis compute with it in the sharded train step:
+    of the "model" axis compute with it in the sharded train step and
+    the mesh prefill:
 
     * ``SPLIT``: with this rank's own model shard (column- or
       row-parallel matmuls, this rank's heads, vocabulary rows or
-      experts);
+      experts; the Mamba2, mLSTM and sLSTM mixers' head-aligned leaves:
+      ``A_log``, ``D``, ``dt_bias``, the norms' gains, ``out_proj``,
+      ``wq`` / ``wk`` / ``wv`` / ``wz``, ``w_gates`` and its bias, ``wo``);
+    * ``SELECT``: gathered whole, as ``GATHER`` is, but each rank
+      computes with its heads' parts of it only (the mixers' packed
+      leaves: Mamba2's ``in_proj`` and ``conv``, sLSTM's ``wx``, its bias
+      and ``r``), so its gradient is summed over "model"
+      (``distributed.tp.select``);
     * ``GATHER``: the rules shard it over "model" but the shard does not
       line up with what a rank computes (a norm's gain; gemma3-1b's
       ``wk`` / ``wv`` at tp = 2, half of its one KV head; attention that
       splits the query sequence; the router, whose logits route whole;
-      the Mamba2 and xLSTM mixers), so it is gathered whole for the step;
+      a mixer whose heads do not divide the axis, or any mixer where
+      ``mixers`` is False: the mesh decode's, whose states are stored on
+      ``N`` / ``K``, not by head), so it is gathered whole for the step;
     * ``REPLICATED``: the rules leave it whole on "model".
 
-    Raises where a leaf that computes split is not stored split the same
-    way: no leaf falls back to whole weights."""
+    The mixers split where their head count (:func:`mixer_heads`)
+    divides the axis.  Raises where a leaf that computes split is not
+    stored split the same way: no leaf falls back to whole weights."""
     tp = axis_size(mesh, "model")
     out = {}
     for name, spec in specs.items():
         on_model = [d for d, axes in enumerate(spec) if axes and "model" in (
             (axes,) if isinstance(axes, str) else axes)]
-        dim = _split_dim(name, cfg, tp) if tp > 1 else None
-        if dim is not None:
-            if on_model != [dim]:
-                raise ValueError(f"{name}: computes split on dimension {dim}"
-                                 f" but is stored as {spec}")
-            out[name] = SPLIT
-        else:
-            out[name] = GATHER if on_model else REPLICATED
+        how, dim = _split_of(name, cfg, tp, mixers) if tp > 1 \
+            else (None, None)
+        if how == SPLIT and on_model != [dim]:
+            raise ValueError(f"{name}: computes split on dimension {dim}"
+                             f" but is stored as {spec}")
+        out[name] = how or (GATHER if on_model else REPLICATED)
     return out
 
 

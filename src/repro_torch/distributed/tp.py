@@ -17,12 +17,18 @@ model rank the gradient of a replicated tensor is whole and the same.
 * :func:`gather`: ``all_gather`` along a dimension forward, this rank's
   slice backward (the gradient of the gathered tensor is whole on every
   rank);
-* :func:`scatter`: this rank's slice forward, ``all_gather`` backward.
+* :func:`scatter`: this rank's slice forward, ``all_gather`` backward;
+* :func:`select`: this rank's parts of a whole weight (the Mamba2 and
+  sLSTM mixers' packed projections, whose segments split by head one by
+  one), entered by :func:`copy`;
+* :func:`rms_norm`: the RMS norm of a tensor whose normalised dimension
+  the model ranks split: the sum of squares ``psum``-ed over the axis,
+  forward and backward, then each rank scales its own part.
 
 :func:`split_model` makes a :class:`ModelAxis` current for the modules'
-forward passes (``models.layers``, ``attention``, ``moe``,
-``transformer``, ``encdec``); with none current, or one of size 1, they
-compute as before, bit for bit.  Every collective goes through
+forward passes (``models.layers``, ``attention``, ``moe``, ``ssm``,
+``xlstm``, ``transformer``, ``encdec``); with none current, or one of
+size 1, they compute as before, bit for bit.  Every collective goes through
 ``compat`` with ``axis="model"``, so ``compat.STATS`` counts it apart
 from the data axes' (``model:all_reduce``, ``model:all_gather``).
 """
@@ -38,7 +44,8 @@ import torch
 from . import compat
 
 __all__ = ["ModelAxis", "split_model", "current", "axis_for", "check_local",
-           "copy", "reduce", "gather", "scatter", "AXIS"]
+           "copy", "reduce", "gather", "scatter", "select", "rms_norm",
+           "AXIS"]
 
 AXIS = "model"
 
@@ -172,3 +179,31 @@ def scatter(x: torch.Tensor, axis: ModelAxis, dim: int) -> torch.Tensor:
     """This rank's slice of ``x`` along ``dim`` forward; the gradient
     gathered over ``axis`` backward."""
     return _Scatter.apply(x, dim % x.dim(), axis)
+
+
+def select(t: torch.Tensor, spans, dim: int, whole: int, axis: ModelAxis,
+           what: str) -> torch.Tensor:
+    """The ``(start, length)`` ``spans`` of the whole tensor ``t`` along
+    ``dim``, concatenated in order: the parts of a weight that this rank
+    computes with.  ``t`` enters by :func:`copy`, so its gradient (this
+    rank's parts, zero elsewhere) is summed over the model ranks.  Raises
+    where ``t`` is not whole (``whole`` items along ``dim``)."""
+    if t.shape[dim] != whole:
+        raise ValueError(f"{what}: {tuple(t.shape)} is not whole ({whole} "
+                         f"along dimension {dim}) for a selection")
+    t = copy(t, axis)
+    return torch.cat([t.narrow(dim, a, n) for a, n in spans], dim=dim)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             axis: ModelAxis) -> torch.Tensor:
+    """``models.layers.rms_norm`` over a last dimension that the model
+    ranks split: ``x`` and ``scale`` are this rank's parts of it.  Each
+    rank's sum of squares is ``psum``-ed over ``axis`` (forward by
+    :func:`reduce`; backward by :func:`copy`, since every rank's output
+    depends on every rank's part), then each rank scales its own part."""
+    xf = x.float()
+    sq = xf.square().sum(dim=-1, keepdim=True)
+    var = copy(reduce(sq, axis), axis) / (x.shape[-1] * axis.size)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)

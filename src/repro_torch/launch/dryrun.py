@@ -76,7 +76,7 @@ from ..configs import SHAPES, ARCH_IDS, get_config, shape_applicable
 from ..configs.base import ModelConfig, ShapeSpec
 from ..distributed import compat
 from ..distributed.sharding import (axis_size, batch_shardings, dp_axes,
-                                    map_cache, param_shardings)
+                                    map_cache, mixer_heads, param_shardings)
 from ..models import decode_input_specs, input_specs, model_flops
 from ..models.encdec import EncDec
 from ..models.transformer import Decoder
@@ -199,9 +199,16 @@ def differs_from_reference(cfg: ModelConfig, shape: ShapeSpec, kind: str,
         out.append("weights gathered whole over the data axes once and held "
                    "across calls (the serving step's working module), not "
                    "layer by layer")
-    if axis_size(mesh, "model") > 1 and cfg.family in ("hybrid", "ssm"):
-        out.append("Mamba2 / xLSTM mixers gathered and computed whole on "
-                   "every model rank")
+    tp, heads = axis_size(mesh, "model"), mixer_heads(cfg)
+    if tp > 1 and heads and heads % tp:
+        out.append(f"Mamba2 / xLSTM mixers gathered and computed whole on "
+                   f"every model rank: their {heads} heads do not divide "
+                   f"the model axis's {tp} ranks")
+    elif tp > 1 and heads and kind == "decode":
+        out.append("Mamba2 / xLSTM mixers computed whole on every model "
+                   "rank in the decode: their states are stored on N / K / "
+                   "channels, not by head, and gathered over the model "
+                   "axis each step")
     if kind != "decode" and mesh.axis_size(dp) > 1:
         specs = batch_shardings(input_specs(cfg, shape), mesh)
         if specs[_main_input(specs)][:1] != (dp,):

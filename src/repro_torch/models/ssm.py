@@ -13,6 +13,16 @@ and the conv window of a decode cache are f32 whatever the activations'
 dtype (the reference's ``init_mamba_cache`` default); ``dt``'s softplus
 is in f32, and the decode output is cast back to the activation's dtype
 before ``out_proj``.
+
+Under a model axis (``distributed.tp``: the sharded train step and the
+mesh prefill) :func:`mamba_apply` runs this rank's ``H / tp`` heads:
+``A_log``, ``D``, ``dt_bias``, the norm's gain and ``out_proj``'s rows
+are this rank's model shards (head-major), ``in_proj`` and ``conv`` are
+whole and the rank selects its heads' columns of them
+(:func:`in_proj_spans`, :func:`conv_spans`: its ``z``, ``x`` and ``dt``,
+and ``B`` and ``C`` whole, which every head reads); the gated norm sums
+its squares over the ranks and ``out_proj`` is row-parallel.  The decode
+computes whole.
 """
 
 from __future__ import annotations
@@ -24,11 +34,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .layers import Dense, RMSNorm, cast, rms_norm
+from ..distributed import tp as _tp
+from .layers import Dense, RMSNorm, cast, dense, rms_norm
 
 __all__ = [
     "Mamba",
     "MambaCache",
+    "conv_spans",
+    "in_proj_spans",
     "init_mamba_cache",
     "mamba_apply",
     "mamba_decode",
@@ -149,12 +162,65 @@ def _split_proj(params: Mamba, u, cfg):
     return z, xBC, dt_raw, d_in, N, H
 
 
-def mamba_apply(params: Mamba, u, cfg):
-    """Full-sequence Mamba2 mixer: u (B, L, d) -> (B, L, d)."""
+def in_proj_spans(cfg, index: int, size: int):
+    """The ``(start, length)`` column spans of ``in_proj`` (the reference's
+    ``[z (d_in) | x (d_in) | B (N) | C (N) | dt (H)]``) that model rank
+    ``index`` of ``size`` computes with: its heads' ``z`` and ``x``
+    channels, ``B`` and ``C`` whole, its heads' ``dt``."""
+    d_in, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    c, h = d_in // size, H // size
+    return ((index * c, c), (d_in + index * c, c), (2 * d_in, 2 * N),
+            (2 * d_in + 2 * N + index * h, h))
+
+
+def conv_spans(cfg, index: int, size: int):
+    """The channel spans of ``conv`` (``[x | B | C]``) that model rank
+    ``index`` of ``size`` computes with: its heads' ``x``, ``B`` and ``C``
+    whole."""
+    c = cfg.d_inner // size
+    return ((index * c, c), (cfg.d_inner, 2 * cfg.ssm_state))
+
+
+def _heads_of(params: Mamba, cfg, axis):
+    """``(in_proj kernel, conv kernel, heads)`` that this rank computes
+    with: the whole mixer's, or under a model ``axis`` its heads' columns
+    of the whole packed kernels, after checking that the head-aligned
+    leaves are its model shards."""
+    H = cfg.n_ssm_heads
+    if axis is None:
+        return params.in_proj.kernel, params.conv.kernel, H
+    d_in, N = cfg.d_inner, cfg.ssm_state
+    for t, dim, whole, what in (
+            (params.A_log, 0, H, "A_log"), (params.D, 0, H, "D"),
+            (params.dt_bias, 0, H, "dt_bias"),
+            (params.norm.scale, 0, d_in, "norm"),
+            (params.out_proj.kernel, 0, d_in, "out_proj")):
+        _tp.check_local(t, dim, whole, axis, f"mamba {what}")
+    w_in = _tp.select(params.in_proj.kernel,
+                      in_proj_spans(cfg, axis.index, axis.size), 1,
+                      2 * d_in + 2 * N + H, axis, "mamba in_proj")
+    k = _tp.select(params.conv.kernel, conv_spans(cfg, axis.index,
+                                                  axis.size), 1,
+                   d_in + 2 * N, axis, "mamba conv")
+    return w_in, k, axis.part(H)
+
+
+def mamba_apply(params: Mamba, u, cfg, axis=None):
+    """Full-sequence Mamba2 mixer: u (B, L, d) -> (B, L, d).  With a model
+    ``axis`` (``distributed.tp``) this rank runs its ``H / tp`` heads
+    (module docstring): ``u`` enters by ``copy``, the output leaves by
+    ``reduce``."""
     Bb, L, _ = u.shape
-    z, xBC, dt_raw, d_in, N, H = _split_proj(params, u, cfg)
+    if axis is not None:
+        u = _tp.copy(u, axis)
+    w_in, k, H = _heads_of(params, cfg, axis)
+    N, d_in = cfg.ssm_state, H * cfg.ssm_head_dim
+    zxbcdt = dense(u, w_in)
+    z = zxbcdt[..., :d_in]
+    xBC = zxbcdt[..., d_in:2 * d_in + 2 * N]
+    dt_raw = zxbcdt[..., 2 * d_in + 2 * N:]
     # causal depthwise conv over (x, B, C)
-    k = cast(params.conv.kernel, xBC.dtype)                      # (K, ch)
+    k = cast(k, xBC.dtype)                                       # (K, ch)
     pad = F.pad(xBC, (0, 0, _CONV_K - 1, 0))
     conv = sum(pad[:, i:i + L] * k[i] for i in range(_CONV_K))
     conv = F.silu(conv)
@@ -167,8 +233,11 @@ def mamba_apply(params: Mamba, u, cfg):
     y, _ = ssd_chunked(x * dt[..., None].to(x.dtype), a, Bm, Cm)
     y = y + x * params.D.to(x.dtype)[None, None, :, None]
     y = y.reshape(Bb, L, d_in)
-    y = rms_norm(y * F.silu(z), params.norm.scale, cfg.norm_eps)
-    return params.out_proj(y)
+    if axis is None:
+        y = rms_norm(y * F.silu(z), params.norm.scale, cfg.norm_eps)
+        return params.out_proj(y)
+    y = _tp.rms_norm(y * F.silu(z), params.norm.scale, cfg.norm_eps, axis)
+    return _tp.reduce(params.out_proj(y), axis)
 
 
 def init_mamba_cache(batch: int, cfg, dtype=torch.float32,

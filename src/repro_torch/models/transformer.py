@@ -29,9 +29,12 @@ Mamba2, mLSTM or sLSTM layer.  On a mesh the decode takes this rank's
 slices of the cache (``distributed.sharding.ShardedCache``) and walks
 their specs beside them: attention splits as its cache's spec says
 (``attention.decode_attention``); a recurrent state is stored as the
-rules shard it but its mixer computes whole on every model rank, so the
-step gathers the state over "model", runs the mixer and keeps its own
-slice.
+rules shard it (on ``N`` / ``K`` / channels, not by head) and its mixer
+computes whole on every model rank in the decode, so the step gathers
+the state over "model", runs the mixer and keeps its own slice.  The
+full-sequence forms (training, prefill) split the Mamba2, mLSTM and
+sLSTM mixers by head over the model axis where their heads divide it
+(``ssm``, ``xlstm``).
 
 The encoder-decoder family (whisper) is :class:`~.encdec.EncDec`.
 """
@@ -305,19 +308,21 @@ def _apply_super(kind, params, x, positions, cfg, shared=None):
             x = _dense_block(p, x, positions, cfg, window=cfg.sliding_window)
         return _dense_block(params.global_, x, positions, cfg, window=0), None
     if kind == "mamba_hybrid":
+        axis = _tp.axis_for(cfg.n_ssm_heads)
         for p in params.mambas:
             x = x + mamba_apply(p.mixer, rms_norm(x, p.ln.scale, cfg.norm_eps),
-                                cfg)
+                                cfg, axis)
         # shared attention block with per-use LoRA input adaptation
         return _dense_block(shared, x + _lora(params, x), positions,
                             cfg), None
     if kind == "xlstm_super":
+        axis = _tp.axis_for(cfg.n_heads)
         for p in params.mlstms:
             x = x + mlstm_apply(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
-                                cfg)
+                                cfg, axis)
         p = params.slstm
         return x + slstm_apply(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
-                               cfg), None
+                               cfg, axis), None
     raise ValueError(kind)
 
 
@@ -390,7 +395,8 @@ def decoder_apply(params: Decoder, cfg: ModelConfig, tokens=None,
     axis (``distributed.tp``: the sharded steps) the blocks split their
     compute, the embedding is vocab-parallel and the
     logits are this rank's ``(B, S, V / tp)``; the Mamba2 and xLSTM
-    mixers compute whole on every model rank.  In the sharded train step
+    mixers run this rank's heads where their head count divides the
+    axis, else whole on every model rank.  In the sharded train step
     ``params`` holds this rank's shards: the modules outside the
     super-blocks (the embedding, the shared block, the final norm) are
     gathered here, once each, and each super-block's inside its own call

@@ -17,6 +17,17 @@ each is held against its own counterpart.  sLSTM has no parallel form:
 :func:`slstm_apply` is a loop over time, as the reference's ``lax.scan``.
 ``h`` is carried in the activations' dtype (f32 in a decode cache), ``c,
 n, m`` in f32.
+
+Under a model axis (``distributed.tp``: the sharded train step and the
+mesh prefill) each full-sequence form runs this rank's ``H / tp`` heads
+where they divide it.  mLSTM: ``wq``, ``wk``, ``wv``, ``wz`` and
+``w_gates`` (laid out ``(H, 2)``, so a contiguous shard holds whole
+heads' gates) column-parallel, the norm over the ranks' parts, ``wo``
+row-parallel.  sLSTM: ``wx`` and its bias are whole and the rank selects
+its heads' columns of each of the ``z|i|f|o`` blocks
+(:func:`slstm_wx_spans`), and its heads' blocks of ``r``
+(:func:`slstm_r_spans`); the recurrence is block-diagonal by head, so
+the loop over time runs no collective.  The decodes compute whole.
 """
 
 from __future__ import annotations
@@ -29,7 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from .layers import Dense, RMSNorm, _he, cast, rms_norm
+from ..distributed import tp as _tp
+from .layers import Dense, RMSNorm, _he, cast, dense, rms_norm
 from .ssm import ssd_chunked
 
 __all__ = [
@@ -43,6 +55,8 @@ __all__ = [
     "mlstm_decode",
     "slstm_apply",
     "slstm_decode",
+    "slstm_r_spans",
+    "slstm_wx_spans",
 ]
 
 
@@ -80,9 +94,11 @@ class MLstm(nn.Module):
             m.init_(gen)
 
 
-def _mlstm_qkv(params: MLstm, x, cfg):
+def _mlstm_qkv(params: MLstm, x, cfg, H=None):
+    """q, k, v and the log gates of ``H`` heads (all of them by default;
+    under a model axis this rank's, from its columns)."""
     B, L, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim_
+    H, hd = H or cfg.n_heads, cfg.head_dim_
     # the reference's jnp.sqrt(hd): f32, then the activations' dtype
     root = float(torch.tensor(math.sqrt(hd), dtype=torch.float32)
                  .to(x.dtype))
@@ -110,11 +126,34 @@ def _per_head_scan(xs, log_f, k, q):
     return y[:, :, 0].reshape(B, H, L, -1).transpose(1, 2)
 
 
-def mlstm_apply(params: MLstm, x, cfg):
-    """Full-sequence mLSTM via the SSD chunked scan (per-head decays)."""
+def _mlstm_local(params: MLstm, cfg, axis) -> int:
+    """This rank's head count, after checking that the mLSTM's leaves are
+    its model shards (module docstring)."""
+    H, hd = cfg.n_heads, cfg.head_dim_
+    for t, dim, whole, what in (
+            (params.wq.kernel, 1, H * hd, "wq"),
+            (params.wk.kernel, 1, H * hd, "wk"),
+            (params.wv.kernel, 1, H * hd, "wv"),
+            (params.wz.kernel, 1, H * hd, "wz"),
+            (params.w_gates.kernel, 1, 2 * H, "w_gates"),
+            (params.w_gates.bias, 0, 2 * H, "w_gates bias"),
+            (params.norm.scale, 0, H * hd, "norm"),
+            (params.wo.kernel, 0, H * hd, "wo")):
+        _tp.check_local(t, dim, whole, axis, f"mlstm {what}")
+    return axis.part(H)
+
+
+def mlstm_apply(params: MLstm, x, cfg, axis=None):
+    """Full-sequence mLSTM via the SSD chunked scan (per-head decays).
+    With a model ``axis`` this rank runs its ``H / tp`` heads (module
+    docstring): ``x`` enters by ``copy``, the output leaves by
+    ``reduce``."""
     B, L, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim_
-    q, k, v, log_i, log_f = _mlstm_qkv(params, x, cfg)
+    if axis is not None:
+        H = _mlstm_local(params, cfg, axis)
+        x = _tp.copy(x, axis)
+    q, k, v, log_i, log_f = _mlstm_qkv(params, x, cfg, H)
     # augment v with ones so the normaliser n rides along as channel hd
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     # input weighting: i_t enters multiplicatively (like dt in SSD)
@@ -124,8 +163,11 @@ def mlstm_apply(params: MLstm, x, cfg):
     y = num / torch.clamp(den.abs(), min=1.0)
     z = params.wz(x)
     y = y.reshape(B, L, H * hd) * F.silu(z)
-    y = rms_norm(y, params.norm.scale, cfg.norm_eps)
-    return params.wo(y)
+    if axis is None:
+        y = rms_norm(y, params.norm.scale, cfg.norm_eps)
+        return params.wo(y)
+    y = _tp.rms_norm(y, params.norm.scale, cfg.norm_eps, axis)
+    return _tp.reduce(params.wo(y), axis)
 
 
 def init_mlstm_cache(batch: int, cfg, dtype=torch.float32,
@@ -195,14 +237,32 @@ class SLstm(nn.Module):
         self.wo.init_(gen)
 
 
-def _slstm_step(params: SLstm, cfg, carry, xw):
+def slstm_wx_spans(cfg, index: int, size: int):
+    """The column spans of ``wx`` (and its bias), the reference's ``z|i|f|o``
+    blocks of ``d`` each, that model rank ``index`` of ``size`` computes
+    with: its heads' channels of each block, in block order."""
+    d = cfg.d_model
+    c = d // size
+    return tuple((g * d + index * c, c) for g in range(4))
+
+
+def slstm_r_spans(cfg, index: int, size: int):
+    """The span of ``r``'s head dimension that model rank ``index`` of
+    ``size`` computes with: its heads' recurrent blocks."""
+    h = cfg.n_heads // size
+    return ((index * h, h),)
+
+
+def _slstm_step(r, carry, xw):
+    """One step of the heads of the recurrent blocks ``r`` ``(H, hb, 4
+    hb)``: the carry and ``xw`` hold those heads' channels (all of them,
+    or under a model axis this rank's)."""
     c, n, h, m = carry
     B = c.shape[0]
-    d = cfg.d_model
-    H = cfg.n_heads
-    hb = d // H
+    H, hb = r.shape[0], r.shape[1]
+    d = H * hb
     hr = h.reshape(B, H, hb).transpose(0, 1)                     # (H,B,hb)
-    rec = torch.bmm(hr, cast(params.r, h.dtype)).transpose(0, 1)  # (B,H,4hb)
+    rec = torch.bmm(hr, cast(r, h.dtype)).transpose(0, 1)        # (B,H,4hb)
     # re-lay (B,H,4,hb) -> z|i|f|o blocks of (B,d) to match wx's output
     rec = rec.reshape(B, H, 4, hb).transpose(1, 2).reshape(B, 4 * d)
     zifo = (xw + rec.to(xw.dtype)).float()
@@ -218,10 +278,35 @@ def _slstm_step(params: SLstm, cfg, carry, xw):
     return (c_new, n_new, h_new.to(h.dtype), m_new), h_new
 
 
-def slstm_apply(params: SLstm, x, cfg):
-    """Strictly recurrent sLSTM over the sequence (a loop over time)."""
-    B, L, d = x.shape
-    xw = params.wx(x).float()                                    # (B, L, 4d)
+def _slstm_local(params: SLstm, cfg, axis):
+    """``(wx kernel, wx bias, r)`` of this rank's heads: its columns of the
+    whole ``wx`` and blocks of the whole ``r``, after checking that the
+    norm's gain and ``wo`` are its model shards."""
+    d, H = cfg.d_model, cfg.n_heads
+    _tp.check_local(params.norm.scale, 0, d, axis, "slstm norm")
+    _tp.check_local(params.wo.kernel, 0, d, axis, "slstm wo")
+    spans = slstm_wx_spans(cfg, axis.index, axis.size)
+    return (_tp.select(params.wx.kernel, spans, 1, 4 * d, axis,
+                       "slstm wx"),
+            _tp.select(params.wx.bias, spans, 0, 4 * d, axis,
+                       "slstm wx bias"),
+            _tp.select(params.r, slstm_r_spans(cfg, axis.index, axis.size),
+                       0, H, axis, "slstm r"))
+
+
+def slstm_apply(params: SLstm, x, cfg, axis=None):
+    """Strictly recurrent sLSTM over the sequence (a loop over time).  With
+    a model ``axis`` this rank runs its heads (module docstring): ``x``
+    enters by ``copy``, the output leaves by ``reduce``, and the loop
+    runs no collective."""
+    B, L, _ = x.shape
+    if axis is None:
+        wx, bx, r = params.wx.kernel, params.wx.bias, params.r
+    else:
+        x = _tp.copy(x, axis)
+        wx, bx, r = _slstm_local(params, cfg, axis)
+    d = r.shape[0] * r.shape[1]
+    xw = dense(x, wx, bx).float()                                # (B, L, 4d)
     dev = x.device
     carry = (torch.zeros((B, d), device=dev),
              torch.zeros((B, d), device=dev),
@@ -229,11 +314,14 @@ def slstm_apply(params: SLstm, x, cfg):
              torch.full((B, d), -1e9, device=dev))
     hs = []
     for t in range(L):
-        carry, h = _slstm_step(params, cfg, carry, xw[:, t])
+        carry, h = _slstm_step(r, carry, xw[:, t])
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype)                       # (B, L, d)
-    y = rms_norm(y, params.norm.scale, cfg.norm_eps)
-    return params.wo(y)
+    if axis is None:
+        y = rms_norm(y, params.norm.scale, cfg.norm_eps)
+        return params.wo(y)
+    y = _tp.rms_norm(y, params.norm.scale, cfg.norm_eps, axis)
+    return _tp.reduce(params.wo(y), axis)
 
 
 def init_slstm_cache(batch: int, cfg, dtype=torch.float32,
@@ -251,7 +339,7 @@ def slstm_decode(params: SLstm, x, cache: SLstmCache,
                  cfg) -> Tuple[torch.Tensor, SLstmCache]:
     xw = params.wx(x)[:, 0].float()
     carry = (cache.c, cache.n, cache.h, cache.m)
-    (c, n, h, m), h_out = _slstm_step(params, cfg, carry, xw)
+    (c, n, h, m), h_out = _slstm_step(params.r, carry, xw)
     y = rms_norm(h_out.to(x.dtype), params.norm.scale, cfg.norm_eps)
     out = params.wo(y)[:, None, :]
     return out, SLstmCache(c=c, n=n, h=h.to(cache.h.dtype), m=m)

@@ -30,9 +30,13 @@ whole gathered ``wk`` / ``wv`` whose gradients are summed over "model"),
 else on its block of the query sequence with K/V gathered
 (``attention._constrain_heads_or_seq``); the dense MLP, MoE's shared
 expert and zamba2's LoRA column- then row-parallel; each rank's ``E /
-tp`` experts of an MoE layer; the embedding and the tied logits
-vocab-parallel, the loss a vocab-parallel log-softmax (:func:`
-_vocab_parallel_nll`).  The batch splits over the data axes by
+tp`` experts of an MoE layer; the Mamba2, mLSTM and sLSTM mixers on
+this rank's ``H / tp`` heads where their head count divides the axis
+(the head-aligned leaves this rank's model shards, the packed
+projections gathered whole and its heads' columns selected:
+``sharding.compute_split``'s ``SELECT``), else whole; the embedding and
+the tied logits vocab-parallel, the loss a vocab-parallel log-softmax
+(:func:`_vocab_parallel_nll`).  The batch splits over the data axes by
 ``batch_shardings`` (where the rules shard the sequence instead, the
 batch is computed whole on every data rank); the loss comes from global
 sums (the NLL sum and the label count ``psum``-ed over the data axes,
@@ -44,11 +48,9 @@ asked (each leaf's scale the ``pmax`` of its shards' over the mesh), and
 AdamW clips by the global norm (each rank's squares ``psum``-ed over the
 axes that split them, a replicated shard counted once) and updates each
 rank's own slices.  On a model axis of one rank nothing is split; on a
-(1, 1) mesh the step is the one-process step, bit for bit.  Not split:
-zamba2's Mamba2 and xlstm's mLSTM / sLSTM mixers, whose packed
-projections do not line up with a contiguous model shard (computed whole
-on every model rank); each data rank still runs its MoE experts over an
-``(E / tp, C, d)`` buffer sized by the whole batch: ROADMAP.md, queue 1.
+(1, 1) mesh the step is the one-process step, bit for bit.  Each data
+rank still runs its MoE experts over an ``(E / tp, C, d)`` buffer sized
+by the whole batch: ROADMAP.md, queue 1.
 ``make_prefill_step``: forward only, returns the last position's logits.
 ``make_serve_step``: one greedy decode step against a KV cache.
 The serving steps run without autograd.  Every step hands its inputs to
@@ -66,9 +68,10 @@ for another ``params`` or after the step's ``regather()``, not layer by
 layer (ROADMAP.md, queue 1); the batch split over the data axes by
 ``batch_shardings`` (computed whole where the rules shard the sequence
 instead), MoE layers routing over the whole
-batch, and the model axis splitting attention, the MLPs, the experts and
-the vocabulary as in training.  The prefill (:func:`sharded_prefill`)
-returns the last position's logits whole, ``(B, V)`` on every rank,
+batch, and the model axis splitting attention, the MLPs, the experts,
+the vocabulary and (in the prefill) the mixers as in training.  The
+prefill (:func:`sharded_prefill`) returns the last position's logits
+whole, ``(B, V)`` on every rank,
 gathered from the vocab-parallel logits and the data ranks.  The decode
 (:func:`sharded_decode`) takes this rank's slices of the cache
 (``distributed.sharding.ShardedCache``, from ``Model.init_cache(...,
@@ -77,9 +80,11 @@ attention splits as the cache's spec says: KV heads on "model" (this
 rank's KV heads and the query heads that read them), or the sequence on
 "model" / ("data", "model") (this rank's block of slots, written by the
 rank that holds the new token's slot and read by flash-decoding over the
-group).  Computed whole on every model rank: the Mamba2 and xLSTM
-mixers, whose states are stored as the rules shard them, gathered over
-"model" for the step and sliced back (ROADMAP.md, queue 1).  The greedy
+group).  Computed whole on every model rank in the decode: the Mamba2
+and xLSTM mixers, whose states are stored as the rules shard them (on
+``N`` / ``K`` / channels, not by head), gathered over "model" for the
+step and sliced back; its working module holds them whole
+(``compute_split(..., mixers=False)``; ROADMAP.md, queue 1).  The greedy
 pick (:func:`greedy_pick`) reduces ``(max, index)`` pairs over the model
 ranks rather than gathering ``(B, V)``: ``B * tp`` pairs instead of
 ``B * V`` logits (gemma3's vocabulary is 262,144), and exact, since a max
@@ -186,13 +191,15 @@ def _grads(loss, named):
             for (n, p), g in zip(named, grads)}
 
 
-def working_module(cfg: ModelConfig, params: Sharded, device) -> nn.Module:
+def working_module(cfg: ModelConfig, params: Sharded, device,
+                   mixers: bool = True) -> nn.Module:
     """The module a rank computes the sharded serving steps with: the
     model's parameters at this rank's local shapes, a model shard where
     ``compute_split`` says ``SPLIT`` (whole over the data axes), else the
     whole tensor; filled by :func:`gather_working` (storage only:
-    ``torch.empty``)."""
-    split = compute_split(params.specs, cfg, params.mesh)
+    ``torch.empty``).  ``mixers`` False keeps the Mamba2 and xLSTM
+    mixers whole (the decode's: ``compute_split``)."""
+    split = compute_split(params.specs, cfg, params.mesh, mixers)
 
     def empty(name):
         shape = list(params.shapes[name])
@@ -205,11 +212,13 @@ def working_module(cfg: ModelConfig, params: Sharded, device) -> nn.Module:
     return module_of(cfg, empty)
 
 
-def gather_working(params: Sharded, module: nn.Module) -> None:
-    """Fill the working ``module`` from this rank's shards ``params``: a
-    ``SPLIT`` leaf gathered over the data axes only, every other leaf
-    whole (a collective: every rank of the mesh calls it)."""
-    split = compute_split(params.specs, module.cfg, params.mesh)
+def gather_working(params: Sharded, module: nn.Module,
+                   mixers: bool = True) -> None:
+    """Fill the working ``module`` (of :func:`working_module` with the same
+    ``mixers``) from this rank's shards ``params``: a ``SPLIT`` leaf
+    gathered over the data axes only, every other leaf whole (a
+    collective: every rank of the mesh calls it)."""
+    split = compute_split(params.specs, module.cfg, params.mesh, mixers)
     with torch.no_grad(), compat.counted_apart("working_gather"):
         for n, p in module.named_parameters():
             if split[n] == SPLIT:
@@ -272,19 +281,20 @@ def _mesh_pmax(mesh):
     return lambda t: compat.pmax(t, group)
 
 
-def _keeper(cfg: ModelConfig, device):
+def _keeper(cfg: ModelConfig, device, mixers: bool = True):
     """``keep(params) -> module``: a serving step's working module
-    (:func:`working_module`), built at its first call and held by the
-    step; filled from ``params`` (:func:`gather_working`, a collective:
-    every rank calls it alike) at the first call, for another ``params``
-    than the last call's, and after ``keep.regather()``."""
+    (:func:`working_module`, the mixers split where ``mixers``), built at
+    its first call and held by the step; filled from ``params``
+    (:func:`gather_working`, a collective: every rank calls it alike) at
+    the first call, for another ``params`` than the last call's, and
+    after ``keep.regather()``."""
     held = []                           # [params it was filled from, module]
 
     def keep(params: Sharded) -> nn.Module:
         if not held:
-            held[:] = [None, working_module(cfg, params, device)]
+            held[:] = [None, working_module(cfg, params, device, mixers)]
         if held[0] is not params:
-            gather_working(params, held[1])
+            gather_working(params, held[1], mixers)
             held[0] = params
         return held[1]
 
@@ -378,7 +388,7 @@ def make_serve_step(cfg: ModelConfig, unroll: bool = False, device="cuda",
     (``serve_step.regather()``)."""
     dev = resolve_device(device)
     model = build(cfg, device=dev)
-    keep = _keeper(cfg, dev)
+    keep = _keeper(cfg, dev, mixers=False)
 
     @torch.no_grad()
     def serve_step(params, cache, inputs):

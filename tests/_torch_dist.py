@@ -258,6 +258,35 @@ def recording_gathers(seen):
         fsdp.LayerGather._gather = inner
 
 
+@contextlib.contextmanager
+def recording_heads(seen):
+    """``seen[mixer]``: the head counts each Mamba2 ``ssd_chunked``, mLSTM
+    ``_per_head_scan`` and sLSTM step (``"mamba"``, ``"mlstm"``,
+    ``"slstm"``) ran on inside the block."""
+    from repro_torch.models import ssm, xlstm
+
+    def spy(module, name, mixer, heads):
+        inner = getattr(module, name)
+
+        def record(*args):
+            seen.setdefault(mixer, set()).add(heads(*args))
+            return inner(*args)
+
+        return module, name, inner, record
+
+    spies = [spy(ssm, "ssd_chunked", "mamba", lambda x, *_: x.shape[2]),
+             spy(xlstm, "_per_head_scan", "mlstm",
+                 lambda xs, log_f, *_: log_f.shape[2]),
+             spy(xlstm, "_slstm_step", "slstm", lambda r, *_: r.shape[0])]
+    for module, name, _, record in spies:
+        setattr(module, name, record)
+    try:
+        yield seen
+    finally:
+        for module, name, inner, _ in spies:
+            setattr(module, name, inner)
+
+
 @job
 def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
     """One sharded step (with the int8 compression where ``compress``) on
@@ -266,8 +295,9 @@ def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
     the gradients, the step's metrics, this rank's shards of the
     parameters and moments, and what the model axis split: the shapes
     the per-layer gather gave each leaf and each leaf's
-    ``compute_split``, the logits' shape and the expert count of each
-    ``torch.bmm`` of the loss.  The gradients of
+    ``compute_split``, the logits' shape, the expert count of each
+    ``torch.bmm`` of the loss and the head counts the mixers ran on
+    (:func:`recording_heads`).  The gradients of
     ``sharded_loss_and_grads`` are this rank's shards of the parameters'
     specs: they are gathered whole here."""
     from repro_torch.checkpoint import reshard
@@ -291,7 +321,7 @@ def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
         model, step = make_train_step(cfg, PO.AdamWConfig(**OPT),
                                       compress_grads=compress, device="cpu",
                                       mesh=mesh)
-        experts, work = [], {}
+        experts, work, heads = [], {}, {}
         bmm = torch.bmm
 
         def counted(a, b):
@@ -301,7 +331,7 @@ def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
         torch.bmm = counted
         compat.reset_stats()
         try:
-            with recording_gathers(work):
+            with recording_gathers(work), recording_heads(heads):
                 loss, ce, grads = sharded_loss_and_grads(model, params,
                                                          batch, cfg)
         finally:
@@ -324,7 +354,8 @@ def train(arch, ckpt_dir, ref_npz, shapes, compress=False):
             params=_np(params), mu=_np(opt.mu), nu=_np(opt.nu),
             step=int(opt.step),
             split=compute_split(specs, cfg, mesh), work=work,
-            gathered=gathered, logits=tuple(logits.shape), experts=experts)
+            gathered=gathered, logits=tuple(logits.shape), experts=experts,
+            heads={k: sorted(v) for k, v in heads.items()})
     return out
 
 
@@ -850,4 +881,144 @@ def remat_sharded(archs, B, S):
                 grads=_np(grads),
                 recomputed={} if recomputed is None
                 else recomputed.as_dict())
+    return out
+
+
+MIXERS = {"mamba": ("zamba2-2.7b", "mambas.0.mixer"),
+          "mlstm": ("xlstm-1.3b", "mlstms.0.core"),
+          "slstm": ("xlstm-1.3b", "slstm.core")}
+
+
+def _with_leaves(module, leaves):
+    """A copy of ``module`` whose parameters are ``leaves`` (name ->
+    tensor), each an autograd leaf of its own."""
+    import copy
+
+    new = copy.deepcopy(module)
+    for name, t in leaves.items():
+        *path, leaf = name.split(".")
+        owner = new
+        for p in path:
+            owner = getattr(owner, p)
+        setattr(owner, leaf, torch.nn.Parameter(t.detach().clone()))
+    return new
+
+
+def _mixer_run(apply, module, x, ct, cfg, axis=None):
+    """``(y, dy/dx, {leaf: gradient})`` of ``sum(apply(module, x) * ct)``."""
+    from repro_torch.distributed import tp
+
+    x = x.detach().clone().requires_grad_(True)
+    named = list(module.named_parameters())
+    with tp.split_model(axis):
+        y = apply(module, x, cfg) if axis is None else apply(
+            module, x, cfg, axis)
+    gx, *gp = torch.autograd.grad((y * ct).sum(), [x] + [p for _, p in named])
+    return (y.detach(), gx, {n: g for (n, _), g in zip(named, gp)})
+
+
+@job
+def mixer_split(shapes, seq_lens, B=2, L=32):
+    """Each mixer of MIXERS (the first of its kind in a reduced config's
+    first super-block, weights from seed 0, every leaf moved off its
+    init by numpy-seeded noise) on each live (data, model) mesh of
+    ``shapes``: one process's forward and gradients of ``sum(y * ct)``
+    on numpy-seeded ``x`` and ``ct`` (B, L, d), and the same on this
+    rank's heads (its ``SPLIT`` leaves' model shards under
+    ``compute_split``, its ``SELECT`` leaves whole), the split leaves'
+    gradients gathered whole over "model"; the split RMS norm
+    (``tp.rms_norm``) of numpy-seeded (B, L, 128) inputs beside
+    ``layers.rms_norm`` of the whole, with their gradients; and the
+    model axis's collective calls of a reduced sharded train step at each
+    sequence length of ``seq_lens``.  Keyed by the mesh's name."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import compat, param_shardings, tp
+    from repro_torch.distributed.sharding import (SPLIT, compute_split,
+                                                  local_slice, only_model,
+                                                  unshard)
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build, layers, ssm, xlstm
+    from repro_torch.checkpoint import reshard
+    from repro_torch.train.step import sharded_loss_and_grads
+
+    applies = {"mamba": ssm.mamba_apply, "mlstm": xlstm.mlstm_apply,
+               "slstm": xlstm.slstm_apply}
+    rng = np.random.default_rng(0)
+    out = {}
+    for shape in shapes:
+        mesh = make_mesh_compat(shape, ("data", "model"), device="cpu")
+        axis = tp.ModelAxis.of(mesh)
+        res = {}
+        for mixer, (arch, prefix) in MIXERS.items():
+            cfg = reduced(get_config(arch))
+            whole = build(cfg, device="cpu").init(0)
+            with torch.no_grad():
+                for p in whole.parameters():
+                    p.add_(torch.from_numpy(0.1 * rng.standard_normal(
+                        p.shape).astype(np.float32)))
+            specs = param_shardings(whole, mesh, cfg.n_experts)
+            split = compute_split(specs, cfg, mesh)
+            module = whole.get_submodule(f"segments.0.0.{prefix}")
+            leaves = {n: f"segments.0.0.{prefix}.{n}"
+                      for n, _ in module.named_parameters()}
+            x = torch.from_numpy(rng.standard_normal(
+                (B, L, cfg.d_model)).astype(np.float32))
+            ct = torch.from_numpy(rng.standard_normal(
+                (B, L, cfg.d_model)).astype(np.float32))
+            want = _mixer_run(applies[mixer], module, x, ct, cfg)
+            mine = _with_leaves(module, {
+                n: local_slice(p, only_model(specs[leaves[n]]), mesh)
+                for n, p in module.named_parameters()
+                if split[leaves[n]] == SPLIT})
+            got = _mixer_run(applies[mixer], mine, x, ct, cfg, axis)
+            gathered = {n: unshard(g.contiguous(),
+                                   only_model(specs[leaves[n]]), mesh)
+                        if split[leaves[n]] == SPLIT else g
+                        for n, g in got[2].items()}
+            res[mixer] = dict(
+                split={n: split[leaves[n]] for n in leaves},
+                local={n: tuple(p.shape) for n, p in mine.named_parameters()},
+                want=[want[0].numpy(), want[1].numpy(), _np(want[2])],
+                got=[got[0].numpy(), got[1].numpy(), _np(gathered)])
+        # the split norm
+        x = torch.from_numpy(rng.standard_normal((B, L, 128))
+                             .astype(np.float32))
+        scale = torch.from_numpy(0.1 * rng.standard_normal(128)
+                                 .astype(np.float32))
+        ct = torch.from_numpy(rng.standard_normal((B, L, 128))
+                              .astype(np.float32))
+        norms = {}
+        for name, (xs, ss, ax) in (
+                ("whole", (x, scale, None)),
+                ("split", (local_slice(x, (None, None, "model"), mesh),
+                           local_slice(scale, ("model",), mesh), axis))):
+            xs, ss = (t.clone().requires_grad_(True) for t in (xs, ss))
+            y = (layers.rms_norm(xs, ss, 1e-5) if ax is None
+                 else tp.rms_norm(xs, ss, 1e-5, ax))
+            ct_mine = ct if ax is None else local_slice(
+                ct, (None, None, "model"), mesh)
+            gx, gs = torch.autograd.grad((y * ct_mine).sum(), [xs, ss])
+            norms[name] = [y.detach().numpy(), gx.numpy(), gs.numpy()]
+        res["norm"] = norms
+        # the model axis's collective calls a step, by sequence length
+        calls = {}
+        for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+            cfg = reduced(get_config(arch))
+            model = build(cfg, device="cpu")
+            module = model.init(0)
+            params = reshard(module, param_shardings(module, mesh,
+                                                     cfg.n_experts), mesh)
+            for S in seq_lens:
+                toks = np.random.default_rng(1).integers(
+                    0, cfg.vocab_size, (4, S + 1)).astype(np.int32)
+                batch = {"tokens": torch.from_numpy(toks[:, :-1]),
+                         "labels": torch.from_numpy(toks[:, 1:])}
+                compat.reset_stats()
+                sharded_loss_and_grads(model, params, batch, cfg)
+                calls[f"{arch}/{S}"] = {
+                    op: c["calls"] for op, c in compat.STATS.as_dict().items()
+                    if op.startswith("model:")}
+        res["calls"] = calls
+        res["coords"] = mesh.coords
+        out[mesh_name(shape)] = res
     return out

@@ -158,11 +158,17 @@ def hold_split(ref, ranks, arch, name):
     model-split dimension cut tp times (``1/tp`` of the elements), every
     other leaf its whole shape; the logits' last dimension is the padded
     vocabulary over tp; in a MoE config each ``torch.bmm`` of the loss
-    (the experts') sees ``E / tp`` experts."""
+    (the experts') sees ``E / tp`` experts; each Mamba2 SSD scan, mLSTM
+    scan and sLSTM step runs on ``H / tp`` heads where tp divides the
+    mixers' ``H``, else on all ``H``."""
     from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed.sharding import mixer_heads
 
     cfg = reduced(get_config(arch))
     tp = int(name.split("x")[1])
+    H = mixer_heads(cfg)
+    mixers = {"hybrid": ["mamba"], "ssm": ["mlstm", "slstm"]}.get(
+        cfg.family, [])
     split_leaves = 0
     for r in ranks:
         for leaf, shape in r["work"].items():
@@ -181,6 +187,10 @@ def hold_split(ref, ranks, arch, name):
         if cfg.n_experts:
             assert r["experts"] and set(r["experts"]) == {
                 cfg.n_experts // tp}, r["experts"]
+        assert sorted(r["heads"]) == mixers, r["heads"]
+        for mixer in mixers:
+            assert r["heads"][mixer] == [H // tp if H % tp == 0 else H], \
+                (mixer, r["heads"])
     assert split_leaves > 0
 
 

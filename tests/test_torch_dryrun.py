@@ -1,7 +1,9 @@
 """The port's dry-run (``repro_torch.launch.dryrun``) on the CPU.
 
-* For reduced gemma3 and reduced olmoe, train and decode cells (4 x 32)
-  on a fake world of 4 on a (2, 2) mesh count, for rank 0, the same
+* For reduced gemma3 and reduced olmoe, train and decode cells (4 x 32),
+  and reduced zamba2's train cell (its Mamba2 mixers split by head over
+  the model axis), on a fake world of 4 on a (2, 2) mesh count, for rank
+  0, the same
   collective calls and bytes (by op, by mesh axes, the gathers of
   weights and the recomputed calls apart) and the same ``FlopCounterMode``
   FLOPs as four real gloo ranks running the same step on real weights
@@ -36,7 +38,7 @@ from repro_torch.models import model_flops
 
 B, S = 4, 32
 CELLS = [(a, k, B, S) for a in ("gemma3-1b", "olmoe-1b-7b")
-         for k in ("train", "decode")]
+         for k in ("train", "decode")] + [("zamba2-2.7b", "train", B, S)]
 
 
 @pytest.fixture(scope="module")
