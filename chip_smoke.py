@@ -38,13 +38,13 @@ exits non-zero without the final ``ok`` line:
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
    built on the card from 1M ``sift-like`` vectors (the PQ spec from the
-   first ``PQ_MAIN_N``, 31,250: its Pólya coding runs on the host;
+   first ``PQ_MAIN_N``, 15,625: its Pólya coding runs on the host;
    k-means assignment and PQ encoding through ``l2_top1``) and served
    through ``AnnService`` (4-query requests, ``max_batch=64``,
    ``nprobe=16``, top-10) twice, with the decoded-id cache cold and then
    warm; then an ingest pass: five
    ``add`` calls of 10,000 new vectors each (five epochs; for the PQ
-   spec one of the first ``PQ_ADD_ROWS``, 2,500, whose Pólya coding runs
+   spec one of the first ``PQ_ADD_ROWS``, 1,250, whose Pólya coding runs
    on the host), and the queries served
    again.  Every kernel's launch count (and the launch shapes:
    ``seg_topk`` by ``(n, k)``, ``l2_top1`` by ``(K, d, rows)``, the rows
@@ -76,7 +76,7 @@ exits non-zero without the final ``ok`` line:
    the planner re-encodes each shard's Pólya codes); Flat on 4 shards by
    hash, its plan saved and loaded onto the card (pack / unpack seconds,
    MB), equal before and after; an ``IVF1024,ids=roc`` plan over the first
-   100,000 vectors saved and loaded (the joint ROC streams cost ~1 min at
+   50,000 vectors saved and loaded (the joint ROC streams cost ~1 min at
    1M on the host), equal;
 9. graph paths, on the reference's graph workload (``GRAPH_N``, 100,000,
    ``deep-like`` vectors, d = 96, seed 0, and its own 1000 queries: a
@@ -285,11 +285,11 @@ exits non-zero without the final ``ok`` line:
    cut to one super-block (6 Mamba2 layers and the shared block; 5 mLSTM
    and 1 sLSTM), their mixers split by head over the model axis: one
    sharded step of 4 x 512 tokens each against the one-process step at
-   the same bounds (xlstm: its sharded gradients within 3.32e-4, its
-   train-step tests' bound, of each leaf's max of the one-process
-   gradients in f64, and against the one-process f32 step within twice
-   that step's own gap from f64, whose f32 gradients on the card lie
-   far from f64 at this batch; grad_norm within 3.32e-4), and the
+   the same bounds (xlstm: its train-step tests' bound, 3.32e-4 of each
+   leaf's max, for its sharded gradients against the one-process f32
+   step's, and for both against the one-process gradients in f64, every
+   step on the f64 step's sides of the mLSTM normaliser's kink; grad_norm
+   within 3.32e-4), and the
    sharded prefill of 4 x 512 prompts
    against the one-process prefill within 1e-4 of the logits' scale,
    each rank's matmul FLOPs share printed beside the predicted one
@@ -302,7 +302,15 @@ exits non-zero without the final ``ok`` line:
    equal to rank 0's; its ``temp_bytes`` and peak printed beside the
    real ``max_memory_allocated``, with the ratio.  A world of one on
    NCCL in this process: the sharded step on (1, 1) equal to the plain
-   step bit for bit.  Any rank's failure fails the phase.
+   step bit for bit.  Any rank's failure fails the phase;
+19. examples on the card (counts read in each example's process and
+   summed): ``examples/torch_quickstart.py``, ``torch_serve_ann.py``
+   (monolithic, then on 4 shards with a 5% fault rate) and
+   ``torch_train_embedder.py --full``, each a process of its own with
+   ``--device cuda`` at the sizes of EXAMPLE_RUNS, all started at once;
+   each must exit 0 and print its expected lines, and together they must
+   launch ``l2_top1``, ``l2_dist``, ``seg_topk`` and ``pq_adc``; each
+   run's seconds, launches and result lines printed.
 
 The last four lines are the total of the phases' seconds, the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
@@ -318,6 +326,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -349,8 +358,9 @@ INGEST_ADDS, INGEST_ROWS = 5, 10_000
 # unpacked on the host at a cost that grows faster than the lists (at the
 # main path's 1M, 68.9 s + 79.3 s of the phase's 157.0 s, and 166.3 s on
 # a slower host, before the run grew past RUN_LIMIT_S there)
-# (125,000 since recomputation and the dry-run grew phases 17-18)
-CONTAINER_N = 125_000
+# (125,000 since recomputation and the dry-run grew phases 17-18; 62,500
+# since the examples' phase 19)
+CONTAINER_N = 62_500
 # the PQ spec is built over the first PQ_MAIN_N vectors and grown by the
 # first add only: its Pólya coding runs on the host (the build took
 # 218.7-290 s at 1M, each add ~20-43 s), cuts of depth that keep the run
@@ -362,13 +372,14 @@ CONTAINER_N = 125_000
 # and 1066.5 s at 125,000 on two hosts, before the distributed phase's
 # full-width (2, 2) steps took it from 40.8-64.6 s to 106.3 s)
 # (31,250 since recomputation and the dry-run grew phases 17-18:
-# 33.0 s at 62,500)
-PQ_MAIN_N = 31_250
+# 33.0 s at 62,500; 15,625 since the examples' phase 19)
+PQ_MAIN_N = 15_625
 PQ_INGEST_ADDS = 1
 # the PQ spec's add takes the first PQ_ADD_ROWS rows of the first add: its
 # Pólya coding runs on the host (35.9 s for 10,000 rows on a slow host,
-# since recomputation and the dry-run grew phases 17-18)
-PQ_ADD_ROWS = 2_500
+# since recomputation and the dry-run grew phases 17-18; 1,250 since the
+# examples' phase 19)
+PQ_ADD_ROWS = 1_250
 # Flat's results are held against the CPU's numpy loop over 1M vectors on
 # the first 64 queries, split over FLAT_LOOP_THREADS host threads (~0.5-0.7
 # s a query on one; 64 took 46 s)
@@ -447,7 +458,7 @@ STEP_TILE_MAX = 64 * 4096
 SHARD_IVF = ((1, "range"), (2, "range"), (4, "range"), (4, "hash"))
 SHARD_ADD_ROWS = 10_000
 SHARD_PQ_N = 12_500
-SHARD_CONTAINER_N = 100_000
+SHARD_CONTAINER_N = 50_000       # 100,000 before phase 19
 SHARD_GRAPH = 2
 SHARD_EXHAUSTIVE_N = 2000
 SHARD_EXHAUSTIVE_EF = 2048
@@ -640,6 +651,44 @@ TRAIN_REMAT_POLICIES = ("none", "full", "dots")
 TRAIN_REMAT_STEPS, TRAIN_REMAT_TOL = 5, 1e-6
 DIST_SERVE_MAX_LEN = {"gemma3-1b": 528, "olmoe-1b-7b": 80}
 DIST_SERVE_STEPS, DIST_SERVE_TOL = 8, 1e-4
+
+# Phase 19: the port's examples (examples/torch_*.py), each run as its own
+# process on the card, side by side: (name, script, arguments, the lines
+# its output must hold).  Host-bound cuts, the default spec's Polya codes
+# being coded on the host (again for each shard): quickstart at 50,000 of
+# its 100,000 vectors (32.4-42.5 s at 100,000); serve_ann at 50,000 of its
+# 200,000, and with 4 shards and a 5% fault rate at 10,000 (86.5 s at
+# 50,000, 38.2-40.6 s at 20,000); train_embedder --full (gemma3-1b
+# trained at full width, the ~100M-param embedder) for 20 of its 200
+# steps (112.6 s at 200, 38.2-45.6 s at 40).  Seconds on H100 hosts, the
+# four runs side by side.
+EXAMPLE_RUNS = (
+    ("quickstart", "torch_quickstart.py",
+     ("--n", "50000", "--queries", "100", "--nlist", "256", "--graph-n",
+      "2000"),
+     ("compression is lossless", "reloaded index returns bit-identical",
+      "same search API")),
+    ("serve_ann", "torch_serve_ann.py", ("--n", "50000", "--queries", "1000"),
+     ("recall@10", "RAM ledger")),
+    ("serve_ann_sharded", "torch_serve_ann.py",
+     ("--n", "10000", "--queries", "1000", "--shards", "4", "--fault-rate",
+      "0.05"),
+     ("recall@10", "sharded serving:", "degraded mode:", "RAM ledger")),
+    ("train_embedder", "torch_train_embedder.py",
+     ("--full", "--steps", "20"),
+     ("[train] done", "[4/4] querying", "self-recall@1")),
+)
+EXAMPLE_KERNELS = ("l2_top1", "l2_dist", "seg_topk", "pq_adc")
+EXAMPLE_TIMEOUT_S = 400
+# runs an example as __main__ in a process of its own, then prints the
+# launch counts of the port's kernels in that process
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "path = sys.argv[1]\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_path(path, run_name='__main__')\n"
+    "from repro_torch.kernels import launch_counts\n"
+    "print('LAUNCHES ' + json.dumps(launch_counts()))\n")
 
 class Phases:
     """The run's phase timer: ``with phases(name):`` prints the phase's
@@ -4339,24 +4388,35 @@ def repeat_report(first, loss, grads):
 
 def one_process_f32_f64(cfg, batch, dev):
     """The one-process gradients of ``cfg``'s loss on ``batch`` from
-    ``init_decoder(0, ...)``, in f32 and with the weights and activations
-    cast to f64: ``(f32, f64)``, each leaf in f64 on the host."""
+    ``init_decoder(0, ...)``, with the weights and activations cast to
+    f64 and in f32, each leaf in f64 on the host: ``dict(f64=, f32=,
+    sides=)``.  The f64 step runs first and records each mLSTM readout's
+    side of its normaliser's kink (``sides``), and the f32 step takes
+    those sides (``models.xlstm.NormaliserSides``)."""
     import dataclasses
 
     import torch
     from repro_torch.models import build
     from repro_torch.models.transformer import init_decoder
+    from repro_torch.models.xlstm import NormaliserSides
 
-    out = []
-    for dtype in ("float32", "float64"):
+    out = {}
+    for key, dtype in (("f64", "float64"), ("f32", "float32")):
         c = dataclasses.replace(cfg, dtype=dtype)
         p = init_decoder(0, cfg, dev).to(getattr(torch, dtype))
         p.cfg = c
-        _, grads = train_grads(build(c, device=dev), p, batch, c)
-        out.append({n: g.double().cpu() for n, g in grads.items()})
+        with NormaliserSides(out.get("sides")) as ns:
+            _, grads = train_grads(build(c, device=dev), p, batch, c)
+        out[key] = {n: g.double().cpu() for n, g in grads.items()}
+        out.setdefault("sides", ns.seen)
         del p, grads
         lm_free()
-    return tuple(out)
+    return out
+
+
+def grad_gap(a, b):
+    """``max |a - b| / max |b|``: a gradient's gap from its reference."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
 
 
 def sharded_against_f64(kept, specs, mesh, ref):
@@ -4364,9 +4424,10 @@ def sharded_against_f64(kept, specs, mesh, ref):
     step hands them to AdamW) gathered whole, each leaf's gap from the
     one-process f64 gradient over that gradient's max, beside the
     one-process f32 gradient's own gap (``ref``: :func:`
-    one_process_f32_f64`'s pair on rank 0, None on the others; the
-    largest gaps broadcast from rank 0).  Raises on every rank where the
-    sharded gap exceeds TRAIN_XLSTM_GRAD_TOL (phase 18, xlstm)."""
+    one_process_f32_f64`'s on rank 0, None on the others; the largest
+    gaps broadcast from rank 0).  Every step here takes the f64 step's
+    sides of the mLSTM normaliser's kink.  Raises on every rank where
+    either gap exceeds TRAIN_XLSTM_GRAD_TOL (phase 18, xlstm)."""
     import torch
     import torch.distributed as dist
     from repro_torch.distributed.sharding import unshard
@@ -4375,24 +4436,20 @@ def sharded_against_f64(kept, specs, mesh, ref):
              for n, g in kept.items()}
     gaps, at = torch.zeros(2, dtype=torch.float64), None
     if ref is not None:
-        g32, g64 = ref
-
-        def gap(a, b):
-            return float((a - b).abs().max()) / max(float(b.abs().max()),
-                                                    1e-300)
-
-        one = {n: gap(g32[n], g64[n]) for n in g64}
-        split = {n: gap(whole[n].double().cpu(), g64[n]) for n in g64}
+        g32, g64 = ref["f32"], ref["f64"]
+        one = {n: grad_gap(g32[n], g64[n]) for n in g64}
+        split = {n: grad_gap(whole[n].double().cpu(), g64[n]) for n in g64}
         at = dict(one_process_f32=max(one, key=one.get),
                   sharded=max(split, key=split.get))
         gaps = torch.tensor([max(one.values()), max(split.values())],
                             dtype=torch.float64)
     dist.broadcast(gaps, src=0)
     one_gap, split_gap = gaps.tolist()
-    if not split_gap <= TRAIN_XLSTM_GRAD_TOL:
-        raise AssertionError(f"sharded step: a gradient {split_gap} of its "
-                             "max from the one-process f64 gradient "
-                             f"(tolerance {TRAIN_XLSTM_GRAD_TOL})")
+    for what, gap in (("sharded", split_gap), ("one-process f32", one_gap)):
+        if not gap <= TRAIN_XLSTM_GRAD_TOL:
+            raise AssertionError(f"{what} step: a gradient {gap} of its max "
+                                 "from the one-process f64 gradient "
+                                 f"(tolerance {TRAIN_XLSTM_GRAD_TOL})")
     return dict(one_process_f32_gap=one_gap, sharded_gap=split_gap,
                 tol=TRAIN_XLSTM_GRAD_TOL, worst_leaf=at)
 
@@ -4410,10 +4467,11 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
     modes (the FLOP counter, the routing recorder), held bit for bit
     against each other and the second against the step's
     (:func:`repeat_report`; reported, not a failure); with ``f64``
-    (xlstm), the sharded step's gradients also held against the
-    one-process gradients in f64 (:func:`sharded_against_f64`) and the
-    one-process f32 step's gradients at twice their own gap from those,
-    the train-step tests' form of xlstm's bound; digests of this rank's
+    (xlstm), every step on the one-process f64 step's sides of the mLSTM
+    normaliser's kink, the sharded step's and the one-process f32 step's
+    gradients also held against the one-process gradients in f64
+    (:func:`sharded_against_f64`), and the sharded step against the
+    one-process f32 step at xlstm's train-step bound; digests of this rank's
     shards that other ranks also hold, for the parent's replica check
     (phase 18, 3d)."""
     import dataclasses
@@ -4427,6 +4485,7 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
     from repro_torch.distributed.sharding import compute_split
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models.transformer import Decoder, init_decoder
+    from repro_torch.models.xlstm import NormaliserSides
     from repro_torch.train.optim import AdamWConfig, init_opt
     from repro_torch.train.step import make_train_step, sharded_loss_and_grads
 
@@ -4440,15 +4499,22 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
     B, S = DIST_TRAIN_BATCH
     batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
         vocab=cfg.vocab_size, batch=B, seq_len=S, seed=0).batch_at(0).items()}
-    want_routes = []
-    keep, keep_mu, plain = one_process_turns(
-        cfg, opt_cfg, specs, mesh, batch, dev, flops=dist.get_rank() == 0,
-        routes=want_routes)
-    ref = None
+    ref, sides = None, [None]
     if f64:
         if dist.get_rank() == 0:
             ref = one_process_f32_f64(cfg, batch, dev)
-        dist.barrier()
+            sides = [ref["sides"]]
+        dist.broadcast_object_list(sides, src=0)
+
+    def pinned(on=None):    # every step on the f64 step's sides (xlstm)
+        return NormaliserSides(sides[0], on) if f64 else \
+            contextlib.nullcontext()
+
+    want_routes = []
+    with pinned():
+        keep, keep_mu, plain = one_process_turns(
+            cfg, opt_cfg, specs, mesh, batch, dev,
+            flops=dist.get_rank() == 0, routes=want_routes)
     torch.cuda.reset_peak_memory_stats()
     p = init_decoder(0, cfg, dev)
     params = reshard(p, specs, mesh)
@@ -4468,7 +4534,7 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
     routes, counted, kept = [], {}, {}
     before = peak_then_reset()
     with recording_routing(routes), counting_flops(counted), \
-            keeping_grads(kept):
+            keeping_grads(kept), pinned(mesh):
         torch.cuda.synchronize()
         dist.barrier()      # the ranks start the timed step together
         compat.reset_stats()
@@ -4484,9 +4550,8 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
     del ref
     m = {k: float(v) for k, v in m.items()}
     tols = {}
-    if f64:     # xlstm: PR 22's form of its bound, measured at this width
-        tols = dict(grad_tol=max(TRAIN_XLSTM_GRAD_TOL,
-                                 2 * against_f64["one_process_f32_gap"]),
+    if f64:     # xlstm: its train-step tests' bounds
+        tols = dict(grad_tol=TRAIN_XLSTM_GRAD_TOL,
                     norm_tol=TRAIN_XLSTM_GRAD_TOL)
     gaps = hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg,
                               **tols)
@@ -4783,6 +4848,74 @@ def distributed(dev):
         for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
     return rep, launches
+
+
+def examples_on_card(workdir):
+    """Phase 19 (module docstring): every run of EXAMPLE_RUNS started at
+    once, each ``examples/torch_*.py`` in a process of its own with
+    ``--device cuda``; raises if one exits non-zero, runs past
+    EXAMPLE_TIMEOUT_S or lacks an expected line, or if the runs together
+    launched none of EXAMPLE_KERNELS.  Returns ``(report, launches)``:
+    each run's seconds, launches and the lines it printed that hold its
+    results, and the kernels' launches summed over the runs."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC) + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    procs, started, ended = {}, {}, {}
+    try:
+        for name, script, args, _ in EXAMPLE_RUNS:
+            out = open(workdir / f"{name}.out", "w")
+            err = open(workdir / f"{name}.err", "w")
+            with out, err:
+                started[name] = time.perf_counter()
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-c", EXAMPLE_RUNNER,
+                     str(ROOT / "examples" / script), *args, "--device",
+                     "cuda"], stdout=out, stderr=err, env=env, cwd=str(ROOT))
+        t0 = time.perf_counter()
+        while len(ended) < len(procs):
+            if time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S:
+                raise AssertionError(
+                    f"examples still running after {EXAMPLE_TIMEOUT_S} s: "
+                    f"{sorted(set(procs) - set(ended))}")
+            for name, proc in procs.items():
+                if name not in ended and proc.poll() is not None:
+                    ended[name] = time.perf_counter()
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    report, total = {}, dict.fromkeys(EXAMPLE_KERNELS, 0)
+    for name, script, args, want in EXAMPLE_RUNS:
+        out = (workdir / f"{name}.out").read_text()
+        lines = out.splitlines()
+        if procs[name].returncode != 0 or not lines or not lines[-1] \
+                .startswith("LAUNCHES "):
+            raise AssertionError(
+                f"{script} {' '.join(args)} exited "
+                f"{procs[name].returncode}:\n{out[-3000:]}\n"
+                f"{(workdir / f'{name}.err').read_text()[-3000:]}")
+        missing = [w for w in want if w not in out]
+        if missing:
+            raise AssertionError(f"{script}: no line with {missing}")
+        launches = json.loads(lines[-1][len("LAUNCHES "):])
+        for k in total:
+            total[k] += launches.get(k, 0)
+        report[name] = dict(
+            argv=[script, *args], seconds=ended[name] - started[name],
+            launches=launches,
+            lines=[ln.strip() for ln in lines[:-1] if any(w in ln for w in (
+                "bits/id", "identical", "container", "bits/edge", "recall",
+                "QPS", "shards", "partial", "this server", "[train] done",
+                "embeddings"))])
+    if min(total.values()) <= 0:
+        raise AssertionError(f"the examples launched no "
+                             f"{[k for k, c in total.items() if c <= 0]}")
+    return report, total
 
 
 def main(argv=None) -> int:
@@ -5227,6 +5360,14 @@ def main(argv=None) -> int:
         for key, r in dr.items():
             print(f"  {key} ({smi}): " + json.dumps(r))
         print(f"  distributed launches: {json.dumps(paths['distributed'])}")
+
+    with phase("examples on the card"), \
+            tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ex, ex_counts = examples_on_card(Path(tmp))
+        for key, r in ex.items():
+            print(f"  {key} ({smi}): " + json.dumps(r))
+        print(f"  examples launches: {json.dumps(ex_counts)}")
+    paths["examples"] = dict.fromkeys(main_path, 0) | ex_counts
 
     on_api = ("wt_rank", "rans_decode")
     totals = {k: api_path[k] if k in on_api else

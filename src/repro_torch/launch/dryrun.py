@@ -206,9 +206,10 @@ def differs_from_reference(cfg: ModelConfig, shape: ShapeSpec, kind: str,
                    f"the model axis's {tp} ranks")
     elif tp > 1 and heads and kind == "decode":
         out.append("Mamba2 / xLSTM mixers computed whole on every model "
-                   "rank in the decode: their states are stored on N / K / "
-                   "channels, not by head, and gathered over the model "
-                   "axis each step")
+                   "rank in the decode: their states, stored on N / K / "
+                   "channels, are gathered over the model axis each step, "
+                   "where the reference updates them in place and reduces "
+                   "their readouts over the model axis")
     if kind != "decode" and mesh.axis_size(dp) > 1:
         specs = batch_shardings(input_specs(cfg, shape), mesh)
         if specs[_main_input(specs)][:1] != (dp,):

@@ -32,6 +32,7 @@ the loop over time runs no collective.  The decodes compute whole.
 
 from __future__ import annotations
 
+import contextvars
 import math
 from typing import NamedTuple, Tuple
 
@@ -47,6 +48,7 @@ from .ssm import ssd_chunked
 __all__ = [
     "MLstm",
     "MLstmCache",
+    "NormaliserSides",
     "SLstm",
     "SLstmCache",
     "init_mlstm_cache",
@@ -126,6 +128,73 @@ def _per_head_scan(xs, log_f, k, q):
     return y[:, :, 0].reshape(B, H, L, -1).transpose(1, 2)
 
 
+_SIDES = contextvars.ContextVar("mlstm_normaliser_sides", default=None)
+
+
+class NormaliserSides:
+    """Which side of its kink each full-sequence mLSTM readout takes, for
+    a check that holds two computations of the same gradients together.
+
+    ``num / max(|den|, 1)`` has a kink at ``|den| = 1``: the gradient
+    through ``den`` is ``-num / den**2`` (with ``den``'s sign) on one side
+    and 0 on the other.  Where ``den`` lies within rounding of 1, two
+    computations of the same sums (f32 against f64, or f32 products in
+    another order) may take different sides, and their gradients then
+    differ by that jump, however closely each computes its sums.  Inside
+    ``with NormaliserSides(...):`` every readout records ``|den| >= 1``
+    in ``seen`` (a bool tensor on the host a layer, in the order of the
+    forward pass) and, where ``pinned`` holds another run's ``seen`` of
+    the same layers, takes those sides instead of its own.  In a sharded
+    step on a ``("data", "model")`` ``mesh`` each readout sees a slice of
+    the whole record: its data rank's sequences and, where the model
+    axis splits the heads, its model rank's heads.  A recomputation
+    (``models.remat``, which runs inside the backward pass) takes the
+    side its forward took: that of the recorded layer whose ``|den|`` is
+    nearest its own."""
+
+    def __init__(self, pinned=None, mesh=None):
+        self.pinned, self.mesh = pinned, mesh
+        self.seen, self._mags = [], []
+
+    def __enter__(self):
+        self._token = _SIDES.set(self)
+        return self
+
+    def __exit__(self, *exc):
+        _SIDES.reset(self._token)
+
+    def side(self, den: torch.Tensor) -> torch.Tensor:
+        """The side (``|den| >= 1``, on ``den``'s device) to take."""
+        mag = den.detach().abs().cpu()
+        if torch._C._current_autograd_node() is None:      # a forward pass
+            i = len(self.seen)
+            self._mags.append(mag)
+            self.seen.append(mag >= 1)
+        else:
+            i = min((j for j, m in enumerate(self._mags)
+                     if m.shape == mag.shape),
+                    key=lambda j: float((self._mags[j] - mag).abs().max()))
+        if self.pinned is None:
+            return self.seen[i].to(den.device)
+        side = self.pinned[i]
+        if self.mesh is not None:
+            b, h = den.shape[0], den.shape[2]
+            di = self.mesh.index("data")
+            hi = self.mesh.index("model") if h < side.shape[2] else 0
+            side = side[di * b:(di + 1) * b, :, hi * h:(hi + 1) * h]
+        return side.to(den.device)
+
+
+def _normalise(num, den):
+    """The mLSTM readout ``num / max(|den|, 1)``; under a
+    :class:`NormaliserSides`, on the side of the kink it says."""
+    sides = _SIDES.get()
+    if sides is None:
+        return num / torch.clamp(den.abs(), min=1.0)
+    mag = den.abs()
+    return num / torch.where(sides.side(den), mag, torch.ones_like(mag))
+
+
 def _mlstm_local(params: MLstm, cfg, axis) -> int:
     """This rank's head count, after checking that the mLSTM's leaves are
     its model shards (module docstring)."""
@@ -159,8 +228,7 @@ def mlstm_apply(params: MLstm, x, cfg, axis=None):
     # input weighting: i_t enters multiplicatively (like dt in SSD)
     xs = v_aug * torch.exp(log_i)[..., None].to(v.dtype)
     y = _per_head_scan(xs, log_f, k, q)                       # (B,L,H,hd+1)
-    num, den = y[..., :-1], y[..., -1:]
-    y = num / torch.clamp(den.abs(), min=1.0)
+    y = _normalise(y[..., :-1], y[..., -1:])
     z = params.wz(x)
     y = y.reshape(B, L, H * hd) * F.silu(z)
     if axis is None:

@@ -887,3 +887,42 @@ def test_cuda_sharded_flat_equals_monolith(dev, tmp_path):
         assert st.engine == "flat-pallas"
         np.testing.assert_array_equal(ids, i0)
         np.testing.assert_array_equal(dists, d0)
+
+
+def test_mlstm_at_full_width_on_the_f64_sides(dev):
+    """xlstm-1.3b's mLSTM at the width and folded batch (4 sequences x 4
+    heads = 16 in the SSD scan's batch, 512 tokens, p = 513, n = 512)
+    where the train step's f32 gradients left f64 (``tools/
+    xlstm_grad_gap.py --localise``): on the card in f32, on the sides of
+    the normaliser's kink that a CPU f64 copy took, its output and every
+    gradient within 3.32e-4 (the xlstm train-step bound) of the f64
+    copy's scale."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import xlstm as PX
+
+    cfg = get_config("xlstm-1.3b")
+    mod = PX.MLstm(cfg, device="cpu")
+    mod.init_(torch.Generator().manual_seed(0))
+    r = np.random.default_rng(0)
+    x = torch.from_numpy(r.standard_normal((4, 512, cfg.d_model))
+                         .astype(np.float32))
+    ct = torch.from_numpy(r.standard_normal((4, 512, cfg.d_model))
+                          .astype(np.float32))
+
+    def run(m, device, dtype, sides=None):
+        xx = x.to(device, dtype).requires_grad_()
+        named = list(m.named_parameters())
+        with PX.NormaliserSides(sides) as ns:
+            y = PX.mlstm_apply(m, xx, cfg)
+            grads = torch.autograd.grad(y, [xx] + [p for _, p in named],
+                                        ct.to(device, dtype))
+        return [y.detach().double().cpu()] + [
+            g.double().cpu() for g in grads], ns.seen
+
+    want, sides = run(copy.deepcopy(mod).double(), "cpu", torch.float64)
+    got, _ = run(copy.deepcopy(mod).to(dev), dev, torch.float32, sides)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 3.32e-4 * float(b.abs().max())
+

@@ -71,6 +71,85 @@ def test_mlstm_apply(mcell):
     close(got.numpy(), want)
 
 
+def _vjp_ref(cell, x, ct):
+    """The reference's mLSTM output and its gradients (x, then each leaf of
+    the tree by ``module`` name) under the cotangent ``ct``."""
+    out, vjp = jax.vjp(lambda p, xx: RX.mlstm_apply(p, xx, cell.ref_cfg),
+                       cell.tree, x)
+    d_tree, dx = vjp(ct)
+    leaves = {f"{m}.{k}": np.asarray(v) for m, sub in d_tree.items()
+              for k, v in sub.items()}
+    return np.asarray(out), np.asarray(dx), leaves
+
+
+def _vjp_port(cell, x, ct, sides=None):
+    xt = t(x).requires_grad_()
+    named = list(cell.mod.named_parameters())
+    with PX.NormaliserSides(sides) as ns:
+        out = PX.mlstm_apply(cell.mod, xt, cell.cfg)
+        grads = torch.autograd.grad(out, [xt] + [p for _, p in named],
+                                    t(ct))
+    return (out.detach().numpy(), grads[0].numpy(),
+            {n: g.numpy() for (n, _), g in zip(named, grads[1:])}, ns.seen)
+
+
+def test_mlstm_grads_on_the_recorded_and_pinned_sides(mcell):
+    """At the folded batch of 16 (4 sequences x 4 heads in the scan's
+    batch): the readout under ``NormaliserSides`` (recording, then pinned
+    to its own record) is the free readout bit for bit, and its output
+    and gradients equal the reference's ``mlstm_apply`` and its VJP."""
+    r = np.random.default_rng(12)
+    x = r.standard_normal((4, 64, mcell.cfg.d_model)).astype(F32)
+    ct = r.standard_normal((4, 64, mcell.cfg.d_model)).astype(F32)
+    out, dx, leaves = _vjp_ref(mcell, x, ct)
+    free = _vjp_port(mcell, x, ct)
+    assert [s.shape for s in free[3]] == [(4, 64, mcell.cfg.n_heads, 1)]
+    pinned = _vjp_port(mcell, x, ct, sides=free[3])
+    for a, b in ((free[0], pinned[0]), (free[1], pinned[1])):
+        assert np.array_equal(a, b)
+    for n in free[2]:
+        assert np.array_equal(free[2][n], pinned[2][n])
+    close(free[0], out)
+    close(free[1], dx)
+    for n, want in leaves.items():
+        close(free[2][n], want)
+
+
+def test_mlstm_readout_at_the_kink():
+    """The smallest input on which two computations of one readout part:
+    ``|den|`` one f64 rounding step under 1, ``1 - 2**-26``, rounds to
+    1.0 in f32.  The reference's readout ``num / max(|den|, 1)`` then
+    passes no gradient to ``den`` in f64 (clamped) and the port's f32 one
+    passes ``-num`` (the jump of the kink, not an error of either).  On
+    the f64 side (``NormaliserSides(pinned=...)``) the f32 readout's
+    gradients are the f64 reference's."""
+    num64 = np.array([[[[0.75]]]])
+    den64 = np.array([[[[1.0 - 2.0 ** -26]]]])
+    jax.config.update("jax_enable_x64", True)
+    try:
+        _, vjp = jax.vjp(lambda n, d: n / jax.numpy.maximum(
+            jax.numpy.abs(d), 1.0), num64, den64)
+        want_dnum, want_dden = (np.asarray(g) for g in vjp(np.ones(
+            (1, 1, 1, 1))))
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert want_dden == 0.0 and want_dnum == 1.0
+
+    def port(sides=None):
+        num = torch.tensor(num64, dtype=torch.float32, requires_grad=True)
+        den = torch.tensor(den64, dtype=torch.float32, requires_grad=True)
+        assert float(den.detach()) == 1.0
+        with PX.NormaliserSides(sides) as ns:
+            y = PX._normalise(num, den)
+        return [g.item() for g in torch.autograd.grad(y.sum(), [num, den])
+                ], ns.seen
+
+    (dnum, dden), seen = port()
+    assert seen[0].item() and dnum == 1.0 and dden == -0.75
+    (dnum, dden), _ = port(sides=[torch.tensor(den64) >= 1])
+    assert (dnum, dden) == (1.0, 0.0)
+
+
 def test_mlstm_decode_step_by_step(mcell):
     ref_cache = RX.init_mlstm_cache(2, mcell.ref_cfg)
     cache = PX.init_mlstm_cache(2, mcell.cfg, device="cpu")

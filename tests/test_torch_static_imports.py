@@ -1,5 +1,5 @@
-"""Static checks over every module of the port (``src/repro_torch``) and
-``chip_smoke.py``, parsed with ``ast`` (nothing is imported):
+"""Static checks over every module of the port (``src/repro_torch``), its
+examples (``examples/torch_*.py``) and ``chip_smoke.py``, parsed with ``ast`` (nothing is imported):
 
 * no ``import jax`` / ``jaxlib`` and nothing of the reference package
   ``repro`` (absolute, or relative past the top of ``repro_torch``);
@@ -20,7 +20,9 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted(PORT.rglob("*.py"))
+         + sorted((ROOT / "examples").glob("torch_*.py"))
+         + [ROOT / "chip_smoke.py"])
 BANNED = ("jax", "jaxlib", "repro")
 
 
