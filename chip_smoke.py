@@ -38,13 +38,13 @@ exits non-zero without the final ``ok`` line:
    vectors; the centroids must be bitwise equal;
 5. main path: ``IVF1024,ids=roc`` and ``IVF1024,PQ8x8,ids=roc,codes=polya``
    built on the card from 1M ``sift-like`` vectors (the PQ spec from the
-   first ``PQ_MAIN_N``, 15,625: its Pólya coding runs on the host;
+   first ``PQ_MAIN_N``, 7,812: its Pólya coding runs on the host;
    k-means assignment and PQ encoding through ``l2_top1``) and served
    through ``AnnService`` (4-query requests, ``max_batch=64``,
    ``nprobe=16``, top-10) twice, with the decoded-id cache cold and then
    warm; then an ingest pass: five
    ``add`` calls of 10,000 new vectors each (five epochs; for the PQ
-   spec one of the first ``PQ_ADD_ROWS``, 1,250, whose Pólya coding runs
+   spec one of the first ``PQ_ADD_ROWS``, 625, whose Pólya coding runs
    on the host), and the queries served
    again.  Every kernel's launch count (and the launch shapes:
    ``seg_topk`` by ``(n, k)``, ``l2_top1`` by ``(K, d, rows)``, the rows
@@ -72,11 +72,11 @@ exits non-zero without the final ``ok`` line:
    the monolith's warm QPS; one routed add of 10,000 vectors to the
    monolith and to both 4-shard services (every shard's n and epochs equal
    the monolith's, results equal); ``IVF1024,PQ8x8,ids=roc,codes=polya``
-   over the first 12,500 vectors on 2 shards by hash (a host-bound cut:
+   over the first 6,250 vectors on 2 shards by hash (a host-bound cut:
    the planner re-encodes each shard's Pólya codes); Flat on 4 shards by
    hash, its plan saved and loaded onto the card (pack / unpack seconds,
    MB), equal before and after; an ``IVF1024,ids=roc`` plan over the first
-   50,000 vectors saved and loaded (the joint ROC streams cost ~1 min at
+   25,000 vectors saved and loaded (the joint ROC streams cost ~1 min at
    1M on the host), equal;
 9. graph paths, on the reference's graph workload (``GRAPH_N``, 100,000,
    ``deep-like`` vectors, d = 96, seed 0, and its own 1000 queries: a
@@ -86,7 +86,7 @@ exits non-zero without the final ``ok`` line:
    occlusion prune, the host's ROC coding, each timed; bits per edge, and
    the nodes a search can reach from the entry), served through
    ``AnnService`` (ef = 32) cold and warm, then grown by five ``add``
-   calls of 10,000 vectors and served again; results equal to
+   calls of ``GRAPH_ADD_ROWS`` vectors and served again; results equal to
    ``search_ref`` on the first 64 queries after each pass, recall@10
    against exact search.  One beam step's device path (copies, gather,
    ``l2_dist``, copy back) is timed against the host re-score of the same
@@ -113,7 +113,7 @@ exits non-zero without the final ``ok`` line:
    (differing only inside ``rescore_eps``) and ``np_sum_f32`` (bit-equal
    to ``np.sum``).  ``HNSW16,ids=roc`` built over the same vectors and
    served cold and warm.  An ``NSG32,ids=roc`` index over the first
-   5,000 vectors after one ``add`` saved with webgraph and REC edges
+   2,500 vectors after an ``add`` of 2,500 saved with webgraph and REC edges
    and loaded onto the card (a host-only cut: the edge coders cost
    ~0.1-0.3 ms a node), search equal.  Every ``l2_dist`` tile and
    ``seg_topk`` ``(rows, n, k)`` these paths launched is held against its
@@ -278,8 +278,9 @@ exits non-zero without the final ``ok`` line:
    its 512-slot rings wrapping inside the sharded steps;
    olmoe-1b-7b: 64 tokens, its 16 KV heads split), each step's logits
    within 1e-4 of the one-process step's scale and its tokens equal where
-   the top-2 gap exceeds that, MoE routing bit-equal, with ms a step and
-   the collectives' host ms; the one-process side runs once, in this
+   the top-2 gap exceeds that, each rank's final cache slices within
+   1e-4 of the one-process cache's, MoE routing bit-equal, with ms a
+   step and the collectives' host ms; the one-process side runs once, in this
    process, before the ranks start, so that neither side is timed while
    the other runs.  Then zamba2-2.7b and xlstm-1.3b at full width, each
    cut to one super-block (6 Mamba2 layers and the shared block; 5 mLSTM
@@ -289,11 +290,20 @@ exits non-zero without the final ``ok`` line:
    leaf's max, for its sharded gradients against the one-process f32
    step's, and for both against the one-process gradients in f64, every
    step on the f64 step's sides of the mLSTM normaliser's kink; grad_norm
-   within 3.32e-4), and the
+   within 3.32e-4), and their serving steps on the same mesh: the
    sharded prefill of 4 x 512 prompts
    against the one-process prefill within 1e-4 of the logits' scale,
-   each rank's matmul FLOPs share printed beside the predicted one
-   (``mixers``).  Then the dry-run (``launch.dryrun``) of rank 0 of
+   then 8 sharded serve steps from a one-process f32 cache filled by 16
+   decode steps and placed by ``cache_shardings``, whose Mamba2, mLSTM
+   and sLSTM states stay where the rules store them (each rank updates
+   its slice; the readouts are reduced over "model"): each step's logits
+   within 1e-4 of the one-process step's scale, its tokens equal where
+   the top-2 gap exceeds that, each rank's final cache slices within
+   1e-4 of the one-process cache's; each rank's matmul FLOPs share
+   printed beside the predicted one, and the mixers' model-axis calls
+   and bytes a decode step (``compat.APART["recurrent"]``) equal to the
+   ones predicted from the shapes, beside what gathering every split
+   state would move (``mixers``).  Then the dry-run (``launch.dryrun``) of rank 0 of
    the same gemma3-1b train step and serve step on a fake world of 4 in
    this process, with fake ``cuda`` tensors: its collective calls and
    bytes by op equal to what rank 0 counted (``compat.STATS``) over one
@@ -359,8 +369,9 @@ INGEST_ADDS, INGEST_ROWS = 5, 10_000
 # main path's 1M, 68.9 s + 79.3 s of the phase's 157.0 s, and 166.3 s on
 # a slower host, before the run grew past RUN_LIMIT_S there)
 # (125,000 since recomputation and the dry-run grew phases 17-18; 62,500
-# since the examples' phase 19)
-CONTAINER_N = 62_500
+# since the examples' phase 19; 31,250 since the mesh decode of zamba2
+# and xlstm joined phase 18)
+CONTAINER_N = 31_250
 # the PQ spec is built over the first PQ_MAIN_N vectors and grown by the
 # first add only: its Pólya coding runs on the host (the build took
 # 218.7-290 s at 1M, each add ~20-43 s), cuts of depth that keep the run
@@ -372,14 +383,16 @@ CONTAINER_N = 62_500
 # and 1066.5 s at 125,000 on two hosts, before the distributed phase's
 # full-width (2, 2) steps took it from 40.8-64.6 s to 106.3 s)
 # (31,250 since recomputation and the dry-run grew phases 17-18:
-# 33.0 s at 62,500; 15,625 since the examples' phase 19)
-PQ_MAIN_N = 15_625
+# 33.0 s at 62,500; 15,625 since the examples' phase 19, 7.4 s of
+# phase; 7,812 since the mesh decode of zamba2 and xlstm joined phase 18)
+PQ_MAIN_N = 7_812
 PQ_INGEST_ADDS = 1
 # the PQ spec's add takes the first PQ_ADD_ROWS rows of the first add: its
 # Pólya coding runs on the host (35.9 s for 10,000 rows on a slow host,
 # since recomputation and the dry-run grew phases 17-18; 1,250 since the
-# examples' phase 19)
-PQ_ADD_ROWS = 1_250
+# examples' phase 19; 625 since the mesh decode of zamba2 and xlstm
+# joined phase 18)
+PQ_ADD_ROWS = 625
 # Flat's results are held against the CPU's numpy loop over 1M vectors on
 # the first 64 queries, split over FLAT_LOOP_THREADS host threads (~0.5-0.7
 # s a query on one; 64 took 46 s)
@@ -412,6 +425,10 @@ GRAPH_PRESET = "deep-like"
 # recomputation and the dry-run grew phases 17-18; at 1M the NSG32
 # path took 73.6 s and HNSW16 43.4 s, and a search reached 802 nodes)
 GRAPH_N = 100_000
+# its ingest: INGEST_ADDS adds of GRAPH_ADD_ROWS vectors, each add's prune
+# decided and its edges coded on the host (5 x 10,000 until the mesh
+# decode of zamba2 and xlstm joined phase 18: 8.2 s of add_s)
+GRAPH_ADD_ROWS = 4_000
 GRAPH_SPECS = ("NSG32,ids=roc", "HNSW16,ids=roc")
 GRAPH_EF = 32
 # The reference's builders (exact kNN, the occlusion prune, no step that
@@ -437,8 +454,10 @@ GRAPH_KNN_CHECK = 10_000
 # 54.25 s of a run's 1075.10 s of phases at 100,000, 34-40 s at 50,000 and
 # 27.34 s of 1103.52 s at 25,000)
 # (5,000 since recomputation and the dry-run grew phases 17-18: 21.6 s
-# at 10,000)
-GRAPH_CONTAINER_N = 5_000
+# at 10,000; 2,500, grown by the first GRAPH_CONTAINER_ADD rows of the
+# first add, not all 10,000, since the mesh decode of zamba2 and xlstm
+# joined phase 18: 14.6 s at 5,000 + 10,000, 10.0 s of it coding)
+GRAPH_CONTAINER_N, GRAPH_CONTAINER_ADD = 2_500, 2_500
 NPSUM_DIMS = (7, 24, 128, 129, 960)
 # graph-step tiles (query rows, candidate columns) at which one step's
 # device path is timed against the host re-score of the same candidates
@@ -457,8 +476,10 @@ STEP_TILE_MAX = 64 * 4096
 # exhaustive regime (ef >= n) over its first SHARD_EXHAUSTIVE_N vectors
 SHARD_IVF = ((1, "range"), (2, "range"), (4, "range"), (4, "hash"))
 SHARD_ADD_ROWS = 10_000
-SHARD_PQ_N = 12_500
-SHARD_CONTAINER_N = 50_000       # 100,000 before phase 19
+# (SHARD_PQ_N 12,500 and SHARD_CONTAINER_N 50,000 until the mesh decode
+# of zamba2 and xlstm joined phase 18: 9.3 s and 2.2 s of phase)
+SHARD_PQ_N = 6_250
+SHARD_CONTAINER_N = 25_000       # 100,000 before phase 19
 SHARD_GRAPH = 2
 SHARD_EXHAUSTIVE_N = 2000
 SHARD_EXHAUSTIVE_EF = 2048
@@ -637,11 +658,16 @@ DIST_TIMEOUT_S = 600
 # one-process steps cut for the phase's growth; olmoe's by KV head),
 # each step's logits
 # within DIST_SERVE_TOL of the one-process step's scale and its tokens
-# equal where the top-2 gap exceeds that; MoE routing bit-equal.  The
-# one-process side is computed once, by this process before the ranks
-# start, so that nothing else uses the card or the host while either
-# side is timed
-DIST_SERVE_FILL = {"gemma3-1b": 508, "olmoe-1b-7b": 64}
+# equal where the top-2 gap exceeds that, and each rank's final cache
+# slices within DIST_SERVE_TOL of the one-process cache's; MoE routing
+# bit-equal.  The same for DIST_TP_MIXER_ARCHS' super-blocks, filled by
+# 16 steps: their recurrent states stay where cache_shardings stores
+# them, the mixers' model-axis calls and bytes a step held to
+# mixer_decode_calls.  The one-process side is computed once, by this
+# process before the ranks start, so that nothing else uses the card or
+# the host while either side is timed
+DIST_SERVE_FILL = {"gemma3-1b": 508, "olmoe-1b-7b": 64, HYBRID_ARCH: 16,
+                   XLSTM_ARCH: 16}
 # activation recomputation in phase 17: one step under each policy, then
 # TRAIN_REMAT_STEPS timed steps after one warm-up; gradients that are not
 # bit-equal to the step without recomputation must lie within
@@ -649,7 +675,8 @@ DIST_SERVE_FILL = {"gemma3-1b": 508, "olmoe-1b-7b": 64}
 # differs between the forward and its recomputation would round apart)
 TRAIN_REMAT_POLICIES = ("none", "full", "dots")
 TRAIN_REMAT_STEPS, TRAIN_REMAT_TOL = 5, 1e-6
-DIST_SERVE_MAX_LEN = {"gemma3-1b": 528, "olmoe-1b-7b": 80}
+DIST_SERVE_MAX_LEN = {"gemma3-1b": 528, "olmoe-1b-7b": 80, HYBRID_ARCH: 32,
+                      XLSTM_ARCH: 32}
 DIST_SERVE_STEPS, DIST_SERVE_TOL = 8, 1e-4
 
 # Phase 19: the port's examples (examples/torch_*.py), each run as its own
@@ -2011,7 +2038,7 @@ def graph_decisions(base, nsg_head, device):
 
 def graph_container_path(base, queries, add, device):
     """``save_index`` / ``load_index(device=...)`` of an NSG32 index over
-    the first GRAPH_CONTAINER_N vectors after one ``add``, with webgraph and
+    the first GRAPH_CONTAINER_N vectors after the ``add``, with webgraph and
     REC edges: pack and unpack seconds, blob MB, bits per edge and epochs
     equal, search after reload equal over all ``queries``.  Launch counts
     set to 0 before and read after.  Returns (report, counts, shapes)."""
@@ -3678,7 +3705,8 @@ def dist_four(ckpt_dir):
     DIST_TP_MOE_LAYERS layers, whose loss and gradients are also
     computed twice from one state and compared bit for bit), served;
     then zamba2-2.7b's and xlstm-1.3b's super-blocks, their mixers split
-    by head, trained one step and prefilled."""
+    by head, trained one step, prefilled and decoded, their states where
+    the rules store them."""
     import torch
     import torch.distributed as dist
 
@@ -3701,8 +3729,8 @@ def dist_four(ckpt_dir):
         rep[f"tp {arch}"] = dist_tp(dev, arch, DIST_TP_MIXER_LAYERS,
                                     f64=arch == XLSTM_ARCH)
         lm_free()
-        rep[f"prefill {arch}"] = dist_prefill(dev, arch,
-                                              DIST_TP_MIXER_LAYERS, ckpt_dir)
+        rep[f"serve {arch}"] = dist_serve(dev, arch, DIST_TP_MIXER_LAYERS,
+                                          ckpt_dir)
     return rep
 
 
@@ -3768,68 +3796,49 @@ def checked_prefill(arch, prefill, params, prompt, want, routes):
     return gap, first_s, pre_s, coll
 
 
-def prefill_oracle(dev, arch, n_layers, workdir):
-    """The one-process prefill of the serving phase's prompts for ``arch``
-    (depth cut to ``n_layers``), once, in this process before the ranks
-    start (phase 18), with its ms; saved on the host for the ranks."""
-    import os
+def mixer_decode_calls(cfg, mesh_shape, batch):
+    """``{"now": (calls, bytes), "gathered": (calls, bytes)}``: the model
+    axis's collectives a decode step of ``cfg``'s Mamba2, mLSTM and sLSTM
+    layers on a (data, model) ``mesh_shape`` at ``batch`` sequences (f32
+    states and activations), from the shapes.  ``now``: the states updated
+    where ``cache_shardings`` stores them (Mamba2: the conv output
+    gathered, the readout ``(B, H, P)`` reduced; mLSTM: ``m`` gathered
+    where it is split over the heads, the readout ``(B, H, hd + 1)``
+    reduced; sLSTM: ``h`` gathered, first the old one too where the heads
+    do not divide the axis); ``gathered``: every split state leaf gathered
+    whole a layer, as the decode did before it kept them in place.  Each
+    call counts this rank's input bytes, as ``compat`` does (phase 18)."""
+    from repro_torch.models.transformer import segments_for
 
-    import torch
-    from repro_torch.models.transformer import init_decoder
-    from repro_torch.train.step import make_prefill_step
+    dp, tp = mesh_shape
+    b, f32 = batch // dp, 4
+    now, gathered = [0, 0], [0, 0]
 
-    cfg = serve_cfg(arch, n_layers)
-    prompt = serve_prompt(cfg).to(dev)
-    p = init_decoder(0, cfg, dev)
-    _, prefill = make_prefill_step(cfg, device=dev)
-    prefill(p, {"tokens": prompt})      # the process's first at this shape
-    pre, pre_s = timed(lambda: prefill(p, {"tokens": prompt}))
-    path = serve_oracle_path(workdir, arch)
-    torch.save(dict(prefill=pre.cpu(), prefill_ms=1e3 * pre_s),
-               str(path) + ".part")
-    os.replace(str(path) + ".part", path)
-    del p
-    lm_free()
+    def add(tally, n, nbytes):
+        tally[0] += n
+        tally[1] += n * nbytes
 
-
-def dist_prefill(dev, arch, n_layers, ckpt_dir):
-    """``arch`` at full width (f32; depth cut to ``n_layers``) prefilled on
-    DIST_TP_MESH, its mixers split by head over the model axis: the
-    sharded prefill of the serving phase's prompts against the
-    one-process prefill this script's own process computed
-    (:func:`prefill_oracle`), with ms, the collectives and peak memory
-    (phase 18)."""
-    import torch
-    from repro_torch.checkpoint import reshard
-    from repro_torch.distributed import param_shardings
-    from repro_torch.distributed.sharding import compute_split
-    from repro_torch.launch.mesh import make_mesh_compat
-    from repro_torch.models.transformer import init_decoder
-    from repro_torch.train import step as ST
-
-    cfg = serve_cfg(arch, n_layers)
-    prompt = serve_prompt(cfg).to(dev)
-    mesh = make_mesh_compat(DIST_TP_MESH, ("data", "model"), device=dev)
-    p = init_decoder(0, cfg, dev)
-    specs = param_shardings(p, mesh, cfg.n_experts)
-    params = reshard(p, specs, mesh)
-    del p
-    lm_free()
-    want = torch.load(serve_oracle_path(Path(ckpt_dir).parent, arch),
-                      weights_only=False)
-    torch.cuda.reset_peak_memory_stats()
-    _, prefill = ST.make_prefill_step(cfg, device=dev, mesh=mesh)
-    gap, first_s, pre_s, coll = checked_prefill(arch, prefill, params,
-                                                prompt, want, [])
-    split = compute_split(specs, cfg, mesh)
-    return dict(
-        arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
-        prompt=list(prompt.shape), tol=DIST_SERVE_TOL, prefill_gap=gap,
-        first_prefill_ms=1e3 * first_s, prefill_ms=1e3 * pre_s,
-        plain_prefill_ms=want["prefill_ms"], **collective_report(coll),
-        split={k: sum(v == k for v in split.values())
-               for k in ("split", "select", "gather", "replicated")},
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    for kind, n_iter, per in segments_for(cfg):
+        for _ in range(n_iter):
+            if kind == "mamba_hybrid":
+                H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+                ch = cfg.d_inner + 2 * N
+                for _ in range(per):
+                    add(now, 1, b * ch // tp * f32)
+                    add(now, 1, b * H * P * f32)
+                    add(gathered, 1, b * H * P * N // tp * f32)
+                    add(gathered, 1, b * 3 * ch // tp * f32)
+            elif kind == "xlstm_super":
+                H, hd, d = cfg.n_heads, cfg.head_dim_, cfg.d_model
+                for _ in range(per - 1):
+                    if H % tp == 0:
+                        add(now, 1, b * H // tp * f32)
+                        add(gathered, 1, b * H // tp * f32)
+                    add(now, 1, b * H * (hd + 1) * f32)
+                    add(gathered, 1, b * H * (hd + 1) * hd // tp * f32)
+                add(now, 1 if H % tp == 0 else 2, b * d // tp * f32)
+                add(gathered, 4, b * d // tp * f32)
+    return dict(now=tuple(now), gathered=tuple(gathered))
 
 
 def serve_oracle(dev, arch, n_layers, workdir):
@@ -3837,7 +3846,8 @@ def serve_oracle(dev, arch, n_layers, workdir):
     process: ``arch``'s prefill of the prompts, the cache filled by
     DIST_SERVE_FILL one-process serve steps, then DIST_SERVE_STEPS more,
     each with its logits (``decode_step`` on the same cache first) and
-    MoE routing; saved (on the host) for the ranks to read."""
+    MoE routing, and the last cache; saved (on the host) for the ranks to
+    read."""
     import os
 
     import torch
@@ -3873,7 +3883,8 @@ def serve_oracle(dev, arch, n_layers, workdir):
         tokens.append(tok.cpu())
         ms.append(1e3 * s)
     out = dict(prefill=pre.cpu(), prefill_ms=1e3 * pre_s, fill_s=fill_s,
-               cache0=cache0, logits=torch.stack(logits),
+               cache0=cache0, final=host_tree(cache),
+               logits=torch.stack(logits),
                tokens=torch.stack(tokens), ms=ms, routes=routes,
                prefill_routes=pre_routes)
     path = serve_oracle_path(workdir, arch)
@@ -3903,14 +3914,17 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
     served on DIST_TP_MESH: the sharded prefill and DIST_SERVE_STEPS
     sharded serve steps from the one-process cache placed by
     ``cache_shardings``, against the one-process side that this script's
-    own process computed (:func:`serve_oracle`), with ms and the
-    collectives' host ms (phase 18)."""
+    own process computed (:func:`serve_oracle`): logits, tokens and each
+    rank's final cache slices; with ms, the collectives' host ms and the
+    recurrent mixers' model-axis calls and bytes a step against
+    :func:`mixer_decode_calls` (phase 18)."""
     import torch
     import torch.distributed as dist
     from repro_torch.checkpoint import reshard
-    from repro_torch.distributed import (ShardedCache, compat,
+    from repro_torch.distributed import (ShardedCache, compat, map_cache,
                                          param_shardings)
     from repro_torch.distributed import sp as SP
+    from repro_torch.distributed.sharding import local_slice
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models.transformer import init_decoder
     from repro_torch.train import step as ST
@@ -3973,6 +3987,14 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
     if not max(gaps) <= DIST_SERVE_TOL:
         raise AssertionError(f"{arch}: sharded decode {max(gaps)} of the "
                              "logits' scale from the one-process decode")
+    cache_gaps = []
+    map_cache(lambda t, w, spec: cache_gaps.append(serve_gap(
+        t, local_slice(w, spec, mesh))), cache.local, want["final"],
+        cache.specs)
+    if not max(cache_gaps) <= DIST_SERVE_TOL:
+        raise AssertionError(f"{arch}: a rank's final cache slice "
+                             f"{max(cache_gaps)} of its scale from the "
+                             "one-process cache's")
     routing_equal(arch, "decode", routes, want["routes"], mine)
     # the same steps again, timed alone: no logits gathered
     cache, ms, again = placed(), [], []
@@ -3985,6 +4007,29 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
         ms.append(1e3 * s)
         again.append(tok.cpu())
     coll = compat.STATS.as_dict()
+    recurrent = compat.APART.get("recurrent")
+    recurrent = {} if recurrent is None else recurrent.as_dict()
+    model = [sum(c[k] for op, c in coll.items() if op.startswith("model:"))
+             / DIST_SERVE_STEPS for k in ("calls", "bytes")]
+    mixers = None
+    if recurrent:
+        got = tuple(sum(c[k] for c in recurrent.values()) / DIST_SERVE_STEPS
+                    for k in ("calls", "bytes"))
+        predicted = mixer_decode_calls(cfg, DIST_TP_MESH, B)
+        if got != predicted["now"]:
+            raise AssertionError(f"{arch}: the mixers' model-axis calls and "
+                                 f"bytes a step {got} against the predicted "
+                                 f"{predicted['now']}")
+        mixers = dict(
+            calls=got[0], mb=got[1] / 1e6, predicted_calls=predicted["now"][0],
+            predicted_mb=predicted["now"][1] / 1e6,
+            gathered_calls=predicted["gathered"][0],
+            gathered_mb=predicted["gathered"][1] / 1e6,
+            ms=1e3 * sum(c["seconds"] for c in recurrent.values())
+            / DIST_SERVE_STEPS,
+            ops={op: dict(calls=c["calls"] // DIST_SERVE_STEPS,
+                          bytes=c["bytes"] // DIST_SERVE_STEPS)
+                 for op, c in recurrent.items()})
     if not torch.equal(torch.stack(again), torch.stack(tokens)):
         raise AssertionError(f"{arch}: two sharded decodes differ")
     # one more step, its collectives and FLOPs counted alone (for the
@@ -4000,7 +4045,8 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
         prompt=list(prompt.shape), fill=fill, steps=DIST_SERVE_STEPS,
         max_len=DIST_SERVE_MAX_LEN[arch], tol=DIST_SERVE_TOL,
         prefill_gap=pre_gap, decode_gaps=gaps, decode_gap=max(gaps),
-        tokens_checked=checked, tokens_equal=equal,
+        cache_gap=max(cache_gaps), tokens_checked=checked,
+        tokens_equal=equal,
         tokens=B * DIST_SERVE_STEPS, sp_calls=len(sp_calls),
         kv_specs=sorted(kv_specs(cache.specs)),
         routing_bit_equal=bool(routes) or None,
@@ -4011,7 +4057,8 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
         plain_ms_by_step=want["ms"],
         plain_ms_mean=sum(want["ms"]) / len(want["ms"]),
         **collective_report(coll), one_step=one_step,
-        peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        model_axis_calls_a_step=model[0], model_axis_mb_a_step=model[1] / 1e6,
+        mixers=mixers, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def kv_specs(node):
@@ -4647,19 +4694,24 @@ def serve_report(ranks):
             raise AssertionError(f"{first['arch']}: the ranks' serving "
                                  "results differ")
     return dict(first, ms_mean_by_rank=[r["ms_mean"] for r in ranks],
+                prefill_ms_by_rank=[r["prefill_ms"] for r in ranks],
+                cache_gap_by_rank=[r["cache_gap"] for r in ranks],
                 model_axis_ms_by_rank=[r["model_axis_ms"] for r in ranks],
                 sp_calls_by_rank=[r["sp_calls"] for r in ranks],
                 peak_gb_by_rank=[r["peak_gb"] for r in ranks])
 
 
 def mixer_report(rep):
-    """The mixers' split in phase 18's report ``rep``: for each of
+    """The mixers in phase 18's report ``rep``: for each of
     DIST_TP_MIXER_ARCHS each rank's share of the one-process step's matmul
     FLOPs beside the prediction, ms, peak GB and the model axis's calls
-    and bytes a step, the leaves' splits, the prefill's gap and ms."""
+    and bytes a step, the leaves' splits, the prefill's gap and ms; the
+    decode's gaps, ms a step (the one-process step's beside), the
+    collectives' host ms, the model axis's calls and MB a step and the
+    mixers' beside the predicted (:func:`mixer_decode_calls`)."""
     out = {}
     for arch in DIST_TP_MIXER_ARCHS:
-        tp, pre = rep[f"tp {arch}"], rep[f"prefill {arch}"]
+        tp, pre = rep[f"tp {arch}"], rep[f"serve {arch}"]
         out[arch] = dict(
             flops_share_by_rank=tp["flops_share_by_rank"],
             predicted_share=DIST_TP_MIXER_SHARE[arch],
@@ -4671,21 +4723,15 @@ def mixer_report(rep):
             against_f64=tp["against_f64"],
             prefill_gap=pre["prefill_gap"],
             prefill_ms_by_rank=pre["prefill_ms_by_rank"],
-            plain_prefill_ms=pre["plain_prefill_ms"])
+            plain_prefill_ms=pre["plain_prefill_ms"],
+            decode=dict({k: pre[k] for k in (
+                "fill", "steps", "decode_gap", "cache_gap", "tokens_checked",
+                "tokens_equal", "tokens", "ms_mean", "plain_ms_mean",
+                "collective_ms", "model_axis_ms", "model_axis_calls_a_step",
+                "model_axis_mb_a_step", "mixers")},
+                cache_gap_by_rank=pre["cache_gap_by_rank"],
+                ms_mean_by_rank=pre["ms_mean_by_rank"]))
     return out
-
-
-def prefill_report(ranks):
-    """Phase 18's report of a :func:`dist_prefill` run: rank 0's, with every
-    rank's ms and peak memory; the ranks' gaps must agree (each holds the
-    whole logits)."""
-    first = ranks[0]
-    if any(r["prefill_gap"] != first["prefill_gap"] for r in ranks[1:]):
-        raise AssertionError(f"{first['arch']}: the ranks' prefill logits "
-                             "differ")
-    return dict(first, prefill_ms_by_rank=[r["prefill_ms"] for r in ranks],
-                model_axis_ms_by_rank=[r["model_axis_ms"] for r in ranks],
-                peak_gb_by_rank=[r["peak_gb"] for r in ranks])
 
 
 def nccl_world_of_one(dev, workdir):
@@ -4770,7 +4816,7 @@ def distributed(dev):
     serve_oracle(torch.device(dev), LM_ARCH, None, work)
     serve_oracle(torch.device(dev), MOE_ARCH, DIST_TP_MOE_LAYERS, work)
     for arch in DIST_TP_MIXER_ARCHS:
-        prefill_oracle(torch.device(dev), arch, DIST_TP_MIXER_LAYERS, work)
+        serve_oracle(torch.device(dev), arch, DIST_TP_MIXER_LAYERS, work)
     rep["serve_oracles_s"] = time.perf_counter() - t
     t = time.perf_counter()
     four, four_launches = run_dist("four", DIST_WORLD, work,
@@ -4793,8 +4839,8 @@ def distributed(dev):
         rep[key] = serve_report([r[key] for r in four])
     for arch in DIST_TP_MIXER_ARCHS:
         rep[f"tp {arch}"] = tp_report([r[f"tp {arch}"] for r in four])
-        rep[f"prefill {arch}"] = prefill_report(
-            [r[f"prefill {arch}"] for r in four])
+        rep[f"serve {arch}"] = serve_report([r[f"serve {arch}"]
+                                             for r in four])
     rep["mixers"] = mixer_report(rep)
     print("  mixers: " + json.dumps(rep["mixers"]))
     t = time.perf_counter()
@@ -5134,8 +5180,8 @@ def main(argv=None) -> int:
         base_dev = torch.from_numpy(base).to(dev)
         queries_dev = torch.from_numpy(queries).to(dev)
         gt = exact_topk(base_dev, queries_dev, TOPK)
-        new, _ = make_dataset(GRAPH_PRESET, INGEST_ADDS * INGEST_ROWS, 0,
-                              seed=1)
+        new, _ = make_dataset(GRAPH_PRESET, INGEST_ADDS * GRAPH_ADD_ROWS,
+                              0, seed=1)
         adds = np.split(new, INGEST_ADDS)
     with phase(f"graph path {GRAPH_SPECS[0]}"):
         nsg, counts, gshapes, nsg_idx, nsg_head = serve_graph(
@@ -5184,8 +5230,8 @@ def main(argv=None) -> int:
         print("  " + json.dumps(hnsw))
         graph_path("graph_hnsw", counts, gshapes)
     with phase("graph container path: save_index, load_index onto the card"):
-        gcont, counts, gshapes = graph_container_path(base, queries, adds[0],
-                                                      dev)
+        gcont, counts, gshapes = graph_container_path(
+            base, queries, adds[0][:GRAPH_CONTAINER_ADD], dev)
         print("  " + json.dumps(gcont))
         graph_path("graph_container", counts, gshapes)
     with phase("sharded degraded mode: a dead shard, a flaky shard "

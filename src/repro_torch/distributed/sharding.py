@@ -431,8 +431,9 @@ def compute_split(specs: Dict[str, Spec], cfg, mesh,
       ``wk`` / ``wv`` at tp = 2, half of its one KV head; attention that
       splits the query sequence; the router, whose logits route whole;
       a mixer whose heads do not divide the axis, or any mixer where
-      ``mixers`` is False: the mesh decode's, whose states are stored on
-      ``N`` / ``K``, not by head), so it is gathered whole for the step;
+      ``mixers`` is False: the mesh decode's, which updates the states
+      where they are stored, on ``N`` / ``K`` / channels, not by head),
+      so it is gathered whole for the step;
     * ``REPLICATED``: the rules leave it whole on "model".
 
     The mixers split where their head count (:func:`mixer_heads`)

@@ -23,7 +23,10 @@ model rank the gradient of a replicated tensor is whole and the same.
   one), entered by :func:`copy`;
 * :func:`rms_norm`: the RMS norm of a tensor whose normalised dimension
   the model ranks split: the sum of squares ``psum``-ed over the axis,
-  forward and backward, then each rank scales its own part.
+  forward and backward, then each rank scales its own part;
+* :func:`state_dims`: where the model axis splits each leaf of a
+  recurrent decode state (``sharding.cache_shardings``), for the mixers
+  that update their states where they are stored.
 
 :func:`split_model` makes a :class:`ModelAxis` current for the modules'
 forward passes (``models.layers``, ``attention``, ``moe``, ``ssm``,
@@ -45,7 +48,7 @@ from . import compat
 
 __all__ = ["ModelAxis", "split_model", "current", "axis_for", "check_local",
            "copy", "reduce", "gather", "scatter", "select", "rms_norm",
-           "AXIS"]
+           "state_dims", "AXIS"]
 
 AXIS = "model"
 
@@ -207,3 +210,28 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
     var = copy(reduce(sq, axis), axis) / (x.shape[-1] * axis.size)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(x.dtype)
+
+
+def state_dims(spec, axis: Optional[ModelAxis], dims, what: str):
+    """``{leaf: dimension}`` of a recurrent decode state laid out by
+    ``spec`` (a named tuple of its leaves' specs, ``cache_shardings``'):
+    the dimension along which the model axis splits each leaf, None where
+    the leaf is whole on every model rank (every leaf where ``spec`` is
+    None or holds no "model").  A leaf may be split only along
+    ``dims[leaf]``, by "model" alone, and only under a current ``axis``:
+    any other layout raises, naming the leaf and its spec."""
+    out = dict.fromkeys(dims)
+    if spec is None:
+        return out
+    for leaf, s in spec._asdict().items():
+        on = [d for d, axes in enumerate(s) if axes and AXIS in (
+            (axes,) if isinstance(axes, str) else axes)]
+        if not on:
+            continue
+        if axis is None or on != [dims[leaf]] or s[on[0]] not in (
+                AXIS, (AXIS,)):
+            raise ValueError(f"{what} {leaf}: a state stored as {s} is not "
+                             "one the mesh decode updates in place"
+                             + ("" if axis else " (no model axis is current)"))
+        out[leaf] = on[0]
+    return out

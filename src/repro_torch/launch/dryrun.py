@@ -38,7 +38,8 @@ each group, ``ops`` as ``compat.STATS`` names them; ``working_gather``
 apart: the train step's gathers of weights, layer by layer and again
 where a block is recomputed, in its counts, or the serving steps' fill
 of their working module, once, not in their step's counts; ``recompute``
-apart: the calls the recomputed blocks issue again; ``gathered``:
+apart: the calls the recomputed blocks issue again; ``recurrent``
+apart: the decode's Mamba2, mLSTM and sLSTM mixers' calls; ``gathered``:
 ``compat.GATHERED``, the train step's gathered leaves, their bytes and
 the most bytes of them alive at once),
 ``model_flops_global``, ``remat_policy`` and ``differs_from_reference``,
@@ -200,16 +201,19 @@ def differs_from_reference(cfg: ModelConfig, shape: ShapeSpec, kind: str,
                    "across calls (the serving step's working module), not "
                    "layer by layer")
     tp, heads = axis_size(mesh, "model"), mixer_heads(cfg)
-    if tp > 1 and heads and heads % tp:
+    if tp > 1 and heads and kind == "decode":
+        out.append("Mamba2 / xLSTM mixers' projections computed whole on "
+                   "every model rank in the decode, from weights held "
+                   "whole")
+        if cfg.mlstm_slstm_pattern:
+            out.append("mLSTM readout reduced over the model axis as "
+                       "partial sums over C's K slices, where the "
+                       "reference re-lays C by head (or gathers it where "
+                       "the heads do not divide the axis)")
+    elif tp > 1 and heads and heads % tp:
         out.append(f"Mamba2 / xLSTM mixers gathered and computed whole on "
                    f"every model rank: their {heads} heads do not divide "
                    f"the model axis's {tp} ranks")
-    elif tp > 1 and heads and kind == "decode":
-        out.append("Mamba2 / xLSTM mixers computed whole on every model "
-                   "rank in the decode: their states, stored on N / K / "
-                   "channels, are gathered over the model axis each step, "
-                   "where the reference updates them in place and reduces "
-                   "their readouts over the model axis")
     if kind != "decode" and mesh.axis_size(dp) > 1:
         specs = batch_shardings(input_specs(cfg, shape), mesh)
         if specs[_main_input(specs)][:1] != (dp,):
@@ -275,6 +279,7 @@ def step_counts(kind: str) -> dict:
     none = compat.CollectiveStats()
     gather = compat.APART.get("working_gather", none)
     recompute = compat.APART.get("recompute", none)
+    recurrent = compat.APART.get("recurrent", none)
     ops, axes = _counts(compat.STATS.as_dict()), _by_axes(compat.STATS)
     if kind != "train":
         ops = _minus(ops, _counts(gather.as_dict()))
@@ -285,6 +290,8 @@ def step_counts(kind: str) -> dict:
                                "in_step": kind == "train"},
             "recompute": {**collective_bytes(_counts(recompute.as_dict())),
                           "ops": _counts(recompute.as_dict())},
+            "recurrent": {**collective_bytes(_counts(recurrent.as_dict())),
+                          "ops": _counts(recurrent.as_dict())},
             "gathered": {k: v for k, v in compat.GATHERED.as_dict().items()
                          if k != "alive"}}
 

@@ -21,8 +21,15 @@ are this rank's model shards (head-major), ``in_proj`` and ``conv`` are
 whole and the rank selects its heads' columns of them
 (:func:`in_proj_spans`, :func:`conv_spans`: its ``z``, ``x`` and ``dt``,
 and ``B`` and ``C`` whole, which every head reads); the gated norm sums
-its squares over the ranks and ``out_proj`` is row-parallel.  The decode
-computes whole.
+its squares over the ranks and ``out_proj`` is row-parallel.
+
+The mesh decode keeps the weights whole and each state where
+``cache_shardings`` stores it: the state on ``N``, the conv window on its
+channels.  :func:`mamba_decode` then runs the conv on this rank's
+channels and gathers its output (one call of ``(B, d_inner + 2N) / tp``),
+updates its ``N`` slice of the state and ``psum``-s the readout's partial
+sums ``(B, H, P)`` over "model"; ``x * D``, the gate, the norm and
+``out_proj`` run whole.  No state crosses a rank.
 """
 
 from __future__ import annotations
@@ -252,19 +259,34 @@ def init_mamba_cache(batch: int, cfg, dtype=torch.float32,
                          device=device))
 
 
-def mamba_decode(params: Mamba, u, cache: MambaCache,
-                 cfg) -> Tuple[torch.Tensor, MambaCache]:
-    """One-token recurrent step: u (B, 1, d) -> (y, new_cache)."""
+def mamba_decode(params: Mamba, u, cache: MambaCache, cfg, axis=None,
+                 spec=None) -> Tuple[torch.Tensor, MambaCache]:
+    """One-token recurrent step: u (B, 1, d) -> (y, new_cache).  With a
+    model ``axis`` and the cache's ``spec`` (``cache_shardings``: the
+    state on ``N``, the window on its channels) ``cache`` holds this
+    rank's slices and the new cache does too (module docstring); with
+    neither, or a spec that holds no "model", the step is the
+    one-process step."""
     Bb = u.shape[0]
+    dims = _tp.state_dims(spec, axis, {"state": 3, "conv": 2}, "mamba")
     z, xBC, dt_raw, d_in, N, H = _split_proj(params, u, cfg)
     xBC = xBC[:, 0]                                              # (B, ch)
+    k = params.conv.kernel
+    if dims["conv"] is not None:        # this rank's channels of the window
+        _tp.check_local(cache.conv, 2, xBC.shape[-1], axis, "mamba window")
+        xBC, k = _tp.scatter(xBC, axis, -1), _tp.scatter(k, axis, 1)
     window = torch.cat([cache.conv, xBC[:, None, :].to(cache.conv.dtype)],
                        dim=1)
-    k = cast(params.conv.kernel, window.dtype)
+    k = cast(k, window.dtype)
     conv = F.silu((window * k[None]).sum(dim=1))
+    if dims["conv"] is not None:
+        conv = _tp.gather(conv, axis, -1)
     x = conv[:, :d_in].reshape(Bb, H, cfg.ssm_head_dim)
     Bm = conv[:, d_in:d_in + N]
     Cm = conv[:, d_in + N:]
+    if dims["state"] is not None:       # this rank's N slice of the state
+        _tp.check_local(cache.state, 3, N, axis, "mamba state")
+        Bm, Cm = _tp.scatter(Bm, axis, -1), _tp.scatter(Cm, axis, -1)
     dt = F.softplus(dt_raw[:, 0].float() + params.dt_bias)      # (B,H)
     A = -torch.exp(params.A_log)
     decay = torch.exp(dt * A)                                    # (B,H)
@@ -272,6 +294,8 @@ def mamba_decode(params: Mamba, u, cache: MambaCache,
     state = (cache.state * decay[..., None, None].to(cache.state.dtype)
              + upd.to(cache.state.dtype))
     y = torch.matmul(state.to(x.dtype), Cm[:, None, :, None])[..., 0]
+    if dims["state"] is not None:       # the readout's partial sums over N
+        y = _tp.reduce(y, axis)
     y = y + x * params.D.to(x.dtype)[None, :, None]
     y = y.reshape(Bb, 1, d_in)
     y = rms_norm(y * F.silu(z), params.norm.scale, cfg.norm_eps)

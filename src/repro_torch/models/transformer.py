@@ -28,10 +28,11 @@ ring of ``min(max_len, window)`` slots), the f32 recurrent state of a
 Mamba2, mLSTM or sLSTM layer.  On a mesh the decode takes this rank's
 slices of the cache (``distributed.sharding.ShardedCache``) and walks
 their specs beside them: attention splits as its cache's spec says
-(``attention.decode_attention``); a recurrent state is stored as the
-rules shard it (on ``N`` / ``K`` / channels, not by head) and its mixer
-computes whole on every model rank in the decode, so the step gathers
-the state over "model", runs the mixer and keeps its own slice.  The
+(``attention.decode_attention``); a recurrent state stays where the
+rules store it (on ``N`` / ``K`` / channels, not by head), and its mixer
+updates this rank's slice and reduces its readout over "model"
+(``ssm.mamba_decode``, ``xlstm.mlstm_decode`` / ``slstm_decode``; their
+collectives are counted in ``compat.APART["recurrent"]`` too).  The
 full-sequence forms (training, prefill) split the Mamba2, mLSTM and
 sLSTM mixers by head over the model axis where their heads divide it
 (``ssm``, ``xlstm``).
@@ -50,8 +51,8 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..distributed import fsdp as _fsdp
 from ..distributed import tp as _tp
-from ..distributed.sharding import (ShardedCache, local_slice, only_model,
-                                    unshard)
+from ..distributed.compat import counted_apart
+from ..distributed.sharding import ShardedCache
 from .attention import (
     Attention,
     KVCache,
@@ -485,22 +486,6 @@ def _no_specs(cache):
     return None
 
 
-def _recurrent(step, state, spec, mesh):
-    """``step(whole_state) -> (y, new_state)`` on this rank's slice of a
-    recurrent ``state`` laid out by ``spec``: the state gathered over
-    "model" (its batch stays this rank's), the mixer run whole, this
-    rank's slice of the new state kept."""
-    if spec is None:
-        return step(state)
-    whole = type(state)(*(unshard(t, only_model(s), mesh)
-                          for t, s in zip(state, spec)))
-    y, new = step(whole)
-    return y, type(new)(*(
-        local_slice(t, only_model(s), mesh).clone(
-            memory_format=torch.contiguous_format)
-        for t, s in zip(new, spec)))
-
-
 def _decode_super(kind, params, x, cache, cfg, shared=None, spec=None,
                   mesh=None):
     if spec is None:
@@ -521,11 +506,12 @@ def _decode_super(kind, params, x, cache, cfg, shared=None, spec=None,
                                     spec=spec["global"], mesh=mesh)
         return x, {"locals": lc, "global": gc}
     if kind == "mamba_hybrid":
-        mc = []
+        axis, mc = _tp.current(), []
         for p, c, s in zip(params.mambas, cache["mambas"], spec["mambas"]):
-            h = rms_norm(x, p.ln.scale, cfg.norm_eps)
-            y, c = _recurrent(lambda st, p=p, h=h: mamba_decode(
-                p.mixer, h, st, cfg), c, s, mesh)
+            with counted_apart("recurrent"):
+                y, c = mamba_decode(p.mixer, rms_norm(x, p.ln.scale,
+                                                      cfg.norm_eps),
+                                    c, cfg, axis, s)
             x = x + y
             mc.append(c)
         x, ac = _dense_block_decode(shared, x + _lora(params, x),
@@ -533,17 +519,19 @@ def _decode_super(kind, params, x, cache, cfg, shared=None, spec=None,
                                     mesh=mesh)
         return x, {"mambas": mc, "attn": ac}
     if kind == "xlstm_super":
-        mc = []
+        axis, mc = _tp.current(), []
         for p, c, s in zip(params.mlstms, cache["mlstms"], spec["mlstms"]):
-            h = rms_norm(x, p.ln.scale, cfg.norm_eps)
-            y, c = _recurrent(lambda st, p=p, h=h: mlstm_decode(
-                p.core, h, st, cfg), c, s, mesh)
+            with counted_apart("recurrent"):
+                y, c = mlstm_decode(p.core, rms_norm(x, p.ln.scale,
+                                                     cfg.norm_eps),
+                                    c, cfg, axis, s)
             x = x + y
             mc.append(c)
         p = params.slstm
-        h = rms_norm(x, p.ln.scale, cfg.norm_eps)
-        y, sc = _recurrent(lambda st: slstm_decode(p.core, h, st, cfg),
-                           cache["slstm"], spec["slstm"], mesh)
+        with counted_apart("recurrent"):
+            y, sc = slstm_decode(p.core, rms_norm(x, p.ln.scale,
+                                                  cfg.norm_eps),
+                                 cache["slstm"], cfg, axis, spec["slstm"])
         return x + y, {"mlstms": mc, "slstm": sc}
     raise ValueError(kind)
 
@@ -555,7 +543,8 @@ def decoder_decode(params: Decoder, cfg: ModelConfig, cache, token=None,
     cache; the recurrent states are new tensors.  Given a
     ``ShardedCache`` (this rank's slices, under a model axis: the sharded
     serving step's working module) the step runs on them (module
-    docstring) and returns a new ``ShardedCache``; the embedding and the
+    docstring: each recurrent state updated where it is stored) and
+    returns a new ``ShardedCache``; the embedding and the
     tied logits are vocab-parallel where the model axis splits the
     vocabulary, so the logits are this rank's ``(B, 1, V / tp)``."""
     sharded = isinstance(cache, ShardedCache)

@@ -27,7 +27,20 @@ row-parallel.  sLSTM: ``wx`` and its bias are whole and the rank selects
 its heads' columns of each of the ``z|i|f|o`` blocks
 (:func:`slstm_wx_spans`), and its heads' blocks of ``r``
 (:func:`slstm_r_spans`); the recurrence is block-diagonal by head, so
-the loop over time runs no collective.  The decodes compute whole.
+the loop over time runs no collective.
+
+The mesh decode keeps the weights whole and each state where
+``cache_shardings`` stores it.  :func:`mlstm_decode`: ``C`` on ``K``, so
+a rank updates its ``K`` slice with its slice of ``k`` and ``psum``-s
+the readout's partial sums ``(B, H, hd + 1)`` over "model" (the readout
+is linear in ``C`` along ``K``); ``m`` on the heads where they divide the
+axis, gathered for the stabiliser (one call of ``(B, H / tp)``), else
+whole on every rank.  :func:`slstm_decode`: ``c``, ``n``, ``h``, ``m`` on
+``d``; a rank updates its channels with its columns of ``wx``, and of
+``r`` its heads' blocks where its channels are whole heads (no
+collective), else each channel's column after gathering ``h``; the new
+``h`` is gathered for the norm and ``wo``.  No state but ``m`` and the
+sLSTM's ``h`` crosses a rank.
 """
 
 from __future__ import annotations
@@ -247,29 +260,45 @@ def init_mlstm_cache(batch: int, cfg, dtype=torch.float32,
         m=torch.full((batch, H), -1e9, dtype=dtype, device=device))
 
 
-def mlstm_decode(params: MLstm, x, cache: MLstmCache,
-                 cfg) -> Tuple[torch.Tensor, MLstmCache]:
+def mlstm_decode(params: MLstm, x, cache: MLstmCache, cfg, axis=None,
+                 spec=None) -> Tuple[torch.Tensor, MLstmCache]:
     """One-token step with the stabilised exponential gating (xLSTM eq.
-    15-18): x (B, 1, d) -> (y, new_cache)."""
+    15-18): x (B, 1, d) -> (y, new_cache).  With a model ``axis`` and the
+    cache's ``spec`` (``cache_shardings``: ``C`` on ``K``, ``m`` on the
+    heads where they divide the axis) ``cache`` holds this rank's slices
+    and the new cache does too (module docstring); with neither, or a
+    spec that holds no "model", the step is the one-process step."""
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim_
+    dims = _tp.state_dims(spec, axis, {"C": 3, "m": 1}, "mlstm")
     q, k, v, log_i, log_f = _mlstm_qkv(params, x, cfg)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]
     log_i, log_f = log_i[:, 0], log_f[:, 0]
-    m_new = torch.maximum(log_f + cache.m, log_i)
-    f_eff = torch.exp(log_f + cache.m - m_new)
+    m = cache.m
+    if dims["m"] is not None:           # every head's stabiliser
+        m = _tp.gather(_tp.check_local(m, 1, H, axis, "mlstm m"), axis, 1)
+    m_new = torch.maximum(log_f + m, log_i)
+    f_eff = torch.exp(log_f + m - m_new)
     i_eff = torch.exp(log_i - m_new)
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
+    qk = q
+    if dims["C"] is not None:           # this rank's K slice of C
+        _tp.check_local(cache.C, 3, hd, axis, "mlstm C")
+        k, qk = _tp.scatter(k, axis, -1), _tp.scatter(q, axis, -1)
     C = cache.C * f_eff[..., None, None].to(cache.C.dtype) + (
         i_eff[..., None, None].to(v.dtype) * v_aug[..., None]
         * k[..., None, :]).to(cache.C.dtype)
-    y = torch.matmul(C.to(q.dtype), q[..., None])[..., 0]        # (B,H,P+1)
+    y = torch.matmul(C.to(q.dtype), qk[..., None])[..., 0]       # (B,H,P+1)
+    if dims["C"] is not None:           # the readout's partial sums over K
+        y = _tp.reduce(y, axis)
     num, den = y[..., :-1], y[..., -1]
     y = num / torch.clamp(den.abs(), min=1.0)[..., None]
     z = params.wz(x)[:, 0]
     y = y.reshape(B, H * hd) * F.silu(z)
     y = rms_norm(y, params.norm.scale, cfg.norm_eps)
     out = params.wo(y)[:, None, :]
+    if dims["m"] is not None:
+        m_new = _tp.scatter(m_new, axis, 1)
     return out, MLstmCache(C=C, m=m_new)
 
 
@@ -321,18 +350,36 @@ def slstm_r_spans(cfg, index: int, size: int):
     return ((index * h, h),)
 
 
-def _slstm_step(r, carry, xw):
-    """One step of the heads of the recurrent blocks ``r`` ``(H, hb, 4
-    hb)``: the carry and ``xw`` hold those heads' channels (all of them,
-    or under a model axis this rank's)."""
-    c, n, h, m = carry
-    B = c.shape[0]
+def _slstm_rec(r, h):
+    """The recurrent pre-activations ``h @ r`` of the heads of the blocks
+    ``r`` ``(H, hb, 4 hb)`` from those heads' channels ``h`` ``(B, H hb)``,
+    laid out as ``wx``'s ``z|i|f|o`` blocks: ``(B, 4 H hb)``."""
+    B = h.shape[0]
     H, hb = r.shape[0], r.shape[1]
-    d = H * hb
     hr = h.reshape(B, H, hb).transpose(0, 1)                     # (H,B,hb)
     rec = torch.bmm(hr, cast(r, h.dtype)).transpose(0, 1)        # (B,H,4hb)
     # re-lay (B,H,4,hb) -> z|i|f|o blocks of (B,d) to match wx's output
-    rec = rec.reshape(B, H, 4, hb).transpose(1, 2).reshape(B, 4 * d)
+    return rec.reshape(B, H, 4, hb).transpose(1, 2).reshape(B, 4 * H * hb)
+
+
+def _slstm_rec_channels(r, h, at: int, c: int):
+    """:func:`_slstm_rec`'s columns of channels ``[at, at + c)`` of each
+    ``z|i|f|o`` block, ``(B, 4 c)``, from the whole ``h`` ``(B, d)``: each
+    channel's column of its head's block of ``r``."""
+    B = h.shape[0]
+    H, hb = r.shape[0], r.shape[1]
+    ch = torch.arange(at, at + c, device=h.device)
+    head, j = ch // hb, ch % hb
+    cols = torch.arange(4, device=h.device)[:, None] * hb + j    # (4, c)
+    w = cast(r, h.dtype)[head[None], :, cols]                    # (4, c, hb)
+    hr = h.reshape(B, H, hb)[:, head]                            # (B, c, hb)
+    return torch.einsum("bci,gci->bgc", hr, w).reshape(B, 4 * c)
+
+
+def _slstm_gates(carry, xw, rec):
+    """The cell update from the carry ``(c, n, h, m)``, the input and the
+    recurrent pre-activations of the same channels."""
+    c, n, h, m = carry
     zifo = (xw + rec.to(xw.dtype)).float()
     z, i_raw, f_raw, o_raw = zifo.chunk(4, dim=-1)
     log_i = _log_sigmoid(i_raw)
@@ -344,6 +391,13 @@ def _slstm_step(r, carry, xw):
     n_new = f_eff * n + i_eff
     h_new = torch.sigmoid(o_raw) * c_new / torch.clamp(n_new, min=1.0)
     return (c_new, n_new, h_new.to(h.dtype), m_new), h_new
+
+
+def _slstm_step(r, carry, xw):
+    """One step of the heads of the recurrent blocks ``r`` ``(H, hb, 4
+    hb)``: the carry and ``xw`` hold those heads' channels (all of them,
+    or under a model axis this rank's)."""
+    return _slstm_gates(carry, xw, _slstm_rec(r, carry[2]))
 
 
 def _slstm_local(params: SLstm, cfg, axis):
@@ -403,11 +457,41 @@ def init_slstm_cache(batch: int, cfg, dtype=torch.float32,
         m=torch.full((batch, d), -1e9, device=device))
 
 
-def slstm_decode(params: SLstm, x, cache: SLstmCache,
-                 cfg) -> Tuple[torch.Tensor, SLstmCache]:
-    xw = params.wx(x)[:, 0].float()
+def slstm_decode(params: SLstm, x, cache: SLstmCache, cfg, axis=None,
+                 spec=None) -> Tuple[torch.Tensor, SLstmCache]:
+    """One-token step: x (B, 1, d) -> (y, new_cache).  With a model
+    ``axis`` and the cache's ``spec`` (``cache_shardings``: every state on
+    ``d``) ``cache`` holds this rank's channels and the new cache does too
+    (module docstring); with neither, or a spec that holds no "model",
+    the step is the one-process step."""
     carry = (cache.c, cache.n, cache.h, cache.m)
-    (c, n, h, m), h_out = _slstm_step(params.r, carry, xw)
+    dims = _tp.state_dims(spec, axis, dict.fromkeys(SLstmCache._fields, 1),
+                          "slstm")
+    if len(set(dims.values())) > 1:
+        raise ValueError(f"slstm: c, n, h, m stored on different layouts: "
+                         f"{spec}")
+    if dims["c"] is None:
+        xw = params.wx(x)[:, 0].float()
+        (c, n, h, m), h_out = _slstm_step(params.r, carry, xw)
+    else:
+        d, H = cfg.d_model, cfg.n_heads
+        ch = _tp.check_local(cache.c, 1, d, axis, "slstm c").shape[1]
+        spans = slstm_wx_spans(cfg, axis.index, axis.size)
+        xw = dense(x, _tp.select(params.wx.kernel, spans, 1, 4 * d, axis,
+                                 "slstm wx"),
+                   _tp.select(params.wx.bias, spans, 0, 4 * d, axis,
+                              "slstm wx bias"))[:, 0].float()
+        if H % axis.size == 0:          # this rank's channels: whole heads
+            r = _tp.select(params.r, slstm_r_spans(cfg, axis.index,
+                                                    axis.size), 0, H, axis,
+                           "slstm r")
+            (c, n, h, m), h_out = _slstm_step(r, carry, xw)
+        else:                           # a head's channels split: whole h
+            rec = _slstm_rec_channels(params.r,
+                                      _tp.gather(cache.h, axis, 1),
+                                      axis.index * ch, ch)
+            (c, n, h, m), h_out = _slstm_gates(carry, xw, rec)
+        h_out = _tp.gather(h_out, axis, 1)
     y = rms_norm(h_out.to(x.dtype), params.norm.scale, cfg.norm_eps)
     out = params.wo(y)[:, None, :]
     return out, SLstmCache(c=c, n=n, h=h.to(cache.h.dtype), m=m)

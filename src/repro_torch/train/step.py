@@ -80,11 +80,12 @@ attention splits as the cache's spec says: KV heads on "model" (this
 rank's KV heads and the query heads that read them), or the sequence on
 "model" / ("data", "model") (this rank's block of slots, written by the
 rank that holds the new token's slot and read by flash-decoding over the
-group).  Computed whole on every model rank in the decode: the Mamba2
-and xLSTM mixers, whose states are stored as the rules shard them (on
-``N`` / ``K`` / channels, not by head), gathered over "model" for the
-step and sliced back; its working module holds them whole
-(``compute_split(..., mixers=False)``; ROADMAP.md, queue 1).  The greedy
+group).  The Mamba2 and xLSTM mixers' weights are whole in the
+decode's working module (``compute_split(..., mixers=False)``): each
+model rank computes their projections whole, updates its slice of each
+state where the rules store it (on ``N`` / ``K`` / channels, not by
+head) and reduces the readout over "model" (``models.ssm``,
+``models.xlstm``); no state is gathered.  The greedy
 pick (:func:`greedy_pick`) reduces ``(max, index)`` pairs over the model
 ranks rather than gathering ``(B, V)``: ``B * tp`` pairs instead of
 ``B * V`` logits (gemma3's vocabulary is 262,144), and exact, since a max

@@ -1022,3 +1022,132 @@ def mixer_split(shapes, seq_lens, B=2, L=32):
         res["coords"] = mesh.coords
         out[mesh_name(shape)] = res
     return out
+
+
+@contextlib.contextmanager
+def recording_calls(seen):
+    """``seen``: ``(op, bytes)`` of each collective ``compat`` counts
+    inside the block, in order (``op`` as ``compat.STATS`` names it)."""
+    from repro_torch.distributed import compat
+
+    inner = compat.STATS.add
+
+    def record(op, nbytes, *args, **kwargs):
+        seen.append((op, int(nbytes)))
+        return inner(op, nbytes, *args, **kwargs)
+
+    compat.STATS.add = record
+    try:
+        yield seen
+    finally:
+        del compat.STATS.add
+
+
+def _seeded_state(cache, rng):
+    """``cache`` (a recurrent state) with every leaf drawn from ``rng``:
+    normal values, the stabilisers' shifted below 0."""
+    from repro_torch.distributed import map_cache
+
+    def draw(t):
+        v = rng.standard_normal(tuple(t.shape)).astype(np.float32)
+        return torch.from_numpy(v - 2.0 if float(t.reshape(-1)[0]) < -1
+                                else 0.5 * v)
+    return map_cache(draw, cache)
+
+
+@job
+def decode_mixers(shapes, steps, B=8):
+    """Each mixer of MIXERS' decode (weights as :func:`mixer_split`'s, a
+    state drawn from numpy, ``steps`` inputs ``(B, 1, d)``) on each live
+    (data, model) mesh of ``shapes``: the one-process decode's outputs
+    and states a step, and the same steps on this rank's slices of the
+    state under ``cache_shardings`` (its data slice of the inputs) with
+    the collectives of each step (``(op, bytes)`` a call); then two
+    sharded serve steps of each reduced config (weights from seed 0, a
+    zero cache placed by ``ShardedCache.place``), the second's
+    collectives a call and ``compat.APART["recurrent"]``.  Keyed by the
+    mesh's name."""
+    from repro_torch.checkpoint import reshard
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import (ShardedCache, cache_shardings,
+                                         compat, map_cache, param_shardings,
+                                         tp)
+    from repro_torch.distributed.sharding import local_slice
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build, ssm, xlstm
+    from repro_torch.train import step as ST
+
+    decodes = {"mamba": (ssm.mamba_decode, ssm.init_mamba_cache),
+               "mlstm": (xlstm.mlstm_decode, xlstm.init_mlstm_cache),
+               "slstm": (xlstm.slstm_decode, xlstm.init_slstm_cache)}
+    out = {}
+    for shape in shapes:
+        rng = np.random.default_rng(0)
+        mesh = make_mesh_compat(shape, ("data", "model"), device="cpu")
+        axis = tp.ModelAxis.of(mesh)
+        b = B // mesh.axis_size("data")
+        mine = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
+        res = {}
+        for mixer, (arch, prefix) in MIXERS.items():
+            decode, init = decodes[mixer]
+            cfg = reduced(get_config(arch))
+            whole = build(cfg, device="cpu").init(0)
+            with torch.no_grad():
+                for p in whole.parameters():
+                    p.add_(torch.from_numpy(0.1 * rng.standard_normal(
+                        p.shape).astype(np.float32)))
+            module = whole.get_submodule(f"segments.0.0.{prefix}")
+            state = _seeded_state(init(B, cfg, device="cpu"), rng)
+            xs = torch.from_numpy(rng.standard_normal(
+                (steps, B, 1, cfg.d_model)).astype(np.float32))
+            spec = cache_shardings(state, mesh, B, cfg.n_kv_heads)
+            local = map_cache(lambda t, s: local_slice(t, s, mesh).clone(
+                memory_format=torch.contiguous_format), state, spec)
+            want, got, calls = [], [], []
+            with torch.no_grad():
+                for x in xs:
+                    y, state = decode(module, x, state, cfg)
+                    want.append((y.numpy().copy(), {
+                        k: v.numpy().copy()
+                        for k, v in state._asdict().items()}))
+                    seen = []
+                    with recording_calls(seen):
+                        y, local = decode(module, x[mine], local, cfg, axis,
+                                          spec)
+                    got.append((y.numpy(), {k: v.numpy().copy() for k, v in
+                                            local._asdict().items()}))
+                    calls.append(seen)
+            res[mixer] = dict(want=want, got=got, calls=calls,
+                              spec=spec._asdict())
+        steps_out = {}
+        for arch in ("zamba2-2.7b", "xlstm-1.3b"):
+            cfg = reduced(get_config(arch))
+            model = build(cfg, device="cpu")
+            module = model.init(0)
+            params = reshard(module, param_shardings(module, mesh,
+                                                     cfg.n_experts), mesh)
+            _, serve_step = ST.make_serve_step(cfg, device="cpu", mesh=mesh)
+            cache = ShardedCache.place(model.init_cache(B, 16, torch.float32),
+                                       mesh, B, cfg.n_kv_heads)
+            tokens = torch.from_numpy(np.random.default_rng(1).integers(
+                0, cfg.vocab_size, (2, B, 1)).astype(np.int32))
+            _, cache = serve_step(params, cache, {"token": tokens[0]})
+            compat.reset_stats()
+            seen = []
+            with recording_calls(seen):
+                serve_step(params, cache, {"token": tokens[1]})
+            recurrent = compat.APART.get("recurrent")
+            steps_out[arch] = dict(
+                calls=seen, recurrent={} if recurrent is None
+                else recurrent.as_dict(),
+                leaves={k: [tuple(t.shape) for t in v] for k, v in (
+                    ("mambas", [c.state for seg in cache.local for sup in seg
+                                if "mambas" in sup
+                                for c in sup["mambas"]]),
+                    ("mlstms", [c.C for seg in cache.local for sup in seg
+                                if "mlstms" in sup
+                                for c in sup["mlstms"]]))})
+        res["steps"] = steps_out
+        res["coords"] = mesh.coords
+        out[mesh_name(shape)] = res
+    return out

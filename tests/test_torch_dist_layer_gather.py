@@ -16,7 +16,9 @@ and (4, 1):
   (its block's forward and its recomputation under "full"), each such
   leaf outside the blocks once; the dry-run's fake world of four counts
   as many for rank 0 as the live rank 0, and its train record no longer
-  names a whole-step gather;
+  names a whole-step gather; the decode records of zamba2 and xlstm name
+  only what their mixers still do otherwise than the reference
+  (``differs_from_reference``);
 * reduced qwen2-72b cut to 8 blocks, under "full" and "dots": the most
   gathered bytes alive at once is at most the leaves outside the blocks
   plus two blocks (less than all the blocks), and none is alive after
@@ -151,3 +153,26 @@ def test_only_the_serving_steps_hold_a_working_module():
         got = dryrun.differs_from_reference(cfg, ShapeSpec("t", 32, 8, kind),
                                             kind, mesh)
         assert any("working module" in d for d in got) == named, kind
+    # a decode with recurrent mixers holds one as well, and names no
+    # gathered state
+    got = dryrun.differs_from_reference(reduced(get_config("zamba2-2.7b")),
+                                        ShapeSpec("t", 32, 8, "decode"),
+                                        "decode", mesh)
+    assert any("working module" in d for d in got)
+    assert not any("state" in d for d in got), got
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
+@pytest.mark.parametrize("shape", [(2, 2), (1, 8), (16, 16)])
+def test_the_decode_names_what_its_mixers_still_do(arch, shape):
+    cfg = reduced(get_config(arch)) if shape != (16, 16) \
+        else get_config(arch)
+    got = dryrun.differs_from_reference(
+        cfg, ShapeSpec("t", 32, 128, "decode"), "decode",
+        Mesh(dict(zip(("data", "model"), shape))))
+    mixers = [d for d in got if "Mamba2" in d or "mLSTM" in d]
+    assert any("projections computed whole" in d for d in mixers), got
+    assert any("mLSTM readout reduced" in d
+               for d in mixers) == (arch == "xlstm-1.3b"), got
+    assert not any("gathered over the model axis each step" in d
+                   for d in got), got

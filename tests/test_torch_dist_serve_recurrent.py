@@ -5,11 +5,11 @@ under its shardings on 8 fake devices, on (2, 4) and (1, 8), at the LM
 serving tests' f32 bound (tests/_torch_dist_serve.py).  The mesh
 prefill splits the Mamba2, mLSTM and sLSTM mixers by head over the model
 axis where their heads divide it (zamba2's 8 on both meshes, xlstm's 4
-on (2, 4); whole on (1, 8)), as the train step does.  The decode does
-not: the Mamba2 conv windows and states and the mLSTM / sLSTM states are
-stored as the rules shard them (the last dimension the model axis
-divides, not the heads) and their mixers computed whole on every model
-rank: each step gathers a state over "model" and keeps its own slice.
+on (2, 4); whole on (1, 8)), as the train step does.  The decode keeps
+the Mamba2 conv windows and states and the mLSTM / sLSTM states where
+the rules shard them (the last dimension the model axis divides, not the
+heads): each rank updates its slice and the readouts are reduced over
+"model" (tests/test_torch_dist_decode_mixers.py holds each mixer alone).
 zamba2's shared attention and
 whisper's self-attention decode on KV heads (2, 4) or slots (1, 8) split
 over the model axis; whisper's memory is filled in its shards by the

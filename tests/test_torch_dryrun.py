@@ -2,11 +2,11 @@
 
 * For reduced gemma3 and reduced olmoe, train and decode cells (4 x 32),
   and reduced zamba2's train cell (its Mamba2 mixers split by head over
-  the model axis), on a fake world of 4 on a (2, 2) mesh count, for rank
-  0, the same
-  collective calls and bytes (by op, by mesh axes, the gathers of
-  weights and the recomputed calls apart) and the same ``FlopCounterMode``
-  FLOPs as four real gloo ranks running the same step on real weights
+  the model axis) and decode cell (its states updated where they are
+  stored), on a fake world of 4 on a (2, 2) mesh count, for rank 0, the
+  same collective calls and bytes (by op, by mesh axes, the gathers of
+  weights, the recomputed calls and the decode mixers' calls apart) and
+  the same ``FlopCounterMode`` FLOPs as four real gloo ranks running the same step on real weights
   (``tests/_torch_dist.py::dryrun_twin``): equal, not within a bound,
   since both sides count shapes.  The record's peak is the step's
   device's alone, ``MemTracker``'s kinds at it summing to it.
@@ -38,7 +38,8 @@ from repro_torch.models import model_flops
 
 B, S = 4, 32
 CELLS = [(a, k, B, S) for a in ("gemma3-1b", "olmoe-1b-7b")
-         for k in ("train", "decode")] + [("zamba2-2.7b", "train", B, S)]
+         for k in ("train", "decode")] + [("zamba2-2.7b", k, B, S)
+                                          for k in ("train", "decode")]
 
 
 @pytest.fixture(scope="module")
@@ -63,11 +64,14 @@ def test_fake_world_counts_what_live_ranks_count(live, arch, kind):
     coll = rec["collectives"]
     for key in ("ops", "by_axes", "bytes", "counts", "total_bytes"):
         assert coll[key] == real["counts"][key], key
-    for part in ("working_gather", "recompute"):
+    for part in ("working_gather", "recompute", "recurrent"):
         assert coll[part] == real["counts"][part], part
     assert rec["cost"]["flops"] == real["flops"]
     assert coll["counts"]["all-reduce"] > 0
     assert coll["working_gather"]["in_step"] == (kind == "train")
+    # the decode's mixers, counted apart: zamba2's Mamba2 layers only
+    assert bool(coll["recurrent"]["ops"]) == (arch == "zamba2-2.7b"
+                                              and kind == "decode")
     if kind == "train":        # "full": the model axis's psums issued again
         assert coll["recompute"]["ops"]["model:all_reduce"]["calls"] > 0
     else:
