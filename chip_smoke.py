@@ -295,15 +295,19 @@ exits non-zero without the final ``ok`` line:
    against the one-process prefill within 1e-4 of the logits' scale,
    then 8 sharded serve steps from a one-process f32 cache filled by 16
    decode steps and placed by ``cache_shardings``, whose Mamba2, mLSTM
-   and sLSTM states stay where the rules store them (each rank updates
-   its slice; the readouts are reduced over "model"): each step's logits
-   within 1e-4 of the one-process step's scale, its tokens equal where
-   the top-2 gap exceeds that, each rank's final cache slices within
-   1e-4 of the one-process cache's; each rank's matmul FLOPs share
-   printed beside the predicted one, and the mixers' model-axis calls
-   and bytes a decode step (``compat.APART["recurrent"]``) equal to the
-   ones predicted from the shapes, beside what gathering every split
-   state would move (``mixers``).  Then the dry-run (``launch.dryrun``) of rank 0 of
+   and sLSTM weights the serve step holds at their stored model shards
+   and whose states stay where the rules store them (each rank computes
+   each projection on its shard and updates its slice; the readouts and
+   the row-split output projections are reduced over "model"): each
+   step's logits within 1e-4 of the one-process step's scale, its tokens
+   equal where the top-2 gap exceeds that, each rank's final cache
+   slices within 1e-4 of the one-process cache's; each rank's matmul
+   FLOPs share printed beside the predicted one, the mixers' model-axis
+   calls and bytes a decode step (``compat.APART["recurrent"]``) and the
+   serve step's parameter bytes a rank (mixers, and the rest) equal to
+   the ones counted from the shapes, beside what the weights whole and
+   gathering every split state would move and hold (``mixers``; the
+   weights-whole figures on the line before).  Then the dry-run (``launch.dryrun``) of rank 0 of
    the same gemma3-1b train step and serve step on a fake world of 4 in
    this process, with fake ``cuda`` tensors: its collective calls and
    bytes by op equal to what rank 0 counted (``compat.STATS``) over one
@@ -322,7 +326,8 @@ exits non-zero without the final ``ok`` line:
    launch ``l2_top1``, ``l2_dist``, ``seg_topk`` and ``pq_adc``; each
    run's seconds, launches and result lines printed.
 
-The last four lines are the total of the phases' seconds, the card's
+The last four lines are the total of the phases' seconds (with the
+seconds since ``main`` started and the margin under RUN_LIMIT_S), the card's
 name and power limit (as ``nvidia-smi`` gives them), the ``kernels`` JSON
 (one entry a kernel) and ``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports nothing
 of JAX or of the JAX package.
@@ -333,6 +338,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -3797,48 +3803,82 @@ def checked_prefill(arch, prefill, params, prompt, want, routes):
 
 
 def mixer_decode_calls(cfg, mesh_shape, batch):
-    """``{"now": (calls, bytes), "gathered": (calls, bytes)}``: the model
-    axis's collectives a decode step of ``cfg``'s Mamba2, mLSTM and sLSTM
-    layers on a (data, model) ``mesh_shape`` at ``batch`` sequences (f32
-    states and activations), from the shapes.  ``now``: the states updated
-    where ``cache_shardings`` stores them (Mamba2: the conv output
-    gathered, the readout ``(B, H, P)`` reduced; mLSTM: ``m`` gathered
-    where it is split over the heads, the readout ``(B, H, hd + 1)``
-    reduced; sLSTM: ``h`` gathered, first the old one too where the heads
-    do not divide the axis); ``gathered``: every split state leaf gathered
-    whole a layer, as the decode did before it kept them in place.  Each
-    call counts this rank's input bytes, as ``compat`` does (phase 18)."""
+    """The model axis's collectives a decode step of ``cfg``'s Mamba2,
+    mLSTM and sLSTM layers on a (data, model) ``mesh_shape`` at ``batch``
+    sequences (f32 states and activations), and the mixers' weights a
+    rank holds, from the shapes; the rules split a dimension over "model"
+    where tp divides it.  ``now``: ``(calls, bytes)`` with every weight at
+    its stored model shard (Mamba2: ``in_proj``'s output gathered, then
+    the conv on this rank's channels with its heads' ``dt`` and decay in
+    one gather, the readout ``(B, H, P)`` and ``out_proj``'s row-split
+    product ``(B, d)`` reduced; mLSTM: ``q``, ``k``, ``v``, ``z``, the
+    gates and ``m`` in one gather, the readout ``(B, H, hd + 1)`` and
+    ``wo``'s product reduced; sLSTM: the old ``h`` gathered, the
+    pre-activations ``(B, 4d)`` from ``r``'s rows and ``wx``'s columns,
+    the norm's sums of squares and ``wo``'s product reduced);
+    ``whole_weights``: the weights whole and the states updated where
+    ``cache_shardings`` stores them, as the decode was before it kept
+    the weights at their shards; ``gathered``: every split state leaf
+    gathered whole a layer, as before that.  Each call counts this
+    rank's input bytes, as ``compat`` does.  ``held`` and ``held_whole``:
+    the mixers' parameter bytes a rank at their stored shards and whole
+    (phase 18)."""
     from repro_torch.models.transformer import segments_for
 
     dp, tp = mesh_shape
-    b, f32 = batch // dp, 4
-    now, gathered = [0, 0], [0, 0]
+    b, f32, d = batch // dp, 4, cfg.d_model
+    now, whole, gathered = [0, 0], [0, 0], [0, 0]
+    held = {"held": 0, "held_whole": 0}
+    kept = {"held": lambda n: n // tp if n % tp == 0 else n,
+            "held_whole": lambda n: n}
 
-    def add(tally, n, nbytes):
-        tally[0] += n
-        tally[1] += n * nbytes
+    def part(n):                        # a rank's share where tp divides n
+        return n // tp if n % tp == 0 else 0
 
+    def calls(tally, sizes):
+        for n in sizes:
+            if n:
+                tally[0] += 1
+                tally[1] += b * n * f32
+
+    def weights(count):                 # a layer's leaves, f32
+        for key, c in kept.items():
+            held[key] += count(c) * f32
+
+    H, N, P = cfg.n_ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+    d_in = cfg.d_inner
+    ch, cols = d_in + 2 * N, 2 * d_in + 2 * N + H
+    Hx, hd = cfg.n_heads, cfg.head_dim_
+    n, hb = Hx * hd, d // Hx
     for kind, n_iter, per in segments_for(cfg):
         for _ in range(n_iter):
             if kind == "mamba_hybrid":
-                H, P, N = cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
-                ch = cfg.d_inner + 2 * N
                 for _ in range(per):
-                    add(now, 1, b * ch // tp * f32)
-                    add(now, 1, b * H * P * f32)
-                    add(gathered, 1, b * H * P * N // tp * f32)
-                    add(gathered, 1, b * 3 * ch // tp * f32)
+                    calls(now, (part(cols), part(ch) + 2 * part(H),
+                                H * P * (N % tp == 0),
+                                d * (d_in % tp == 0)))
+                    calls(whole, (part(ch), H * P * (N % tp == 0)))
+                    calls(gathered, (H * P * part(N), 3 * part(ch)))
+                    weights(lambda c: d * c(cols) + 4 * c(ch) + 3 * c(H)
+                            + c(d_in) + c(d_in) * d)
             elif kind == "xlstm_super":
-                H, hd, d = cfg.n_heads, cfg.head_dim_, cfg.d_model
                 for _ in range(per - 1):
-                    if H % tp == 0:
-                        add(now, 1, b * H // tp * f32)
-                        add(gathered, 1, b * H // tp * f32)
-                    add(now, 1, b * H * (hd + 1) * f32)
-                    add(gathered, 1, b * H * (hd + 1) * hd // tp * f32)
-                add(now, 1 if H % tp == 0 else 2, b * d // tp * f32)
-                add(gathered, 4, b * d // tp * f32)
-    return dict(now=tuple(now), gathered=tuple(gathered))
+                    calls(now, (4 * part(n) + part(2 * Hx) + part(Hx),
+                                Hx * (hd + 1) * (hd % tp == 0),
+                                d * (n % tp == 0)))
+                    calls(whole, (part(Hx), Hx * (hd + 1) * (hd % tp == 0)))
+                    calls(gathered, (part(Hx), Hx * (hd + 1) * part(hd)))
+                    weights(lambda c: 4 * d * c(n) + d * c(2 * Hx)
+                            + c(2 * Hx) + c(n) + c(n) * d)
+                calls(now, (part(d),
+                            4 * d * (hb % tp == 0 or 4 * d % tp == 0),
+                            d % tp == 0, d * (d % tp == 0)))
+                calls(whole, (part(d),) * (1 if Hx % tp == 0 else 2))
+                calls(gathered, (part(d),) * 4)
+                weights(lambda c: d * c(4 * d) + c(4 * d)
+                        + Hx * c(hb) * 4 * hb + c(d) + c(d) * d)
+    return dict(now=tuple(now), whole_weights=tuple(whole),
+                gathered=tuple(gathered), **held)
 
 
 def serve_oracle(dev, arch, n_layers, workdir):
@@ -3924,7 +3964,8 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
     from repro_torch.distributed import (ShardedCache, compat, map_cache,
                                          param_shardings)
     from repro_torch.distributed import sp as SP
-    from repro_torch.distributed.sharding import local_slice
+    from repro_torch.distributed.sharding import (SPLIT, compute_split,
+                                                  local_slice)
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models.transformer import init_decoder
     from repro_torch.train import step as ST
@@ -4020,11 +4061,35 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
             raise AssertionError(f"{arch}: the mixers' model-axis calls and "
                                  f"bytes a step {got} against the predicted "
                                  f"{predicted['now']}")
+        # the serve step's working module: the mixers at their stored
+        # model shards, every leaf's bytes against the shapes' count
+        held = {k: sum(p.numel() * p.element_size() for name, p in
+                       serve.held().named_parameters()
+                       if (".mixer." in name or ".core." in name) == mix)
+                for k, mix in (("mixers", True), ("rest", False))}
+        split = compute_split(params.specs, cfg, mesh, mixers=False)
+        rest = sum(4 * math.prod(params.shapes[name]) // (
+            mesh.axis_size("model") if split[name] == SPLIT else 1)
+            for name in params if ".mixer." not in name
+            and ".core." not in name)
+        if (held["mixers"], held["rest"]) != (predicted["held"], rest):
+            raise AssertionError(f"{arch}: the serve step holds "
+                                 f"{held['mixers']} bytes of mixer weights "
+                                 f"and {held['rest']} of the rest a rank "
+                                 f"against the predicted "
+                                 f"{predicted['held']} and {rest}")
         mixers = dict(
             calls=got[0], mb=got[1] / 1e6, predicted_calls=predicted["now"][0],
             predicted_mb=predicted["now"][1] / 1e6,
+            whole_weights_calls=predicted["whole_weights"][0],
+            whole_weights_mb=predicted["whole_weights"][1] / 1e6,
             gathered_calls=predicted["gathered"][0],
             gathered_mb=predicted["gathered"][1] / 1e6,
+            held_gb=(held["mixers"] + held["rest"]) / 1e9,
+            predicted_held_gb=(predicted["held"] + rest) / 1e9,
+            held_mixers_gb=held["mixers"] / 1e9,
+            predicted_held_mixers_gb=predicted["held"] / 1e9,
+            whole_mixers_gb=predicted["held_whole"] / 1e9,
             ms=1e3 * sum(c["seconds"] for c in recurrent.values())
             / DIST_SERVE_STEPS,
             ops={op: dict(calls=c["calls"] // DIST_SERVE_STEPS,
@@ -4842,6 +4907,10 @@ def distributed(dev):
         rep[f"serve {arch}"] = serve_report([r[f"serve {arch}"]
                                              for r in four])
     rep["mixers"] = mixer_report(rep)
+    print("  mixers' decode, weights whole (for comparison): " + json.dumps({
+        arch: {k: d["decode"]["mixers"][k] for k in (
+            "whole_weights_calls", "whole_weights_mb", "whole_mixers_gb")}
+        for arch, d in rep["mixers"].items()}))
     print("  mixers: " + json.dumps(rep["mixers"]))
     t = time.perf_counter()
     rep["dryrun"] = dict(dist_dryrun(dev, four[0]["tp"], four[0]["serve"]),
@@ -4971,6 +5040,7 @@ def main(argv=None) -> int:
                     "and, up to GRAPH_N, of the graph paths (deep-like)")
     ap.add_argument("--queries", type=int, default=1000)
     args = ap.parse_args(argv)
+    started = time.perf_counter()
 
     import torch
 
@@ -5519,8 +5589,10 @@ def main(argv=None) -> int:
             "main_path_ms": run_ms[name]} | (
             {"lm_serving_ms": lm_ms[name]} if name in lm_ms else {})
             | extra.get(name, {}))
+    run_s = time.perf_counter() - started
     print(f"phase seconds: {sum(phase.seconds):.3f} in "
-          f"{len(phase.seconds)} phases (limit {RUN_LIMIT_S} s)")
+          f"{len(phase.seconds)} phases, {run_s:.3f} s since main started "
+          f"(limit {RUN_LIMIT_S} s, margin {RUN_LIMIT_S - run_s:.3f} s)")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -322,8 +322,11 @@ _MIXER_SPLIT = {
               "norm.scale": 0, "wo.kernel": 0},
     "slstm": {"norm.scale": 0, "wo.kernel": 0},
 }
-_MIXER_SELECT = {"mamba": ("in_proj.kernel", "conv.kernel"), "mlstm": (),
-                 "slstm": ("wx.kernel", "wx.bias", "r")}
+# the packed leaves by the dimension the rules store them split on, the
+# one on which the mesh decode computes with them
+_MIXER_PACKED = {"mamba": {"in_proj.kernel": 1, "conv.kernel": 1},
+                 "mlstm": {},
+                 "slstm": {"wx.kernel": 1, "wx.bias": 0, "r": 1}}
 
 
 def attention_split(cfg, tp: int, seq_len: int) -> Optional[str]:
@@ -360,24 +363,28 @@ def _mixer_leaf(name: str) -> Optional[Tuple[str, str]]:
     return None
 
 
-def _split_of(name: str, cfg, tp: int, mixers: bool):
+def _split_of(name: str, cfg, tp: int, mixers: bool, stored: bool):
     """``(SPLIT, dim)`` where a model rank computes with its own shard of
     parameter ``name`` along ``dim``, ``(SELECT, None)`` where it computes
     with its heads' parts of the whole tensor, else ``(None, None)``.  A
     mixer's leaves split where its mixer does (``mixers``, and its head
-    count divides ``tp``)."""
+    count divides ``tp``), or, for the decode (not ``mixers``), wherever
+    the rules store them split (``stored``)."""
     leaf = _mixer_leaf(name)
     if leaf is None:
         dim = _split_dim(name, cfg, tp)
         return (None, None) if dim is None else (SPLIT, dim)
-    if not mixers or mixer_heads(cfg) % tp:
-        return None, None
     kind, rest = leaf
-    if rest in _MIXER_SELECT[kind]:
-        return SELECT, None
-    if rest not in _MIXER_SPLIT[kind]:
+    dims = {**_MIXER_SPLIT[kind], **_MIXER_PACKED[kind]}
+    if rest not in dims:
         raise ValueError(f"{name}: a {kind} leaf of no known layout")
-    return SPLIT, _MIXER_SPLIT[kind][rest]
+    if not mixers:
+        return (SPLIT, dims[rest]) if stored else (None, None)
+    if mixer_heads(cfg) % tp:
+        return None, None
+    if rest in _MIXER_PACKED[kind]:
+        return SELECT, None
+    return SPLIT, dims[rest]
 
 
 def _split_dim(name: str, cfg, tp: int) -> Optional[int]:
@@ -413,8 +420,8 @@ def _split_dim(name: str, cfg, tp: int) -> Optional[int]:
 def compute_split(specs: Dict[str, Spec], cfg, mesh,
                   mixers: bool = True) -> Dict[str, str]:
     """For each parameter (``specs``: ``param_shardings``), how the ranks
-    of the "model" axis compute with it in the sharded train step and
-    the mesh prefill:
+    of the "model" axis compute with it in the sharded train step, the
+    mesh prefill and (``mixers`` False) the mesh decode:
 
     * ``SPLIT``: with this rank's own model shard (column- or
       row-parallel matmuls, this rank's heads, vocabulary rows or
@@ -430,22 +437,29 @@ def compute_split(specs: Dict[str, Spec], cfg, mesh,
       line up with what a rank computes (a norm's gain; gemma3-1b's
       ``wk`` / ``wv`` at tp = 2, half of its one KV head; attention that
       splits the query sequence; the router, whose logits route whole;
-      a mixer whose heads do not divide the axis, or any mixer where
-      ``mixers`` is False: the mesh decode's, which updates the states
-      where they are stored, on ``N`` / ``K`` / channels, not by head),
-      so it is gathered whole for the step;
+      a mixer whose heads do not divide the axis), so it is gathered
+      whole for the step;
     * ``REPLICATED``: the rules leave it whole on "model".
 
-    The mixers split where their head count (:func:`mixer_heads`)
-    divides the axis.  Raises where a leaf that computes split is not
-    stored split the same way: no leaf falls back to whole weights."""
+    With ``mixers`` (the train step and the prefill) the mixers split
+    where their head count (:func:`mixer_heads`) divides the axis.
+    ``mixers`` False is the mesh decode's: each Mamba2, mLSTM and sLSTM
+    leaf is ``SPLIT`` on the dimension its spec puts "model" on (columns
+    of ``in_proj``, ``conv``, ``wq`` / ``wk`` / ``wv`` / ``wz``,
+    ``w_gates`` and ``wx``; rows of ``out_proj``, ``wo`` and of each of
+    ``r``'s head blocks; the head-aligned vectors and gains), whatever
+    its heads, and ``REPLICATED`` where the rules leave it whole: the
+    decode computes each projection on this rank's stored shard and
+    gathers no mixer weight (``models.ssm``, ``models.xlstm``).  Raises
+    where a leaf that computes split is not stored split the same way:
+    no leaf falls back to whole weights."""
     tp = axis_size(mesh, "model")
     out = {}
     for name, spec in specs.items():
         on_model = [d for d, axes in enumerate(spec) if axes and "model" in (
             (axes,) if isinstance(axes, str) else axes)]
-        how, dim = _split_of(name, cfg, tp, mixers) if tp > 1 \
-            else (None, None)
+        how, dim = _split_of(name, cfg, tp, mixers, bool(on_model)) \
+            if tp > 1 else (None, None)
         if how == SPLIT and on_model != [dim]:
             raise ValueError(f"{name}: computes split on dimension {dim}"
                              f" but is stored as {spec}")

@@ -26,7 +26,12 @@ model rank the gradient of a replicated tensor is whole and the same.
   forward and backward, then each rank scales its own part;
 * :func:`state_dims`: where the model axis splits each leaf of a
   recurrent decode state (``sharding.cache_shardings``), for the mixers
-  that update their states where they are stored.
+  that update their states where they are stored;
+* :func:`is_split`: whether a weight is this rank's model shard or whole,
+  for the mesh decode's mixers, which compute with each leaf as the
+  rules store it;
+* :func:`gather_parts`: several column-split activations gathered whole
+  in one call.
 
 :func:`split_model` makes a :class:`ModelAxis` current for the modules'
 forward passes (``models.layers``, ``attention``, ``moe``, ``ssm``,
@@ -48,7 +53,7 @@ from . import compat
 
 __all__ = ["ModelAxis", "split_model", "current", "axis_for", "check_local",
            "copy", "reduce", "gather", "scatter", "select", "rms_norm",
-           "state_dims", "AXIS"]
+           "state_dims", "is_split", "gather_parts", "AXIS"]
 
 AXIS = "model"
 
@@ -234,4 +239,38 @@ def state_dims(spec, axis: Optional[ModelAxis], dims, what: str):
                              "one the mesh decode updates in place"
                              + ("" if axis else " (no model axis is current)"))
         out[leaf] = on[0]
+    return out
+
+
+def is_split(t: torch.Tensor, dim: int, whole: int,
+             axis: Optional[ModelAxis], what: str) -> bool:
+    """Whether ``t`` is this rank's model shard of ``whole`` items along
+    ``dim`` (True) or the whole tensor (False); any other size, or a
+    shard with no model axis current, raises, naming ``what``."""
+    if t.shape[dim] == whole:
+        return False
+    if axis is None:
+        raise ValueError(f"{what}: {tuple(t.shape)} is not whole ({whole} "
+                         f"along dimension {dim}) and no model axis is "
+                         "current")
+    check_local(t, dim, whole, axis, what)
+    return True
+
+
+def gather_parts(parts, axis: ModelAxis):
+    """Each of ``parts`` (``(B, n_i)`` tensors, this rank's column block
+    of each) gathered whole, ``(B, tp n_i)`` in rank order, by one
+    ``all_gather`` of their concatenation (in their widest dtype, each
+    cast back after: exact)."""
+    dtype = parts[0].dtype
+    for p in parts[1:]:
+        dtype = torch.promote_types(dtype, p.dtype)
+    whole = gather(torch.cat([p.to(dtype) for p in parts], dim=-1)[None],
+                   axis, 0)                               # (tp, B, sum n_i)
+    out, at = [], 0
+    for p in parts:
+        n = p.shape[-1]
+        out.append(whole[..., at:at + n].transpose(0, 1).reshape(
+            p.shape[0], axis.size * n).to(p.dtype))
+        at += n
     return out

@@ -30,7 +30,10 @@ in place of ``lower_s`` / ``compile_s``), ``memory`` (this rank's
 ``output_bytes`` that are no argument; ``temp_bytes``, the peak over the
 arguments, the gathered weights of the step included; ``peak_bytes`` and
 ``MemTracker``'s ``peak_by_kind`` at it, on the step's device, the
-arguments counted as "Other"; ``code_bytes`` and ``alias_bytes`` None),
+arguments counted as "Other" and as "Parameter" only the weights of the
+modules the step calls as modules; ``held_bytes``, the parameter bytes
+of a serving step's working module, which it holds across calls, None
+for a train step; ``code_bytes`` and ``alias_bytes`` None),
 ``cost.flops`` (this rank's, forward, backward,
 recomputation and optimizer), ``collectives`` (one step's ``bytes`` and
 ``counts`` under the reference's kinds, ``by_axes`` by the mesh axes of
@@ -87,8 +90,8 @@ from ..train.step import (_main_input, make_prefill_step, make_serve_step,
 from .mesh import MULTIPOD_SHAPE, POD_SHAPE, make_mesh_compat
 
 __all__ = ["lower_cell", "run_cell", "cell_path", "all_cells",
-           "collective_bytes", "build_cell", "step_counts", "fake_world",
-           "main", "OUT_DIR"]
+           "collective_bytes", "build_cell", "held_bytes", "step_counts",
+           "fake_world", "main", "OUT_DIR"]
 
 OUT_DIR = Path(__file__).resolve().parents[3] / "experiments" / "torch_dryrun"
 
@@ -202,9 +205,6 @@ def differs_from_reference(cfg: ModelConfig, shape: ShapeSpec, kind: str,
                    "layer by layer")
     tp, heads = axis_size(mesh, "model"), mixer_heads(cfg)
     if tp > 1 and heads and kind == "decode":
-        out.append("Mamba2 / xLSTM mixers' projections computed whole on "
-                   "every model rank in the decode, from weights held "
-                   "whole")
         if cfg.mlstm_slstm_pattern:
             out.append("mLSTM readout reduced over the model axis as "
                        "partial sums over C's K slices, where the "
@@ -229,10 +229,11 @@ def differs_from_reference(cfg: ModelConfig, shape: ShapeSpec, kind: str,
 def build_cell(cfg: ModelConfig, shape: ShapeSpec, kind: str, mesh,
                device, seed: Optional[int] = None,
                cache_dtype=torch.bfloat16):
-    """``(args, run)``: this rank's arguments of the cell's step on the live
-    ``mesh`` (its parameters placed by ``checkpoint.reshard``, the
-    optimizer's moments, the zero batch and the fresh decode cache, as a
-    list of tensors) and ``run()``, one call of the step.  Under a
+    """``(args, run, step)``: this rank's arguments of the cell's step on
+    the live ``mesh`` (its parameters placed by ``checkpoint.reshard``,
+    the optimizer's moments, the zero batch and the fresh decode cache,
+    as a list of tensors), ``run()``, one call of the step, and the step
+    itself.  Under a
     ``FakeTensorMode`` (:func:`lower_cell`) nothing is stored; with a
     ``seed`` the weights are drawn from it (real ranks of the same cell).
     The decode cache is ``cache_dtype`` (bf16, as the reference's
@@ -267,7 +268,14 @@ def build_cell(cfg: ModelConfig, shape: ShapeSpec, kind: str, mesh,
         run = lambda: step(params, cache, batch)  # noqa: E731
     else:
         raise ValueError(kind)
-    return args + list(batch.values()), run
+    return args + list(batch.values()), run, step
+
+
+def held_bytes(step) -> Optional[int]:
+    """The parameter bytes of the working module a serving ``step`` holds
+    (``train.step``'s ``step.held()``), None for a train step."""
+    held = getattr(step, "held", lambda: None)()
+    return None if held is None else _storage_bytes(list(held.parameters()))
 
 
 def step_counts(kind: str) -> dict:
@@ -323,7 +331,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
     t0 = time.time()
     with fake_world(n), FakeTensorMode(allow_non_fake_inputs=True):
         mesh = make_mesh_compat(mshape, axes, device=device)
-        args, run = build_cell(cfg, shape, kind, mesh, device,
+        args, run, step = build_cell(cfg, shape, kind, mesh, device,
                                cache_dtype=cache_dtype)
         arg_bytes = _storage_bytes(args)
         compat.reset_stats()
@@ -350,6 +358,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         out_bytes = _storage_bytes([t for t in _tensors(out)
                                     if t.untyped_storage()._cdata
                                     not in arg_ids])
+        held = held_bytes(step)
         rec["differs_from_reference"] = differs_from_reference(
             cfg, shape, kind, mesh)
     rec["trace_s"] = round(time.time() - t0, 2)
@@ -357,6 +366,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                      "output_bytes": int(out_bytes),
                      "temp_bytes": int(peak - arg_bytes),
                      "peak_bytes": int(peak), "peak_by_kind": by_kind,
+                     "held_bytes": held,
                      "alias_bytes": None, "code_bytes": None}
     rec["cost"] = {"flops": float(flops.get_total_flops())}
     rec["model_flops_global"] = model_flops(cfg, shape)

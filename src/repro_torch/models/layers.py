@@ -25,6 +25,7 @@ __all__ = [
     "rms_norm",
     "layer_norm",
     "dense",
+    "norm_dense",
     "mlp",
     "mlp_apply",
     "embed",
@@ -105,6 +106,31 @@ def dense(x: torch.Tensor, kernel: torch.Tensor,
     if bias is not None:
         y = y + cast(bias, x.dtype)
     return y
+
+
+def norm_dense(x: torch.Tensor, norm: RMSNorm, proj: "Dense", eps: float,
+               axis=None, dtype=None, what: str = "norm"):
+    """``proj(rms_norm(x, norm.scale, eps).to(dtype))`` of an ``x`` that
+    every model rank holds whole, where the model ``axis`` may split the
+    gain and ``proj``'s rows alike: each rank normalises the whole ``x``
+    (no collective for the mean of squares), scales its own part of it,
+    multiplies its rows and the partial products are ``psum``-ed over
+    "model".  A gain and rows that are not both split, or both whole,
+    raise, naming ``what``."""
+    n, scale = x.shape[-1], norm.scale
+    dtype = dtype or x.dtype
+    split = _tp.is_split(scale, 0, n, axis, f"{what} gain")
+    if split != _tp.is_split(proj.kernel, 0, n, axis, f"{what} rows"):
+        raise ValueError(f"{what}: a gain of {tuple(scale.shape)} with rows "
+                         f"of {tuple(proj.kernel.shape)} over {n} channels")
+    if not split:
+        return proj(rms_norm(x, scale, eps).to(dtype))
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    c = scale.shape[0]
+    y = xf.narrow(-1, axis.index * c, c) * torch.rsqrt(var + eps)
+    y = (y * (1.0 + scale.float())).to(x.dtype).to(dtype)
+    return _tp.reduce(proj(y), axis)
 
 
 class Dense(nn.Module):

@@ -23,13 +23,25 @@ whole and the rank selects its heads' columns of them
 and ``B`` and ``C`` whole, which every head reads); the gated norm sums
 its squares over the ranks and ``out_proj`` is row-parallel.
 
-The mesh decode keeps the weights whole and each state where
-``cache_shardings`` stores it: the state on ``N``, the conv window on its
-channels.  :func:`mamba_decode` then runs the conv on this rank's
-channels and gathers its output (one call of ``(B, d_inner + 2N) / tp``),
-updates its ``N`` slice of the state and ``psum``-s the readout's partial
-sums ``(B, H, P)`` over "model"; ``x * D``, the gate, the norm and
-``out_proj`` run whole.  No state crosses a rank.
+The mesh decode (the serve step's working module: every leaf at its
+stored model shard, ``sharding.compute_split(..., mixers=False)``) keeps
+each state where ``cache_shardings`` stores it, the state on ``N`` and
+the conv window on its channels, and computes each projection on this
+rank's shard of its weight.  :func:`mamba_decode` multiplies by its
+columns of ``in_proj`` and gathers the output whole (one call of ``(B,
+cols / tp)``: every rank needs every head's ``x`` and ``dt`` for its
+``N`` slice of the state, and its channels of ``xBC`` and ``z``); runs
+the conv on its channels of the window with its channels of ``conv``,
+and its heads' ``dt`` and decay from its ``dt_bias`` and ``A_log``, and
+gathers both in one call (``(B, ch / tp + 2 H / tp)``); updates its
+``N`` slice of the state and ``psum``-s the readout's partial sums ``(B,
+H, P)``, into which each rank adds ``x * D`` of its own heads; then
+normalises the gated output, which every rank now holds whole, scales
+its channels by its part of the gain and multiplies its rows of
+``out_proj``, whose partial products ``(B, d)`` are ``psum``-ed: four
+calls a layer, none of a weight or a state.  A leaf the rules leave
+whole on "model" is used whole (its call, if any, drops out); a layout
+the decode does not handle raises, naming the leaf.
 """
 
 from __future__ import annotations
@@ -42,7 +54,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..distributed import tp as _tp
-from .layers import Dense, RMSNorm, cast, dense, rms_norm
+from .layers import Dense, RMSNorm, cast, dense, norm_dense, rms_norm
 
 __all__ = [
     "Mamba",
@@ -158,17 +170,6 @@ def ssd_chunked(x, a, B, C, init_state=None, chunk: int = _CHUNK):
     return y, final_state
 
 
-def _split_proj(params: Mamba, u, cfg):
-    d_in = cfg.d_inner
-    N = cfg.ssm_state
-    H = cfg.n_ssm_heads
-    zxbcdt = params.in_proj(u)
-    z = zxbcdt[..., :d_in]
-    xBC = zxbcdt[..., d_in:2 * d_in + 2 * N]
-    dt_raw = zxbcdt[..., 2 * d_in + 2 * N:]
-    return z, xBC, dt_raw, d_in, N, H
-
-
 def in_proj_spans(cfg, index: int, size: int):
     """The ``(start, length)`` column spans of ``in_proj`` (the reference's
     ``[z (d_in) | x (d_in) | B (N) | C (N) | dt (H)]``) that model rank
@@ -259,47 +260,90 @@ def init_mamba_cache(batch: int, cfg, dtype=torch.float32,
                          device=device))
 
 
+def _mamba_layout(params: Mamba, cfg, axis, dims):
+    """``{"in_proj", "conv", "heads", "norm": split}``: which of the
+    mixer's leaves are this rank's model shards (``A_log``, ``D`` and
+    ``dt_bias`` together as ``heads``; the gain with ``out_proj``'s rows
+    as ``norm``), all False with no ``axis``; raises for a layout the
+    mesh decode does not handle, naming the leaf."""
+    d_in, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    split = dict(
+        in_proj=_tp.is_split(params.in_proj.kernel, 1,  # [z|x|B|C|dt]
+                             2 * d_in + 2 * N + H, axis, "mamba in_proj"),
+        conv=_tp.is_split(params.conv.kernel, 1, d_in + 2 * N, axis,
+                          "mamba conv"),
+        heads=_tp.is_split(params.dt_bias, 0, H, axis, "mamba dt_bias"),
+        norm=_tp.is_split(params.norm.scale, 0, d_in, axis, "mamba norm"))
+    for t, what in ((params.A_log, "A_log"), (params.D, "D")):
+        if _tp.is_split(t, 0, H, axis, f"mamba {what}") != split["heads"]:
+            raise ValueError(f"mamba {what}: {tuple(t.shape)} beside a "
+                             f"dt_bias of {tuple(params.dt_bias.shape)}")
+    if split["conv"] and dims["conv"] is None:
+        raise ValueError(f"mamba conv: a kernel of "
+                         f"{tuple(params.conv.kernel.shape)} beside a window "
+                         "whole on every model rank")
+    if split["heads"] and dims["state"] is None:
+        raise ValueError("mamba D: split by head beside a state that is "
+                         "whole on every model rank")
+    return split
+
+
 def mamba_decode(params: Mamba, u, cache: MambaCache, cfg, axis=None,
                  spec=None) -> Tuple[torch.Tensor, MambaCache]:
     """One-token recurrent step: u (B, 1, d) -> (y, new_cache).  With a
-    model ``axis`` and the cache's ``spec`` (``cache_shardings``: the
-    state on ``N``, the window on its channels) ``cache`` holds this
-    rank's slices and the new cache does too (module docstring); with
-    neither, or a spec that holds no "model", the step is the
-    one-process step."""
-    Bb = u.shape[0]
+    model ``axis``, the cache's ``spec`` (``cache_shardings``: the state
+    on ``N``, the window on its channels) and ``params`` as the serve
+    step's working module holds them (each leaf this rank's model shard
+    where the rules split it), ``cache`` holds this rank's slices and the
+    new cache does too (module docstring); where nothing is split no
+    collective runs and the step is the one-process step."""
     dims = _tp.state_dims(spec, axis, {"state": 3, "conv": 2}, "mamba")
-    z, xBC, dt_raw, d_in, N, H = _split_proj(params, u, cfg)
-    xBC = xBC[:, 0]                                              # (B, ch)
+    split = _mamba_layout(params, cfg, axis, dims)
+    Bb = u.shape[0]
+    d_in, N, H = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    ch = d_in + 2 * N
+    zxbcdt = params.in_proj(u[:, 0])                    # this rank's columns
+    if split["in_proj"]:
+        zxbcdt, = _tp.gather_parts([zxbcdt], axis)
+    z, xBC, dt_raw = (zxbcdt[:, :d_in], zxbcdt[:, d_in:d_in + ch],
+                      zxbcdt[:, d_in + ch:])
     k = params.conv.kernel
     if dims["conv"] is not None:        # this rank's channels of the window
-        _tp.check_local(cache.conv, 2, xBC.shape[-1], axis, "mamba window")
-        xBC, k = _tp.scatter(xBC, axis, -1), _tp.scatter(k, axis, 1)
+        _tp.check_local(cache.conv, 2, ch, axis, "mamba window")
+        xBC = _tp.scatter(xBC, axis, -1)
+        k = k if split["conv"] else _tp.scatter(k, axis, 1)
     window = torch.cat([cache.conv, xBC[:, None, :].to(cache.conv.dtype)],
                        dim=1)
-    k = cast(k, window.dtype)
-    conv = F.silu((window * k[None]).sum(dim=1))
-    if dims["conv"] is not None:
-        conv = _tp.gather(conv, axis, -1)
+    conv = F.silu((window * cast(k, window.dtype)[None]).sum(dim=1))
+    if split["heads"]:                  # this rank's heads' dt and decay
+        dt_raw = _tp.scatter(dt_raw, axis, -1)
+    dt = F.softplus(dt_raw.float() + params.dt_bias)
+    decay = torch.exp(dt * -torch.exp(params.A_log))
+    window_split = dims["conv"] is not None
+    parts = [conv] * window_split + [dt, decay] * split["heads"]
+    if parts:                           # one call for all of them
+        got = _tp.gather_parts(parts, axis)
+        conv = got[0] if window_split else conv
+        dt, decay = got[-2:] if split["heads"] else (dt, decay)
     x = conv[:, :d_in].reshape(Bb, H, cfg.ssm_head_dim)
     Bm = conv[:, d_in:d_in + N]
     Cm = conv[:, d_in + N:]
     if dims["state"] is not None:       # this rank's N slice of the state
         _tp.check_local(cache.state, 3, N, axis, "mamba state")
         Bm, Cm = _tp.scatter(Bm, axis, -1), _tp.scatter(Cm, axis, -1)
-    dt = F.softplus(dt_raw[:, 0].float() + params.dt_bias)      # (B,H)
-    A = -torch.exp(params.A_log)
-    decay = torch.exp(dt * A)                                    # (B,H)
     upd = (dt[..., None].to(x.dtype) * x)[..., None] * Bm[:, None, None, :]
     state = (cache.state * decay[..., None, None].to(cache.state.dtype)
              + upd.to(cache.state.dtype))
     y = torch.matmul(state.to(x.dtype), Cm[:, None, :, None])[..., 0]
+    if split["heads"]:                  # x * D of this rank's heads rides
+        h = H // axis.size              # in the readout's sum
+        y.narrow(1, axis.index * h, h).add_(
+            x.narrow(1, axis.index * h, h)
+            * params.D.to(x.dtype)[None, :, None])
     if dims["state"] is not None:       # the readout's partial sums over N
         y = _tp.reduce(y, axis)
-    y = y + x * params.D.to(x.dtype)[None, :, None]
-    y = y.reshape(Bb, 1, d_in)
-    y = rms_norm(y * F.silu(z), params.norm.scale, cfg.norm_eps)
-    # keep the activation dtype stable across the residual stream (the
-    # cache is f32)
-    out = params.out_proj(y.to(u.dtype))
-    return out, MambaCache(state=state, conv=window[:, 1:])
+    if not split["heads"]:
+        y = y + x * params.D.to(x.dtype)[None, :, None]
+    out = norm_dense(y.reshape(Bb, d_in) * F.silu(z), params.norm,
+                     params.out_proj, cfg.norm_eps, axis, u.dtype, "mamba")
+    return out[:, None, :], MambaCache(state=state, conv=window[:, 1:])

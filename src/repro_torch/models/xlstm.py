@@ -29,18 +29,29 @@ its heads' columns of each of the ``z|i|f|o`` blocks
 (:func:`slstm_r_spans`); the recurrence is block-diagonal by head, so
 the loop over time runs no collective.
 
-The mesh decode keeps the weights whole and each state where
-``cache_shardings`` stores it.  :func:`mlstm_decode`: ``C`` on ``K``, so
-a rank updates its ``K`` slice with its slice of ``k`` and ``psum``-s
-the readout's partial sums ``(B, H, hd + 1)`` over "model" (the readout
-is linear in ``C`` along ``K``); ``m`` on the heads where they divide the
-axis, gathered for the stabiliser (one call of ``(B, H / tp)``), else
-whole on every rank.  :func:`slstm_decode`: ``c``, ``n``, ``h``, ``m`` on
-``d``; a rank updates its channels with its columns of ``wx``, and of
-``r`` its heads' blocks where its channels are whole heads (no
-collective), else each channel's column after gathering ``h``; the new
-``h`` is gathered for the norm and ``wo``.  No state but ``m`` and the
-sLSTM's ``h`` crosses a rank.
+The mesh decode (the serve step's working module: every leaf at its
+stored model shard, ``sharding.compute_split(..., mixers=False)``) keeps
+each state where ``cache_shardings`` stores it and computes each
+projection on this rank's shard of its weight.  :func:`mlstm_decode`:
+``C`` on ``K``, ``m`` on the heads where they divide the axis; a rank
+multiplies by its columns of ``wq``, ``wk``, ``wv``, ``wz`` and
+``w_gates`` and gathers the outputs with its slice of ``m`` in one call
+(``(B, 4 H hd / tp + 2 H / tp + H / tp)``: ``C`` holds every head and
+every row of ``v``, so ``v``, the gates and ``m`` are needed whole, and
+``q`` and ``k`` on this rank's ``K`` slice), updates its ``K`` slice of
+``C``, ``psum``-s the readout's partial sums ``(B, H, hd + 1)`` (the
+readout is linear in ``C`` along ``K``), normalises the gated output
+whole and multiplies its rows of ``wo``, whose partial products are
+``psum``-ed.  :func:`slstm_decode`: ``c``, ``n``, ``h``, ``m`` on ``d``,
+``r`` on each head's rows; a rank gathers the old ``h`` (``(B, d /
+tp)``), multiplies its rows of ``r`` by its rows of each head's ``h``
+and adds its columns of ``wx``'s output, ``psum``-s the ``z|i|f|o``
+pre-activations ``(B, 4d)``, updates its channels, normalises them with
+the sums of squares ``psum``-ed (``tp.rms_norm``) and multiplies its
+rows of ``wo``, whose partial products are ``psum``-ed.  A leaf the
+rules leave whole on "model" is used whole; a layout the decode does
+not handle raises, naming the leaf.  No state and no weight crosses a
+rank but ``m`` and the sLSTM's ``h``.
 """
 
 from __future__ import annotations
@@ -55,7 +66,8 @@ from torch import nn
 
 from ..device import resolve_device
 from ..distributed import tp as _tp
-from .layers import Dense, RMSNorm, _he, cast, dense, rms_norm
+from .layers import (Dense, RMSNorm, _he, cast, dense, norm_dense,
+                     rms_norm)
 from .ssm import ssd_chunked
 
 __all__ = [
@@ -109,16 +121,19 @@ class MLstm(nn.Module):
             m.init_(gen)
 
 
+def _root(hd: int, dtype) -> float:
+    """The reference's ``jnp.sqrt(hd)``: f32, then the activations'
+    dtype."""
+    return float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype))
+
+
 def _mlstm_qkv(params: MLstm, x, cfg, H=None):
     """q, k, v and the log gates of ``H`` heads (all of them by default;
     under a model axis this rank's, from its columns)."""
     B, L, _ = x.shape
     H, hd = H or cfg.n_heads, cfg.head_dim_
-    # the reference's jnp.sqrt(hd): f32, then the activations' dtype
-    root = float(torch.tensor(math.sqrt(hd), dtype=torch.float32)
-                 .to(x.dtype))
     q = params.wq(x).reshape(B, L, H, hd)
-    k = params.wk(x).reshape(B, L, H, hd) / root
+    k = params.wk(x).reshape(B, L, H, hd) / _root(hd, x.dtype)
     v = params.wv(x).reshape(B, L, H, hd)
     gates = params.w_gates(x).reshape(B, L, H, 2).float()
     log_i = _log_sigmoid(gates[..., 0])
@@ -260,23 +275,64 @@ def init_mlstm_cache(batch: int, cfg, dtype=torch.float32,
         m=torch.full((batch, H), -1e9, dtype=dtype, device=device))
 
 
+def _mlstm_layout(params: MLstm, cfg, axis):
+    """``{"qkvz", "gates", "norm"}``: whether ``wq`` / ``wk`` / ``wv`` /
+    ``wz``, ``w_gates`` with its bias, and the norm's gain (with ``wo``'s
+    rows) are this rank's model shards (all False with no ``axis``);
+    raises for a layout the mesh decode does not handle, naming the
+    leaf."""
+    H, hd = cfg.n_heads, cfg.head_dim_
+    split = dict(qkvz=_tp.is_split(params.wq.kernel, 1, H * hd, axis,
+                                   "mlstm wq"),
+                 gates=_tp.is_split(params.w_gates.kernel, 1, 2 * H, axis,
+                                    "mlstm w_gates"),
+                 norm=_tp.is_split(params.norm.scale, 0, H * hd, axis,
+                                   "mlstm norm"))
+    for t, dim, n, what, like in (
+            (params.wk.kernel, 1, H * hd, "wk", "qkvz"),
+            (params.wv.kernel, 1, H * hd, "wv", "qkvz"),
+            (params.wz.kernel, 1, H * hd, "wz", "qkvz"),
+            (params.w_gates.bias, 0, 2 * H, "w_gates bias", "gates")):
+        if _tp.is_split(t, dim, n, axis, f"mlstm {what}") != split[like]:
+            raise ValueError(f"mlstm {what}: {tuple(t.shape)} beside "
+                             f"{'wq' if like == 'qkvz' else 'w_gates'} "
+                             f"split {split[like]}")
+    return split
+
+
 def mlstm_decode(params: MLstm, x, cache: MLstmCache, cfg, axis=None,
                  spec=None) -> Tuple[torch.Tensor, MLstmCache]:
     """One-token step with the stabilised exponential gating (xLSTM eq.
-    15-18): x (B, 1, d) -> (y, new_cache).  With a model ``axis`` and the
+    15-18): x (B, 1, d) -> (y, new_cache).  With a model ``axis``, the
     cache's ``spec`` (``cache_shardings``: ``C`` on ``K``, ``m`` on the
-    heads where they divide the axis) ``cache`` holds this rank's slices
-    and the new cache does too (module docstring); with neither, or a
-    spec that holds no "model", the step is the one-process step."""
+    heads where they divide the axis) and ``params`` as the serve step's
+    working module holds them (each leaf this rank's model shard where
+    the rules split it), ``cache`` holds this rank's slices and the new
+    cache does too (module docstring); where nothing is split no
+    collective runs and the step is the one-process step."""
+    dims = _tp.state_dims(spec, axis, {"C": 3, "m": 1}, "mlstm")
+    split = _mlstm_layout(params, cfg, axis)
     B = x.shape[0]
     H, hd = cfg.n_heads, cfg.head_dim_
-    dims = _tp.state_dims(spec, axis, {"C": 3, "m": 1}, "mlstm")
-    q, k, v, log_i, log_f = _mlstm_qkv(params, x, cfg)
-    q, k, v = q[:, 0], k[:, 0], v[:, 0]
-    log_i, log_f = log_i[:, 0], log_f[:, 0]
+    xs = x[:, 0]
+    qkvz = [w(xs)                       # this rank's columns of each
+            for w in (params.wq, params.wk, params.wv, params.wz)]
+    gates = params.w_gates(xs)
     m = cache.m
     if dims["m"] is not None:           # every head's stabiliser
-        m = _tp.gather(_tp.check_local(m, 1, H, axis, "mlstm m"), axis, 1)
+        _tp.check_local(m, 1, H, axis, "mlstm m")
+    parts = (qkvz * split["qkvz"] + [gates] * split["gates"]
+             + [m] * (dims["m"] is not None))
+    if parts:                           # one call for all of them
+        got = iter(_tp.gather_parts(parts, axis))
+        qkvz = [next(got) for _ in qkvz] if split["qkvz"] else qkvz
+        gates = next(got) if split["gates"] else gates
+        m = next(got) if dims["m"] is not None else m
+    q, k, v, z = qkvz
+    q, v = q.reshape(B, H, hd), v.reshape(B, H, hd)
+    k = k.reshape(B, H, hd) / _root(hd, x.dtype)
+    gates = gates.reshape(B, H, 2).float()
+    log_i, log_f = _log_sigmoid(gates[..., 0]), _log_sigmoid(gates[..., 1])
     m_new = torch.maximum(log_f + m, log_i)
     f_eff = torch.exp(log_f + m - m_new)
     i_eff = torch.exp(log_i - m_new)
@@ -293,13 +349,11 @@ def mlstm_decode(params: MLstm, x, cache: MLstmCache, cfg, axis=None,
         y = _tp.reduce(y, axis)
     num, den = y[..., :-1], y[..., -1]
     y = num / torch.clamp(den.abs(), min=1.0)[..., None]
-    z = params.wz(x)[:, 0]
-    y = y.reshape(B, H * hd) * F.silu(z)
-    y = rms_norm(y, params.norm.scale, cfg.norm_eps)
-    out = params.wo(y)[:, None, :]
+    out = norm_dense(y.reshape(B, H * hd) * F.silu(z), params.norm,
+                     params.wo, cfg.norm_eps, axis, what="mlstm")
     if dims["m"] is not None:
         m_new = _tp.scatter(m_new, axis, 1)
-    return out, MLstmCache(C=C, m=m_new)
+    return out[:, None, :], MLstmCache(C=C, m=m_new)
 
 
 # ---------------------------------------------------------------------------
@@ -352,35 +406,22 @@ def slstm_r_spans(cfg, index: int, size: int):
 
 def _slstm_rec(r, h):
     """The recurrent pre-activations ``h @ r`` of the heads of the blocks
-    ``r`` ``(H, hb, 4 hb)`` from those heads' channels ``h`` ``(B, H hb)``,
-    laid out as ``wx``'s ``z|i|f|o`` blocks: ``(B, 4 H hb)``."""
+    ``r`` ``(H, rows, 4 hb)`` from those heads' channels ``h`` ``(B, H
+    rows)``, laid out as ``wx``'s ``z|i|f|o`` blocks: ``(B, 4 H hb)``.
+    ``rows`` is ``hb``, or under the mesh decode this rank's rows of each
+    block (the sums are then partial)."""
     B = h.shape[0]
-    H, hb = r.shape[0], r.shape[1]
-    hr = h.reshape(B, H, hb).transpose(0, 1)                     # (H,B,hb)
+    H, hb = r.shape[0], r.shape[2] // 4
+    hr = h.reshape(B, H, r.shape[1]).transpose(0, 1)             # (H,B,rows)
     rec = torch.bmm(hr, cast(r, h.dtype)).transpose(0, 1)        # (B,H,4hb)
     # re-lay (B,H,4,hb) -> z|i|f|o blocks of (B,d) to match wx's output
     return rec.reshape(B, H, 4, hb).transpose(1, 2).reshape(B, 4 * H * hb)
 
 
-def _slstm_rec_channels(r, h, at: int, c: int):
-    """:func:`_slstm_rec`'s columns of channels ``[at, at + c)`` of each
-    ``z|i|f|o`` block, ``(B, 4 c)``, from the whole ``h`` ``(B, d)``: each
-    channel's column of its head's block of ``r``."""
-    B = h.shape[0]
-    H, hb = r.shape[0], r.shape[1]
-    ch = torch.arange(at, at + c, device=h.device)
-    head, j = ch // hb, ch % hb
-    cols = torch.arange(4, device=h.device)[:, None] * hb + j    # (4, c)
-    w = cast(r, h.dtype)[head[None], :, cols]                    # (4, c, hb)
-    hr = h.reshape(B, H, hb)[:, head]                            # (B, c, hb)
-    return torch.einsum("bci,gci->bgc", hr, w).reshape(B, 4 * c)
-
-
-def _slstm_gates(carry, xw, rec):
-    """The cell update from the carry ``(c, n, h, m)``, the input and the
-    recurrent pre-activations of the same channels."""
+def _slstm_cell(carry, zifo):
+    """The cell update from the carry ``(c, n, h, m)`` and the f32
+    ``z|i|f|o`` pre-activations of the same channels."""
     c, n, h, m = carry
-    zifo = (xw + rec.to(xw.dtype)).float()
     z, i_raw, f_raw, o_raw = zifo.chunk(4, dim=-1)
     log_i = _log_sigmoid(i_raw)
     log_f = _log_sigmoid(f_raw)
@@ -397,7 +438,8 @@ def _slstm_step(r, carry, xw):
     """One step of the heads of the recurrent blocks ``r`` ``(H, hb, 4
     hb)``: the carry and ``xw`` hold those heads' channels (all of them,
     or under a model axis this rank's)."""
-    return _slstm_gates(carry, xw, _slstm_rec(r, carry[2]))
+    rec = _slstm_rec(r, carry[2])
+    return _slstm_cell(carry, (xw + rec.to(xw.dtype)).float())
 
 
 def _slstm_local(params: SLstm, cfg, axis):
@@ -457,41 +499,80 @@ def init_slstm_cache(batch: int, cfg, dtype=torch.float32,
         m=torch.full((batch, d), -1e9, device=device))
 
 
+def _slstm_layout(params: SLstm, cfg, axis):
+    """``{"wx", "r", "out"}``: whether ``wx`` with its bias (on its
+    columns), ``r`` (on each head's rows) and the norm's gain with
+    ``wo``'s rows are this rank's model shards (all False with no
+    ``axis``); raises for a layout the mesh decode does not handle,
+    naming the leaf."""
+    d = cfg.d_model
+    split = dict(wx=_tp.is_split(params.wx.kernel, 1, 4 * d, axis,
+                                 "slstm wx"),
+                 r=_tp.is_split(params.r, 1, d // cfg.n_heads, axis,
+                                "slstm r"),
+                 out=_tp.is_split(params.norm.scale, 0, d, axis,
+                                  "slstm norm"))
+    for t, n, what, like in ((params.wx.bias, 4 * d, "wx bias", "wx"),
+                             (params.wo.kernel, d, "wo", "out")):
+        if _tp.is_split(t, 0, n, axis, f"slstm {what}") != split[like]:
+            raise ValueError(f"slstm {what}: {tuple(t.shape)} beside "
+                             f"{like} split {split[like]}")
+    return split
+
+
 def slstm_decode(params: SLstm, x, cache: SLstmCache, cfg, axis=None,
                  spec=None) -> Tuple[torch.Tensor, SLstmCache]:
     """One-token step: x (B, 1, d) -> (y, new_cache).  With a model
-    ``axis`` and the cache's ``spec`` (``cache_shardings``: every state on
-    ``d``) ``cache`` holds this rank's channels and the new cache does too
-    (module docstring); with neither, or a spec that holds no "model",
+    ``axis``, the cache's ``spec`` (``cache_shardings``: every state on
+    ``d``) and ``params`` as the serve step's working module holds them
+    (each leaf this rank's model shard where the rules split it),
+    ``cache`` holds this rank's channels and the new cache does too
+    (module docstring); where nothing is split no collective runs and
     the step is the one-process step."""
-    carry = (cache.c, cache.n, cache.h, cache.m)
     dims = _tp.state_dims(spec, axis, dict.fromkeys(SLstmCache._fields, 1),
                           "slstm")
     if len(set(dims.values())) > 1:
         raise ValueError(f"slstm: c, n, h, m stored on different layouts: "
                          f"{spec}")
-    if dims["c"] is None:
-        xw = params.wx(x)[:, 0].float()
-        (c, n, h, m), h_out = _slstm_step(params.r, carry, xw)
+    split = _slstm_layout(params, cfg, axis)
+    B, d, H = x.shape[0], cfg.d_model, cfg.n_heads
+    h = cache.h
+    if dims["c"] is not None:           # every channel's h
+        _tp.check_local(cache.c, 1, d, axis, "slstm c")
+        h = _tp.gather(h, axis, 1)
+    hr = h.reshape(B, H, d // H)
+    if split["r"]:                      # this rank's rows of each block
+        hr = _tp.scatter(hr, axis, 2)
+    xw = params.wx(x[:, 0]).float()
+    rec = _slstm_rec(params.r, hr.reshape(B, -1)).to(xw.dtype)
+    if split["r"] or split["wx"]:
+        # one psum of the z|i|f|o pre-activations (B, 4d): r's rows'
+        # partial sums (or rank 0's whole rec), with this rank's columns
+        # of xw added in their place
+        pre = rec if split["r"] or axis.index == 0 else torch.zeros_like(
+            rec)
+        if split["wx"]:
+            c4 = xw.shape[1]
+            pre.narrow(1, axis.index * c4, c4).add_(xw)
+        pre = _tp.reduce(pre, axis)
+        pre = pre if split["wx"] else xw + pre
     else:
-        d, H = cfg.d_model, cfg.n_heads
-        ch = _tp.check_local(cache.c, 1, d, axis, "slstm c").shape[1]
-        spans = slstm_wx_spans(cfg, axis.index, axis.size)
-        xw = dense(x, _tp.select(params.wx.kernel, spans, 1, 4 * d, axis,
-                                 "slstm wx"),
-                   _tp.select(params.wx.bias, spans, 0, 4 * d, axis,
-                              "slstm wx bias"))[:, 0].float()
-        if H % axis.size == 0:          # this rank's channels: whole heads
-            r = _tp.select(params.r, slstm_r_spans(cfg, axis.index,
-                                                    axis.size), 0, H, axis,
-                           "slstm r")
-            (c, n, h, m), h_out = _slstm_step(r, carry, xw)
-        else:                           # a head's channels split: whole h
-            rec = _slstm_rec_channels(params.r,
-                                      _tp.gather(cache.h, axis, 1),
-                                      axis.index * ch, ch)
-            (c, n, h, m), h_out = _slstm_gates(carry, xw, rec)
-        h_out = _tp.gather(h_out, axis, 1)
-    y = rms_norm(h_out.to(x.dtype), params.norm.scale, cfg.norm_eps)
-    out = params.wo(y)[:, None, :]
-    return out, SLstmCache(c=c, n=n, h=h.to(cache.h.dtype), m=m)
+        pre = xw + rec
+    pre = pre.float()
+    if dims["c"] is not None:           # this rank's channels of each block
+        c = d // axis.size
+        pre = pre.reshape(B, 4, d).narrow(2, axis.index * c, c).reshape(
+            B, 4 * c)
+    carry = (cache.c, cache.n, cache.h, cache.m)
+    (c, n, h, m), h_out = _slstm_cell(carry, pre)
+    h_out = h_out.to(x.dtype)
+    if dims["c"] is not None and split["out"]:
+        # the norm over the ranks' channels, wo's rows of them
+        y = _tp.rms_norm(h_out, params.norm.scale, cfg.norm_eps, axis)
+        out = _tp.reduce(params.wo(y), axis)
+    else:
+        if dims["c"] is not None:       # every channel's new h
+            h_out = _tp.gather(h_out, axis, 1)
+        out = norm_dense(h_out, params.norm, params.wo, cfg.norm_eps, axis,
+                         what="slstm")
+    return out[:, None, :], SLstmCache(c=c, n=n, h=h.to(cache.h.dtype), m=m)

@@ -80,12 +80,16 @@ attention splits as the cache's spec says: KV heads on "model" (this
 rank's KV heads and the query heads that read them), or the sequence on
 "model" / ("data", "model") (this rank's block of slots, written by the
 rank that holds the new token's slot and read by flash-decoding over the
-group).  The Mamba2 and xLSTM mixers' weights are whole in the
-decode's working module (``compute_split(..., mixers=False)``): each
-model rank computes their projections whole, updates its slice of each
-state where the rules store it (on ``N`` / ``K`` / channels, not by
-head) and reduces the readout over "model" (``models.ssm``,
-``models.xlstm``); no state is gathered.  The greedy
+group).  The decode's working module holds each Mamba2, mLSTM and
+sLSTM weight at its stored model shard (``compute_split(...,
+mixers=False)``: the dimension its spec puts "model" on, whatever the
+heads; whole where the rules leave it whole): each model rank computes
+every projection on its own shard, moves the projections' outputs to
+the layout of its slice of each state (updated where the rules store
+it, on ``N`` / ``K`` / channels) and reduces the readouts and the
+row-split output projections over "model" (``models.ssm``,
+``models.xlstm``); no state and no mixer weight crosses the model axis.
+The greedy
 pick (:func:`greedy_pick`) reduces ``(max, index)`` pairs over the model
 ranks rather than gathering ``(B, V)``: ``B * tp`` pairs instead of
 ``B * V`` logits (gemma3's vocabulary is 262,144), and exact, since a max
@@ -198,8 +202,8 @@ def working_module(cfg: ModelConfig, params: Sharded, device,
     model's parameters at this rank's local shapes, a model shard where
     ``compute_split`` says ``SPLIT`` (whole over the data axes), else the
     whole tensor; filled by :func:`gather_working` (storage only:
-    ``torch.empty``).  ``mixers`` False keeps the Mamba2 and xLSTM
-    mixers whole (the decode's: ``compute_split``)."""
+    ``torch.empty``).  ``mixers`` False is the decode's: every Mamba2
+    and xLSTM mixer leaf at its stored model shard (``compute_split``)."""
     split = compute_split(params.specs, cfg, params.mesh, mixers)
 
     def empty(name):
@@ -288,7 +292,8 @@ def _keeper(cfg: ModelConfig, device, mixers: bool = True):
     its first call and held by the step; filled from ``params``
     (:func:`gather_working`, a collective: every rank calls it alike) at
     the first call, for another ``params`` than the last call's, and
-    after ``keep.regather()``."""
+    after ``keep.regather()``; ``keep.held()`` is the module (None before
+    the first call)."""
     held = []                           # [params it was filled from, module]
 
     def keep(params: Sharded) -> nn.Module:
@@ -304,6 +309,7 @@ def _keeper(cfg: ModelConfig, device, mixers: bool = True):
             held[0] = None
 
     keep.regather = stale
+    keep.held = lambda: held[1] if held else None
     return keep
 
 
@@ -357,7 +363,8 @@ def make_prefill_step(cfg: ModelConfig, unroll: bool = False,
     same on every rank, and returns the whole ``(B, V)`` logits on every
     rank (:func:`sharded_prefill`).  Its working module is gathered at
     the first call and for another ``params``; a caller that changes
-    ``params`` in place calls ``prefill_step.regather()`` first."""
+    ``params`` in place calls ``prefill_step.regather()`` first;
+    ``prefill_step.held()`` is the working module."""
     dev = resolve_device(device)
     model = build(cfg, device=dev)
     keep = _keeper(cfg, dev)
@@ -372,7 +379,7 @@ def make_prefill_step(cfg: ModelConfig, unroll: bool = False,
         logits, _ = model.apply(params, **inputs, remat=False, unroll=unroll)
         return logits[:, -1, :]
 
-    prefill_step.regather = keep.regather
+    prefill_step.regather, prefill_step.held = keep.regather, keep.held
     return model, prefill_step
 
 
@@ -386,7 +393,8 @@ def make_serve_step(cfg: ModelConfig, unroll: bool = False, device="cuda",
     inputs, and returns the ``(B,)`` next tokens on every rank with the
     new ``ShardedCache`` (:func:`sharded_decode`, :func:`greedy_pick`);
     its working module is kept as ``make_prefill_step``'s is
-    (``serve_step.regather()``)."""
+    (``serve_step.regather()``, ``serve_step.held()``), with every
+    Mamba2 and xLSTM mixer leaf at its stored model shard."""
     dev = resolve_device(device)
     model = build(cfg, device=dev)
     keep = _keeper(cfg, dev, mixers=False)
@@ -405,7 +413,7 @@ def make_serve_step(cfg: ModelConfig, unroll: bool = False, device="cuda",
         next_token = torch.argmax(logits[:, -1, :], dim=-1)
         return next_token.to(torch.int32), cache
 
-    serve_step.regather = keep.regather
+    serve_step.regather, serve_step.held = keep.regather, keep.held
     return model, serve_step
 
 

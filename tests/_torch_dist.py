@@ -816,7 +816,9 @@ def dryrun_twin(cells):
     live (2, 2) mesh: one call of the reduced config's step, built by
     ``launch.dryrun.build_cell`` from real weights (seed 0), with
     ``compat``'s counts of it as the dry-run keeps them
-    (``dryrun.step_counts``) and its FLOPs under ``FlopCounterMode``."""
+    (``dryrun.step_counts``), its FLOPs under ``FlopCounterMode`` and the
+    parameter bytes of the serving steps' working module
+    (``dryrun.held_bytes``)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config, reduced
@@ -829,14 +831,15 @@ def dryrun_twin(cells):
     out = {}
     for arch, kind, B, S in cells:
         cfg = reduced(get_config(arch))
-        _, run = dryrun.build_cell(cfg, ShapeSpec("t", S, B, kind), kind,
-                                   mesh, "cpu", seed=0)
+        _, run, step = dryrun.build_cell(cfg, ShapeSpec("t", S, B, kind),
+                                         kind, mesh, "cpu", seed=0)
         compat.reset_stats()
         flops = FlopCounterMode(display=False)
         with flops:
             run()
         out[f"{arch}/{kind}"] = dict(counts=dryrun.step_counts(kind),
-                                     flops=flops.get_total_flops())
+                                     flops=flops.get_total_flops(),
+                                     held=dryrun.held_bytes(step))
     return out
 
 
@@ -1055,24 +1058,48 @@ def _seeded_state(cache, rng):
     return map_cache(draw, cache)
 
 
+@contextlib.contextmanager
+def recording_whole(seen):
+    """``seen``: the name of each leaf ``Sharded.whole`` gathers whole
+    inside the block (the serving steps' working gather of the leaves it
+    does not keep at their model shards)."""
+    from repro_torch.distributed import Sharded
+
+    inner = Sharded.whole
+
+    def record(self, name):
+        seen.append(name)
+        return inner(self, name)
+
+    Sharded.whole = record
+    try:
+        yield seen
+    finally:
+        Sharded.whole = inner
+
+
 @job
 def decode_mixers(shapes, steps, B=8):
     """Each mixer of MIXERS' decode (weights as :func:`mixer_split`'s, a
     state drawn from numpy, ``steps`` inputs ``(B, 1, d)``) on each live
     (data, model) mesh of ``shapes``: the one-process decode's outputs
     and states a step, and the same steps on this rank's slices of the
-    state under ``cache_shardings`` (its data slice of the inputs) with
-    the collectives of each step (``(op, bytes)`` a call); then two
-    sharded serve steps of each reduced config (weights from seed 0, a
-    zero cache placed by ``ShardedCache.place``), the second's
-    collectives a call and ``compat.APART["recurrent"]``.  Keyed by the
-    mesh's name."""
+    state under ``cache_shardings`` (its data slice of the inputs), with
+    the weights at their stored model shards (``compute_split(...,
+    mixers=False)``, ``"stored"``) and whole (``"whole"``), with the
+    collectives of each step (``(op, bytes)`` a call); then two sharded
+    serve steps of each reduced config (weights from seed 0, a zero cache
+    placed by ``ShardedCache.place``): the leaves the first gathered
+    whole, the second's collectives a call and
+    ``compat.APART["recurrent"]``, the shapes of the step's working
+    module and the stored specs.  Keyed by the mesh's name."""
     from repro_torch.checkpoint import reshard
     from repro_torch.configs import get_config, reduced
     from repro_torch.distributed import (ShardedCache, cache_shardings,
                                          compat, map_cache, param_shardings,
                                          tp)
-    from repro_torch.distributed.sharding import local_slice
+    from repro_torch.distributed.sharding import (SPLIT, compute_split,
+                                                  local_slice, only_model)
     from repro_torch.launch.mesh import make_mesh_compat
     from repro_torch.models import build, ssm, xlstm
     from repro_torch.train import step as ST
@@ -1085,6 +1112,7 @@ def decode_mixers(shapes, steps, B=8):
         rng = np.random.default_rng(0)
         mesh = make_mesh_compat(shape, ("data", "model"), device="cpu")
         axis = tp.ModelAxis.of(mesh)
+        axis = axis if axis.size > 1 else None
         b = B // mesh.axis_size("data")
         mine = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
         res = {}
@@ -1096,27 +1124,39 @@ def decode_mixers(shapes, steps, B=8):
                 for p in whole.parameters():
                     p.add_(torch.from_numpy(0.1 * rng.standard_normal(
                         p.shape).astype(np.float32)))
+            specs = param_shardings(whole, mesh, cfg.n_experts)
+            split = compute_split(specs, cfg, mesh, mixers=False)
             module = whole.get_submodule(f"segments.0.0.{prefix}")
+            full = {n: f"segments.0.0.{prefix}.{n}"
+                    for n, _ in module.named_parameters()}
+            weights = {"whole": module, "stored": _with_leaves(module, {
+                n: local_slice(p, only_model(specs[full[n]]), mesh)
+                for n, p in module.named_parameters()
+                if split[full[n]] == SPLIT})}
             state = _seeded_state(init(B, cfg, device="cpu"), rng)
             xs = torch.from_numpy(rng.standard_normal(
                 (steps, B, 1, cfg.d_model)).astype(np.float32))
             spec = cache_shardings(state, mesh, B, cfg.n_kv_heads)
-            local = map_cache(lambda t, s: local_slice(t, s, mesh).clone(
+            local0 = map_cache(lambda t, s: local_slice(t, s, mesh).clone(
                 memory_format=torch.contiguous_format), state, spec)
-            want, got, calls = [], [], []
+            want, got, calls = [], {}, {}
             with torch.no_grad():
                 for x in xs:
                     y, state = decode(module, x, state, cfg)
                     want.append((y.numpy().copy(), {
                         k: v.numpy().copy()
                         for k, v in state._asdict().items()}))
-                    seen = []
-                    with recording_calls(seen):
-                        y, local = decode(module, x[mine], local, cfg, axis,
-                                          spec)
-                    got.append((y.numpy(), {k: v.numpy().copy() for k, v in
-                                            local._asdict().items()}))
-                    calls.append(seen)
+                for kind, params in weights.items():
+                    local, got[kind], calls[kind] = local0, [], []
+                    for x in xs:
+                        seen = []
+                        with recording_calls(seen):
+                            y, local = decode(params, x[mine], local, cfg,
+                                              axis, spec)
+                        got[kind].append((y.numpy(), {
+                            k: v.numpy().copy()
+                            for k, v in local._asdict().items()}))
+                        calls[kind].append(seen)
             res[mixer] = dict(want=want, got=got, calls=calls,
                               spec=spec._asdict())
         steps_out = {}
@@ -1131,7 +1171,9 @@ def decode_mixers(shapes, steps, B=8):
                                        mesh, B, cfg.n_kv_heads)
             tokens = torch.from_numpy(np.random.default_rng(1).integers(
                 0, cfg.vocab_size, (2, B, 1)).astype(np.int32))
-            _, cache = serve_step(params, cache, {"token": tokens[0]})
+            gathered = []
+            with recording_whole(gathered):
+                _, cache = serve_step(params, cache, {"token": tokens[0]})
             compat.reset_stats()
             seen = []
             with recording_calls(seen):
@@ -1139,7 +1181,10 @@ def decode_mixers(shapes, steps, B=8):
             recurrent = compat.APART.get("recurrent")
             steps_out[arch] = dict(
                 calls=seen, recurrent={} if recurrent is None
-                else recurrent.as_dict(),
+                else recurrent.as_dict(), gathered_whole=gathered,
+                held={n: tuple(p.shape)
+                      for n, p in serve_step.held().named_parameters()},
+                specs=dict(params.specs),
                 leaves={k: [tuple(t.shape) for t in v] for k, v in (
                     ("mambas", [c.state for seg in cache.local for sup in seg
                                 if "mambas" in sup

@@ -13,8 +13,10 @@
   packed ones ``SELECT`` at full width (zamba2-2.7b on (2, 4) and 16 x
   16, xlstm-1.3b on (2, 4)), keeps every mixer whole where tp does not
   divide the heads (xlstm-1.3b's 4 on 16 x 16, reduced xlstm's 4 on
-  (1, 8)) and in the decode, and raises for a leaf stored otherwise than
-  it computes; a mixer handed whole weights under a model axis raises;
+  (1, 8)), in the decode keeps each mixer leaf at its stored model shard
+  (zamba2-2.7b and xlstm-1.3b on (2, 4) and 16 x 16), and raises for a
+  leaf stored otherwise than it computes; a mixer handed whole weights
+  under a model axis raises;
 * on gloo ranks (two on (1, 2), four on (2, 2) and (1, 4)): the split
   RMS norm equals the whole norm within 1e-6, forward and gradients;
   each mixer's forward (within 1e-5 of its scale) and gradients (within
@@ -177,13 +179,24 @@ def test_mixers_stay_whole_where_tp_does_not_divide_the_heads(arch, full,
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
 def test_the_decode_keeps_its_mixers_whole(arch):
-    _, _, _, split = _split_of(arch, True, (2, 4), mixers=False)
-    for name, (_, how) in _mixer_leaves(split).items():
-        assert how in (GATHER, REPLICATED), name
-    # the rest splits as in training
-    _, _, _, train = _split_of(arch, True, (2, 4))
-    assert {n: h for n, h in split.items() if n not in _mixer_leaves(split)} \
-        == {n: h for n, h in train.items() if n not in _mixer_leaves(train)}
+    """The decode keeps no mixer leaf whole that the rules split: each is
+    ``SPLIT`` on the dimension its spec puts "model" on, packed leaves
+    too, and ``REPLICATED`` where the rules leave it whole (xlstm-1.3b's
+    ``w_gates`` on 16 x 16, its 8 columns over 16 ranks)."""
+    for shape in ((2, 4), (16, 16)):
+        specs, _, _, split = _split_of(arch, True, shape, mixers=False)
+        for name, (_, how) in _mixer_leaves(split).items():
+            on_model = [d for d, axes in enumerate(specs[name])
+                        if axes and "model" in axes]
+            assert how == (SPLIT if on_model else REPLICATED), name
+            assert on_model or ((arch, shape) == ("xlstm-1.3b", (16, 16))
+                                and ".w_gates." in name), name
+        # the rest splits as in training
+        _, _, _, train = _split_of(arch, True, shape)
+        assert {n: h for n, h in split.items()
+                if n not in _mixer_leaves(split)} \
+            == {n: h for n, h in train.items()
+                if n not in _mixer_leaves(train)}
 
 
 @pytest.mark.parametrize("leaf", ["mambas.0.mixer.A_log",

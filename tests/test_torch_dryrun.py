@@ -7,8 +7,9 @@
   same collective calls and bytes (by op, by mesh axes, the gathers of
   weights, the recomputed calls and the decode mixers' calls apart) and
   the same ``FlopCounterMode`` FLOPs as four real gloo ranks running the same step on real weights
-  (``tests/_torch_dist.py::dryrun_twin``): equal, not within a bound,
-  since both sides count shapes.  The record's peak is the step's
+  (``tests/_torch_dist.py::dryrun_twin``), and the serving steps the same
+  working module's parameter bytes (``held_bytes``): equal, not within a
+  bound, since both sides count shapes.  The record's peak is the step's
   device's alone, ``MemTracker``'s kinds at it summing to it.
 * ``model_flops_global`` equals ``repro.models.model_flops`` for every
   applicable (arch, shape) cell (exactly: both are integer arithmetic in
@@ -35,6 +36,7 @@ from repro_torch.configs import (ARCH_IDS, SHAPES, get_config, reduced,
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch import dryrun
 from repro_torch.models import model_flops
+from repro_torch.models.transformer import Decoder
 
 B, S = 4, 32
 CELLS = [(a, k, B, S) for a in ("gemma3-1b", "olmoe-1b-7b")
@@ -87,6 +89,25 @@ def test_fake_world_counts_what_live_ranks_count(live, arch, kind):
     # every live rank counts alike (the ranks are symmetric)
     for rank in live[1:]:
         assert rank[f"{arch}/{kind}"]["counts"]["ops"] == real["counts"]["ops"]
+
+
+@pytest.mark.parametrize("arch,kind", [c[:2] for c in CELLS])
+def test_fake_world_holds_what_live_ranks_hold(live, arch, kind):
+    """A serving step's working module: the same parameter bytes on the
+    fake world as on the live ranks (both count shapes), less than the
+    whole model; none for a train step.  zamba2's decode names no
+    projection computed whole."""
+    rec = _dry(arch, kind)
+    held = rec["memory"]["held_bytes"]
+    assert held == live[0][f"{arch}/{kind}"]["held"]
+    assert (held is None) == (kind == "train")
+    whole = 4 * sum(p.numel() for p in Decoder(
+        reduced(get_config(arch)), device="meta").parameters())
+    if held is not None:
+        assert 0 < held < whole
+    if (arch, kind) == ("zamba2-2.7b", "decode"):
+        assert not any("projections computed whole" in d
+                       for d in rec["differs_from_reference"])
 
 
 _APPLICABLE = [(a, s) for a in ARCH_IDS for s in SHAPES
