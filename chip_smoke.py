@@ -107,9 +107,9 @@ exits non-zero without the final ``ok`` line:
    merge equals the monolith on every query whose exact top-10 is
    reachable in both (the other queries counted).  The card's decisions
    against the CPU's: the NSG32 and HNSW16
-   prunes of the first 20,000 nodes' kNN lists (and NSG32's against the
+   prunes of the first 10,000 nodes' kNN lists (and NSG32's against the
    lists the full build made), HNSW's reverse edges on that subgraph (card,
-   CPU and the reference's loop), ``knn_graph`` over 10,000 vectors
+   CPU and the reference's loop), ``knn_graph`` over 5,000 vectors
    (differing only inside ``rescore_eps``) and ``np_sum_f32`` (bit-equal
    to ``np.sum``).  ``HNSW16,ids=roc`` built over the same vectors and
    served cold and warm.  An ``NSG32,ids=roc`` index over the first
@@ -307,7 +307,15 @@ exits non-zero without the final ``ok`` line:
    serve step's parameter bytes a rank (mixers, and the rest) equal to
    the ones counted from the shapes, beside what the weights whole and
    gathering every split state would move and hold (``mixers``; the
-   weights-whole figures on the line before).  Then the dry-run (``launch.dryrun``) of rank 0 of
+   weights-whole figures on the line before).  Then xlstm-1.3b's
+   super-block again on (data 1, model 8), eight ranks on cuda:0: each of
+   its 4 heads on a group of two model ranks (each rank its head's q / k
+   / gates and sLSTM recurrence whole, its half of the head's v / z /
+   output channels): one sharded step of 4 x 512 tokens against the
+   one-process f32 and f64 steps that the (2, 2) case computed and left on
+   disk, at the same bounds and sides, its prefill and 8 serve steps
+   checked as on (2, 2), each rank's matmul FLOPs share printed beside
+   the predicted one (``xlstm-1.3b 1x8`` in ``mixers``).  Then the dry-run (``launch.dryrun``) of rank 0 of
    the same gemma3-1b train step and serve step on a fake world of 4 in
    this process, with fake ``cuda`` tensors: its collective calls and
    bytes by op equal to what rank 0 counted (``compat.STATS``) over one
@@ -453,8 +461,10 @@ GRAPH_NAV_N = 50_000
 GRAPH_NAV_FLOOR = dict(reachable_share=0.98, recall_at_10=0.75)
 GRAPH_GATES = (128, 512, 1024, 2048, 1 << 30)
 GRAPH_GATE_ROUNDS = 3
-GRAPH_CHECK_NODES = 20_000
-GRAPH_KNN_CHECK = 10_000
+# (20,000 and 10,000 until xlstm's (1, 8) case joined phase 18: the
+# decisions against the CPU took 45.6 s on a slow host)
+GRAPH_CHECK_NODES = 10_000
+GRAPH_KNN_CHECK = 5_000
 # (10,000 since the serving steps on a mesh joined phase 18 and its
 # one-process side stopped overlapping the ranks: the container phase took
 # 54.25 s of a run's 1075.10 s of phases at 100,000, 34-40 s at 50,000 and
@@ -651,7 +661,16 @@ DIST_TP_MESH, DIST_TP_MOE_LAYERS = (2, 2), 2
 # the weights' shapes (one data half of the batch, the mixers, the
 # shared block, LoRA and the logits over tp = 2)
 DIST_TP_MIXER_ARCHS, DIST_TP_MIXER_LAYERS = (HYBRID_ARCH, XLSTM_ARCH), 6
-DIST_TP_MIXER_SHARE = {HYBRID_ARCH: 0.251, XLSTM_ARCH: 0.250}
+# xlstm-1.3b's super-block again on DIST_GROUP_MESH, over
+# DIST_GROUP_WORLD ranks: its 4 heads each on a group of two model ranks
+# (each rank its head's q / k / gates and sLSTM recurrence whole, its half
+# of the head's v / z / output channels); one step of DIST_TRAIN_BATCH
+# against the one-process f32 and f64 steps that the (2, 2) case computed
+# and saved, its prefill and decode as on (2, 2)
+DIST_GROUP_MESH, DIST_GROUP_WORLD = (1, 8), 8
+DIST_GROUP = f"{XLSTM_ARCH} 1x8"
+DIST_TP_MIXER_SHARE = {HYBRID_ARCH: 0.251, XLSTM_ARCH: 0.250,
+                       DIST_GROUP: 0.162}
 DIST_TIMEOUT_S = 600
 # the serving steps on DIST_TP_MESH at the same widths (gemma3-1b's full
 # depth, olmoe-1b-7b's DIST_TP_MOE_LAYERS layers, f32): the sharded
@@ -3732,11 +3751,35 @@ def dist_four(ckpt_dir):
                                   ckpt_dir)
     for arch in DIST_TP_MIXER_ARCHS:
         lm_free()
-        rep[f"tp {arch}"] = dist_tp(dev, arch, DIST_TP_MIXER_LAYERS,
-                                    f64=arch == XLSTM_ARCH)
+        rep[f"tp {arch}"] = dist_tp(
+            dev, arch, DIST_TP_MIXER_LAYERS, f64=arch == XLSTM_ARCH,
+            save=saved_steps(ckpt_dir) if arch == XLSTM_ARCH else None)
         lm_free()
         rep[f"serve {arch}"] = dist_serve(dev, arch, DIST_TP_MIXER_LAYERS,
                                           ckpt_dir)
+    return rep
+
+
+def saved_steps(ckpt_dir):
+    """Where the (2, 2) xlstm case leaves its one-process steps for the
+    (1, 8) case (:func:`dist_tp`'s ``save`` and ``reuse``)."""
+    return Path(ckpt_dir).parent / "xlstm_steps"
+
+
+def dist_eight(ckpt_dir):
+    """The DIST_GROUP_WORLD-rank job of phase 18: xlstm-1.3b's super-block
+    on DIST_GROUP_MESH, each of its 4 heads on a group of two model
+    ranks: one sharded step against the one-process steps the (2, 2)
+    case saved, then its prefill and decode as on (2, 2)."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    rep = {"tp": dist_tp(dev, XLSTM_ARCH, DIST_TP_MIXER_LAYERS, f64=True,
+                         mesh_shape=DIST_GROUP_MESH,
+                         reuse=saved_steps(ckpt_dir))}
+    lm_free()
+    rep["serve"] = dist_serve(dev, XLSTM_ARCH, DIST_TP_MIXER_LAYERS,
+                              ckpt_dir, mesh_shape=DIST_GROUP_MESH)
     return rep
 
 
@@ -3949,9 +3992,9 @@ def serve_gap(got, want):
         1.0, float(want.abs().max()))
 
 
-def dist_serve(dev, arch, n_layers, ckpt_dir):
+def dist_serve(dev, arch, n_layers, ckpt_dir, mesh_shape=DIST_TP_MESH):
     """``arch`` at full width (f32; depth cut to ``n_layers`` where given)
-    served on DIST_TP_MESH: the sharded prefill and DIST_SERVE_STEPS
+    served on ``mesh_shape``: the sharded prefill and DIST_SERVE_STEPS
     sharded serve steps from the one-process cache placed by
     ``cache_shardings``, against the one-process side that this script's
     own process computed (:func:`serve_oracle`): logits, tokens and each
@@ -3974,7 +4017,7 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
     prompt, seq = serve_inputs(cfg, arch)
     prompt, seq = prompt.to(dev), seq.to(dev)
     B, fill = prompt.shape[0], DIST_SERVE_FILL[arch]
-    mesh = make_mesh_compat(DIST_TP_MESH, ("data", "model"), device=dev)
+    mesh = make_mesh_compat(mesh_shape, ("data", "model"), device=dev)
     p = init_decoder(0, cfg, dev)
     params = reshard(p, param_shardings(p, mesh, cfg.n_experts), mesh)
     del p
@@ -4056,7 +4099,7 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
     if recurrent:
         got = tuple(sum(c[k] for c in recurrent.values()) / DIST_SERVE_STEPS
                     for k in ("calls", "bytes"))
-        predicted = mixer_decode_calls(cfg, DIST_TP_MESH, B)
+        predicted = mixer_decode_calls(cfg, mesh_shape, B)
         if got != predicted["now"]:
             raise AssertionError(f"{arch}: the mixers' model-axis calls and "
                                  f"bytes a step {got} against the predicted "
@@ -4106,7 +4149,7 @@ def dist_serve(dev, arch, n_layers, ckpt_dir):
     one_step = dict(ops=op_counts(compat.STATS.as_dict()),
                     flops=counted["flops"])
     return dict(
-        arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
+        arch=arch, layers=cfg.n_layers, mesh=list(mesh_shape),
         prompt=list(prompt.shape), fill=fill, steps=DIST_SERVE_STEPS,
         max_len=DIST_SERVE_MAX_LEN[arch], tol=DIST_SERVE_TOL,
         prefill_gap=pre_gap, decode_gaps=gaps, decode_gap=max(gaps),
@@ -4197,13 +4240,16 @@ def recording_routing(seen):
 
 
 def one_process_turns(cfg, opt_cfg, specs, mesh, batch, dev, flops=False,
-                      routes=None):
+                      routes=None, save=None):
     """The one-process step of ``cfg`` from ``init_decoder(0, ...)`` on the
     whole ``batch``, run by each rank in turn on the shared card (the
     others wait at a barrier): this rank's slices by ``specs`` of the
     updated weights and of ``mu``, and the step's ms and metrics (with
     its matmul FLOPs where ``flops``; each MoE layer's routing of this
-    rank's data slice of the tokens appended to ``routes``)."""
+    rank's data slice of the tokens appended to ``routes``).  Where
+    ``save`` is given, rank 0 writes the whole updated weights, ``mu``
+    and its metrics there (:func:`saved_turns`)."""
+    import torch
     import torch.distributed as dist
     from repro_torch.distributed import local_slice
     from repro_torch.models.transformer import init_decoder
@@ -4226,6 +4272,12 @@ def one_process_turns(cfg, opt_cfg, specs, mesh, batch, dev, flops=False,
                        for n, t in opt.mu.items()}
             out = dict(ms=1e3 * s, **counted,
                        **{k: float(v) for k, v in m.items()})
+            if save is not None and rank == 0:
+                torch.save(dict(
+                    params={n: t.detach().cpu()
+                            for n, t in p.named_parameters()},
+                    mu={n: t.cpu() for n, t in opt.mu.items()}, plain=out),
+                    Path(save) / "turns.pt")
             if routes is not None:
                 n, i = mesh.axis_size("data"), mesh.index("data")
                 for layer in seen:
@@ -4237,6 +4289,22 @@ def one_process_turns(cfg, opt_cfg, specs, mesh, batch, dev, flops=False,
             lm_free()
         dist.barrier()
     return keep, keep_mu, out
+
+
+def saved_turns(saved, specs, mesh, dev):
+    """:func:`one_process_turns`' results from what its ``save`` wrote
+    (the one-process step computed once, for another mesh): this rank's
+    slices by ``specs`` of the updated weights and of ``mu``, and the
+    step's ms, metrics and FLOPs."""
+    import torch
+    from repro_torch.distributed import local_slice
+
+    got = torch.load(Path(saved) / "turns.pt", mmap=True,
+                     weights_only=False)
+    return ({n: local_slice(t, specs[n], mesh).to(dev, copy=True)
+             for n, t in got["params"].items()},
+            {n: local_slice(t, specs[n], mesh).to(dev, copy=True)
+             for n, t in got["mu"].items()}, got["plain"])
 
 
 def hold_against_plain(params, opt, m, keep, keep_mu, plain, opt_cfg,
@@ -4566,9 +4634,10 @@ def sharded_against_f64(kept, specs, mesh, ref):
                 tol=TRAIN_XLSTM_GRAD_TOL, worst_leaf=at)
 
 
-def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
+def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False,
+            mesh_shape=DIST_TP_MESH, save=None, reuse=None):
     """``arch`` at full width (f32; depth cut to ``n_layers`` where given)
-    on DIST_TP_MESH, its compute split over the model axis: the
+    on ``mesh_shape``, its compute split over the model axis: the
     one-process step a rank at a time (its matmul FLOPs counted on rank
     0's turn), then one sharded step (each rank's matmul FLOPs counted),
     held against it at the TRAIN_*_TOL bounds; MoE routing of each
@@ -4585,7 +4654,10 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
     (:func:`sharded_against_f64`), and the sharded step against the
     one-process f32 step at xlstm's train-step bound; digests of this rank's
     shards that other ranks also hold, for the parent's replica check
-    (phase 18, 3d)."""
+    (phase 18, 3d).  ``save``: a directory where rank 0 writes the
+    one-process steps (the f32 step's weights, ``mu`` and metrics; with
+    ``f64`` the f64 and f32 gradients and the sides); ``reuse``: one so
+    written, whose steps this run takes in place of computing them."""
     import dataclasses
 
     import torch
@@ -4606,7 +4678,7 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     opt_cfg = AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
                           total_steps=TRAIN_STEPS)
-    mesh = make_mesh_compat(DIST_TP_MESH, ("data", "model"), device=dev)
+    mesh = make_mesh_compat(mesh_shape, ("data", "model"), device=dev)
     specs = param_shardings(Decoder(cfg, device="meta"), mesh, cfg.n_experts)
     B, S = DIST_TRAIN_BATCH
     batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenPipeline(
@@ -4614,7 +4686,15 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
     ref, sides = None, [None]
     if f64:
         if dist.get_rank() == 0:
-            ref = one_process_f32_f64(cfg, batch, dev)
+            if reuse is None:
+                ref = one_process_f32_f64(cfg, batch, dev)
+            else:
+                ref = torch.load(Path(reuse) / "f64.pt", mmap=True,
+                                 weights_only=False)
+            if save is not None:        # the f32 gradients in f32: exact
+                torch.save(dict(ref, f32={n: g.float() for n, g in
+                                          ref["f32"].items()}),
+                           Path(save) / "f64.pt")
             sides = [ref["sides"]]
         dist.broadcast_object_list(sides, src=0)
 
@@ -4623,10 +4703,13 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
             contextlib.nullcontext()
 
     want_routes = []
-    with pinned():
-        keep, keep_mu, plain = one_process_turns(
-            cfg, opt_cfg, specs, mesh, batch, dev,
-            flops=dist.get_rank() == 0, routes=want_routes)
+    if reuse is not None:
+        keep, keep_mu, plain = saved_turns(reuse, specs, mesh, dev)
+    else:
+        with pinned():
+            keep, keep_mu, plain = one_process_turns(
+                cfg, opt_cfg, specs, mesh, batch, dev,
+                flops=dist.get_rank() == 0, routes=want_routes, save=save)
     torch.cuda.reset_peak_memory_stats()
     p = init_decoder(0, cfg, dev)
     params = reshard(p, specs, mesh)
@@ -4683,7 +4766,7 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
                 (axes,) if isinstance(axes, str) else axes)}) < len(
                 mesh.shape)]
     return dict(
-        arch=arch, layers=cfg.n_layers, mesh=list(DIST_TP_MESH),
+        arch=arch, layers=cfg.n_layers, mesh=list(mesh_shape),
         batch=[B, S], plain=plain, ms=1e3 * s, **m, **gaps,
         **collective_report(coll), flops=counted["flops"], **memory,
         repeat=repeated, against_f64=against_f64, step_ops=op_counts(coll),
@@ -4700,7 +4783,7 @@ def dist_tp(dev, arch, n_layers=None, repeat=False, f64=False):
                           ("nu", opt.nu))})
 
 
-DIST_JOBS = {"four": dist_four, "two": dist_two}
+DIST_JOBS = {"four": dist_four, "two": dist_two, "eight": dist_eight}
 
 
 def replicas_equal(ranks):
@@ -4775,10 +4858,10 @@ def mixer_report(rep):
     collectives' host ms, the model axis's calls and MB a step and the
     mixers' beside the predicted (:func:`mixer_decode_calls`)."""
     out = {}
-    for arch in DIST_TP_MIXER_ARCHS:
+    for arch in DIST_TP_MIXER_ARCHS + (DIST_GROUP,):
         tp, pre = rep[f"tp {arch}"], rep[f"serve {arch}"]
         out[arch] = dict(
-            flops_share_by_rank=tp["flops_share_by_rank"],
+            mesh=tp["mesh"], flops_share_by_rank=tp["flops_share_by_rank"],
             predicted_share=DIST_TP_MIXER_SHARE[arch],
             ms_by_rank=tp["ms_by_rank"], plain_ms=tp["plain"]["ms"],
             peak_gb_by_rank=tp["peak_gb_by_rank"],
@@ -4884,9 +4967,17 @@ def distributed(dev):
         serve_oracle(torch.device(dev), arch, DIST_TP_MIXER_LAYERS, work)
     rep["serve_oracles_s"] = time.perf_counter() - t
     t = time.perf_counter()
+    saved_steps(work / "ckpt").mkdir()
     four, four_launches = run_dist("four", DIST_WORLD, work,
                                    str(work / "ckpt"))
     rep["four_ranks_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    eight, eight_launches = run_dist("eight", DIST_GROUP_WORLD, work,
+                                     str(work / "ckpt"))
+    rep["eight_ranks_s"] = time.perf_counter() - t
+    shutil.rmtree(saved_steps(work / "ckpt"))
+    rep[f"tp {DIST_GROUP}"] = tp_report([r["tp"] for r in eight])
+    rep[f"serve {DIST_GROUP}"] = serve_report([r["serve"] for r in eight])
     for key in ("sp", "pp"):
         if len({r[key]["digest"] for r in four}) != 1:
             raise AssertionError(f"{key}: the ranks' results differ")
@@ -4959,7 +5050,7 @@ def distributed(dev):
     shutil.rmtree(work, ignore_errors=True)
     # this process's launches and every spawned rank's
     launches = launch_counts()
-    for counts in (four_launches, two_launches):
+    for counts in (four_launches, eight_launches, two_launches):
         for k, c in counts.items():
             launches[k] = launches.get(k, 0) + c
     return rep, launches

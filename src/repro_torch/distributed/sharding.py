@@ -327,6 +327,13 @@ _MIXER_SPLIT = {
 _MIXER_PACKED = {"mamba": {"in_proj.kernel": 1, "conv.kernel": 1},
                  "mlstm": {},
                  "slstm": {"wx.kernel": 1, "wx.bias": 0, "r": 1}}
+# where the model axis is g times the xLSTM's heads (a head on each group
+# of g ranks): the leaves a rank computes with by its part of its head's
+# channels, its model shard; every other leaf of the mixer is gathered
+# whole and the rank selects its head's parts (models.xlstm)
+_HEAD_GROUP_SPLIT = {"mlstm": ("wv.kernel", "wz.kernel", "norm.scale",
+                               "wo.kernel"),
+                     "slstm": ("norm.scale", "wo.kernel")}
 
 
 def attention_split(cfg, tp: int, seq_len: int) -> Optional[str]:
@@ -367,9 +374,10 @@ def _split_of(name: str, cfg, tp: int, mixers: bool, stored: bool):
     """``(SPLIT, dim)`` where a model rank computes with its own shard of
     parameter ``name`` along ``dim``, ``(SELECT, None)`` where it computes
     with its heads' parts of the whole tensor, else ``(None, None)``.  A
-    mixer's leaves split where its mixer does (``mixers``, and its head
-    count divides ``tp``), or, for the decode (not ``mixers``), wherever
-    the rules store them split (``stored``)."""
+    mixer's leaves split where its mixer does (``mixers``: its head count
+    divides ``tp``, or ``tp`` is a multiple of the xLSTM's heads), or, for
+    the decode (not ``mixers``), wherever the rules store them split
+    (``stored``)."""
     leaf = _mixer_leaf(name)
     if leaf is None:
         dim = _split_dim(name, cfg, tp)
@@ -380,10 +388,18 @@ def _split_of(name: str, cfg, tp: int, mixers: bool, stored: bool):
         raise ValueError(f"{name}: a {kind} leaf of no known layout")
     if not mixers:
         return (SPLIT, dims[rest]) if stored else (None, None)
-    if mixer_heads(cfg) % tp:
+    heads = mixer_heads(cfg)
+    if heads % tp == 0:
+        return (SELECT, None) if rest in _MIXER_PACKED[kind] else (
+            SPLIT, dims[rest])
+    if kind not in _HEAD_GROUP_SPLIT or tp % heads:
         return None, None
-    if rest in _MIXER_PACKED[kind]:
+    if rest not in _HEAD_GROUP_SPLIT[kind]:
         return SELECT, None
+    g = tp // heads
+    if cfg.head_dim_ % g or (cfg.d_model // heads) % g:
+        raise ValueError(f"{name}: a head's channels do not split over its "
+                         f"{g} model ranks (tp = {tp}, {heads} heads)")
     return SPLIT, dims[rest]
 
 
@@ -427,12 +443,14 @@ def compute_split(specs: Dict[str, Spec], cfg, mesh,
       row-parallel matmuls, this rank's heads, vocabulary rows or
       experts; the Mamba2, mLSTM and sLSTM mixers' head-aligned leaves:
       ``A_log``, ``D``, ``dt_bias``, the norms' gains, ``out_proj``,
-      ``wq`` / ``wk`` / ``wv`` / ``wz``, ``w_gates`` and its bias, ``wo``);
+      ``wq`` / ``wk`` / ``wv`` / ``wz``, ``w_gates`` and its bias, ``wo``;
+      on a head group, the xLSTM's channel leaves);
     * ``SELECT``: gathered whole, as ``GATHER`` is, but each rank
       computes with its heads' parts of it only (the mixers' packed
       leaves: Mamba2's ``in_proj`` and ``conv``, sLSTM's ``wx``, its bias
-      and ``r``), so its gradient is summed over "model"
-      (``distributed.tp.select``);
+      and ``r``; where tp is a multiple of the xLSTM's heads, also the
+      mLSTM's ``wq``, ``wk`` and ``w_gates`` with its bias), so its
+      gradient is summed over "model" (``distributed.tp.select``);
     * ``GATHER``: the rules shard it over "model" but the shard does not
       line up with what a rank computes (a norm's gain; gemma3-1b's
       ``wk`` / ``wv`` at tp = 2, half of its one KV head; attention that
@@ -442,7 +460,15 @@ def compute_split(specs: Dict[str, Spec], cfg, mesh,
     * ``REPLICATED``: the rules leave it whole on "model".
 
     With ``mixers`` (the train step and the prefill) the mixers split
-    where their head count (:func:`mixer_heads`) divides the axis.
+    where their head count (:func:`mixer_heads`) divides the axis.  Where
+    the axis is ``g`` times the xLSTM's heads (xlstm's 4 on 8 or 16), the
+    ``g`` ranks of a head run it whole and each owns a part of its
+    channels: the mLSTM's ``wv``, ``wz``, norm gain and ``wo`` and the
+    sLSTM's norm gain and ``wo`` are ``SPLIT`` (each rank's stored slice
+    is its part of its head: raises, naming the leaf, where ``g`` does
+    not divide a head's channels), the other leaves ``SELECT``.  The
+    Mamba2 mixers, and any mixer whose heads neither divide nor are
+    divided by the axis, compute whole (``GATHER``).
     ``mixers`` False is the mesh decode's: each Mamba2, mLSTM and sLSTM
     leaf is ``SPLIT`` on the dimension its spec puts "model" on (columns
     of ``in_proj``, ``conv``, ``wq`` / ``wk`` / ``wv`` / ``wz``,

@@ -20,7 +20,9 @@ model rank the gradient of a replicated tensor is whole and the same.
 * :func:`scatter`: this rank's slice forward, ``all_gather`` backward;
 * :func:`select`: this rank's parts of a whole weight (the Mamba2 and
   sLSTM mixers' packed projections, whose segments split by head one by
-  one), entered by :func:`copy`;
+  one; where the axis is a multiple of the xLSTM's heads, the mLSTM's
+  ``wq`` / ``wk`` / ``w_gates`` and the sLSTM's ``wx`` / ``r`` of this
+  rank's head), entered by :func:`copy`;
 * :func:`rms_norm`: the RMS norm of a tensor whose normalised dimension
   the model ranks split: the sum of squares ``psum``-ed over the axis,
   forward and backward, then each rank scales its own part;
@@ -32,6 +34,13 @@ model rank the gradient of a replicated tensor is whole and the same.
   rules store it;
 * :func:`gather_parts`: several column-split activations gathered whole
   in one call.
+
+Where the axis is ``g`` times a mixer's head count (xlstm's 4 heads on
+8 or 16 ranks), :meth:`ModelAxis.head_group` gives a rank its head and
+its part of that head's channels (:class:`HeadGroup`); the ``g`` ranks
+of a head run it whole, and each keeps only its part of the channels
+where a sum over "model" follows (``tp.rms_norm``, a row-split output
+projection), so no head counts ``g`` times (``models.xlstm``).
 
 :func:`split_model` makes a :class:`ModelAxis` current for the modules'
 forward passes (``models.layers``, ``attention``, ``moe``, ``ssm``,
@@ -45,13 +54,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
 from . import compat
 
-__all__ = ["ModelAxis", "split_model", "current", "axis_for", "check_local",
+__all__ = ["ModelAxis", "HeadGroup", "split_model", "current", "axis_for",
+           "axis_for_heads", "check_local",
            "copy", "reduce", "gather", "scatter", "select", "rms_norm",
            "state_dims", "is_split", "gather_parts", "AXIS"]
 
@@ -76,6 +86,37 @@ class ModelAxis(NamedTuple):
             raise ValueError(f"{n} does not split over {self.size} model "
                              "ranks")
         return n // self.size
+
+    def head_group(self, heads: int) -> "HeadGroup":
+        """Where the axis is ``g`` times the ``heads``: this rank's head
+        and its part of that head's channels (:class:`HeadGroup`); raises
+        where ``heads`` does not divide the axis."""
+        if self.size % heads:
+            raise ValueError(f"{heads} heads do not divide {self.size} "
+                             "model ranks")
+        g = self.size // heads
+        return HeadGroup(self.index // g, self.index % g, g)
+
+
+class HeadGroup(NamedTuple):
+    """A rank's place where the model axis is ``g`` times a mixer's head
+    count: the ``g`` consecutive ranks ``head * g ... head * g + g - 1``
+    each run ``head`` whole, and rank ``part`` of them owns channel part
+    ``part`` of ``g`` of it (the rules store each head's channels split
+    into ``g`` contiguous slices on those ranks)."""
+    head: int
+    part: int
+    g: int
+
+    def channels(self, n: int, what: str) -> Tuple[int, int]:
+        """``(start, length)`` of this rank's part of a head's ``n``
+        channels; raises, naming ``what``, where ``g`` does not divide
+        ``n``."""
+        if n % self.g:
+            raise ValueError(f"{what}: a head's {n} channels do not split "
+                             f"over its {self.g} model ranks")
+        c = n // self.g
+        return self.part * c, c
 
 
 _AXIS: contextvars.ContextVar = contextvars.ContextVar("model_axis",
@@ -103,6 +144,15 @@ def axis_for(n: int) -> Optional[ModelAxis]:
     rows, experts) split evenly over it, else None."""
     axis = _AXIS.get()
     return axis if axis is not None and n % axis.size == 0 else None
+
+
+def axis_for_heads(heads: int) -> Optional[ModelAxis]:
+    """The current model axis where ``heads`` split evenly over it or it
+    is a multiple of them (each head on a :class:`HeadGroup`), else
+    None."""
+    axis = _AXIS.get()
+    return axis if axis is not None and (
+        heads % axis.size == 0 or axis.size % heads == 0) else None
 
 
 def check_local(t: torch.Tensor, dim: int, whole: int, axis: ModelAxis,

@@ -19,7 +19,19 @@ process, on nothing:
   dtypes, no storage, at this rank's local shapes;
 * ``FlopCounterMode`` for the FLOPs, ``distributed.compat.STATS`` (and
   ``APART``) for the collectives, and
-  ``torch.distributed._tools.mem_tracker.MemTracker`` for the peak bytes.
+  ``torch.distributed._tools.mem_tracker.MemTracker`` for the peak bytes,
+  with Python's cyclic garbage collector off while the step runs: a
+  tensor that only a reference cycle holds is then counted alive until
+  the step ends, where it would otherwise die whenever the collector
+  happened to run (its runs follow Python's allocations, so any change to
+  the Python code around the step moved the peak: 4,096 bytes of reduced
+  xlstm's 3.4 MB train cell on (1, 8), ``tests/test_torch_dryrun.py``),
+  and two shortcuts that change no number of the record: the device
+  queries of the fake tensors answered above the counters
+  (:class:`_DeviceQueries`), and the sLSTM's loop over time folded where
+  autograd does not record it (``models.xlstm.folded_loop``: the serving
+  steps; the prefill of xlstm-1.3b's 32,768 positions, 8 layers of them,
+  would dispatch some 9 million ops).
 
 Each record (``experiments/torch_dryrun/<arch>__<shape>__<mesh>.json``,
 or under the directory a caller passes) holds the reference's keys where
@@ -67,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import math
 import time
@@ -84,6 +97,7 @@ from ..distributed.sharding import (axis_size, batch_shardings, dp_axes,
 from ..models import decode_input_specs, input_specs, model_flops
 from ..models.encdec import EncDec
 from ..models.transformer import Decoder
+from ..models.xlstm import folded_loop
 from ..train.optim import init_opt
 from ..train.step import (_main_input, make_prefill_step, make_serve_step,
                           make_train_step)
@@ -171,6 +185,23 @@ def _by_axes(stats: compat.CollectiveStats) -> Dict[str, dict]:
             for k, v in sorted(stats.by_axes().items())}
 
 
+class _DeviceQueries(torch.utils._python_dispatch.TorchDispatchMode):
+    """Answers ``prim.device`` (a fake tensor's device, which torch asks
+    of it through the dispatcher once or twice for most ops) above the
+    counters, so that the query does not pass through ``MemTracker`` and
+    ``FlopCounterMode``, each of which runs Python for every op it sees;
+    every other op goes on down the stack.  Nothing counts otherwise: the
+    query allocates nothing and does no arithmetic.  Of the ops that the
+    sLSTM's loop over time dispatches, 3 in 5 forward and 2 in 3 backward
+    are these queries; a cell counts in half the time
+    (``tests/test_torch_dryrun.py`` holds the records equal)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.prim.device.default:
+            return args[0].device
+        return func(*args, **(kwargs or {}))
+
+
 def _tensors(tree):
     out = []
     map_cache(lambda t: out.append(t), tree)
@@ -210,6 +241,17 @@ def differs_from_reference(cfg: ModelConfig, shape: ShapeSpec, kind: str,
                        "partial sums over C's K slices, where the "
                        "reference re-lays C by head (or gathers it where "
                        "the heads do not divide the axis)")
+    elif tp > 1 and heads and heads % tp and cfg.mlstm_slstm_pattern \
+            and tp % heads == 0:
+        g = tp // heads
+        out.append(f"xLSTM heads on groups of {g} model ranks: each rank "
+                   f"of a group computes its head's mLSTM q / k / gates "
+                   f"(and the scan's q-k products and normaliser) and its "
+                   f"sLSTM recurrence whole, {g} times a head over the "
+                   f"axis, and its 1/{g} of the head's v / z / output "
+                   f"channels, where the reference's GSPMD program "
+                   f"partitions the mixers' tensors as the rules shard "
+                   f"their weights")
     elif tp > 1 and heads and heads % tp:
         out.append(f"Mamba2 / xLSTM mixers gathered and computed whole on "
                    f"every model rank: their {heads} heads do not divide "
@@ -309,13 +351,17 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                cfg: Optional[ModelConfig] = None,
                shape: Optional[ShapeSpec] = None,
                mesh_shape: Optional[Sequence[int]] = None,
-               cache_dtype=torch.bfloat16) -> dict:
+               cache_dtype=torch.bfloat16,
+               shortcuts: bool = True) -> dict:
     """One rank of the cell's step on a fake world; returns the record
     (module docstring).  ``cfg`` (a reduced or changed config of
     ``arch``), ``shape`` (a smaller ShapeSpec than ``SHAPES[shape_name]``),
     ``mesh_shape`` (another mesh than the production one, its last axes
     named ("pod",) "data", "model") and ``cache_dtype`` (the decode
-    cache's) are for tests and comparisons with live ranks."""
+    cache's) are for tests and comparisons with live ranks;
+    ``shortcuts`` False counts without the two shortcuts that change no
+    number of the record (:class:`_DeviceQueries`,
+    ``models.xlstm.folded_loop``), to hold that they change none."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
@@ -338,11 +384,17 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         tracker = MemTracker()
         tracker.track_external(*args)
         flops = FlopCounterMode(display=False)
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with tracker, flops:
+            plain = contextlib.nullcontext()
+            with (folded_loop() if shortcuts else plain), tracker, flops, \
+                    (_DeviceQueries() if shortcuts else plain):
                 out = run()
             rec["collectives"] = step_counts(kind)
         finally:
+            if collecting:
+                gc.enable()
             compat.reset_stats()
         # the step's device only: the modules the sharded steps fill are
         # built on the meta device, which holds no memory

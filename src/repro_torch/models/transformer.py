@@ -34,8 +34,9 @@ updates this rank's slice and reduces its readout over "model"
 (``ssm.mamba_decode``, ``xlstm.mlstm_decode`` / ``slstm_decode``; their
 collectives are counted in ``compat.APART["recurrent"]`` too).  The
 full-sequence forms (training, prefill) split the Mamba2, mLSTM and
-sLSTM mixers by head over the model axis where their heads divide it
-(``ssm``, ``xlstm``).
+sLSTM mixers by head over the model axis where their heads divide it,
+and the xLSTM's over groups of ranks a head where the axis is a
+multiple of its heads (``ssm``, ``xlstm``).
 
 The encoder-decoder family (whisper) is :class:`~.encdec.EncDec`.
 """
@@ -317,7 +318,7 @@ def _apply_super(kind, params, x, positions, cfg, shared=None):
         return _dense_block(shared, x + _lora(params, x), positions,
                             cfg), None
     if kind == "xlstm_super":
-        axis = _tp.axis_for(cfg.n_heads)
+        axis = _tp.axis_for_heads(cfg.n_heads)
         for p in params.mlstms:
             x = x + mlstm_apply(p.core, rms_norm(x, p.ln.scale, cfg.norm_eps),
                                 cfg, axis)

@@ -29,6 +29,27 @@ its heads' columns of each of the ``z|i|f|o`` blocks
 (:func:`slstm_r_spans`); the recurrence is block-diagonal by head, so
 the loop over time runs no collective.
 
+Where the axis is ``g`` times the heads (xlstm's 4 heads on tp = 8 or
+16), the ``g`` ranks ``head * g ...`` of a head group run that head
+(``tp.HeadGroup``).  mLSTM: each selects its head's columns of the
+whole ``wq``, ``wk`` and ``w_gates`` (and bias) and computes ``q``,
+``k``, the log gates and so the normaliser of its head, the same on
+every rank of the group; ``v`` and ``z`` come from its own columns of
+``wv`` and ``wz``, which the rules store as its part of its head's
+channels (``hd / g``), so the scan runs on ``hd / g`` channels plus the
+normaliser's ones channel (it is linear in ``v``); the norm over the
+ranks' parts and the row-split ``wo`` take each channel once.  sLSTM:
+each runs its head's recurrence whole (``r`` mixes a head's channels at
+every step, so splitting it would take a collective a step), then
+narrows ``h`` to its part of the head's channels before the norm and
+its rows of ``wo``.  No head enters a sum over "model" more than once;
+the gradient of a selected leaf sums the group's partial gradients
+(``tp.select``), which by linearity is the whole one.  Held on 8 gloo
+ranks by ``tests/test_torch_dist_head_group.py``,
+``test_torch_dist_tp_xlstm.py`` and ``test_torch_dist_serve_recurrent.py``
+on (1, 8), and on the card by ``chip_smoke.py`` phase 18 (xlstm-1.3b at
+full width on (1, 8)).
+
 The mesh decode (the serve step's working module: every leaf at its
 stored model shard, ``sharding.compute_split(..., mixers=False)``) keeps
 each state where ``cache_shardings`` stores it and computes each
@@ -56,6 +77,7 @@ rank but ``m`` and the sLSTM's ``h``.
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import math
 from typing import NamedTuple, Tuple
@@ -127,15 +149,20 @@ def _root(hd: int, dtype) -> float:
     return float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(dtype))
 
 
-def _mlstm_qkv(params: MLstm, x, cfg, H=None):
+def _mlstm_qkv(params: MLstm, x, cfg, H=None, qk=None):
     """q, k, v and the log gates of ``H`` heads (all of them by default;
-    under a model axis this rank's, from its columns)."""
+    under a model axis this rank's, from its columns of each leaf, or
+    where it runs one head of a head group, q, k and the gates from
+    ``qk``, that head's ``(wq, wk, w_gates, bias)``, and v from its part
+    of the head's channels)."""
     B, L, _ = x.shape
     H, hd = H or cfg.n_heads, cfg.head_dim_
-    q = params.wq(x).reshape(B, L, H, hd)
-    k = params.wk(x).reshape(B, L, H, hd) / _root(hd, x.dtype)
-    v = params.wv(x).reshape(B, L, H, hd)
-    gates = params.w_gates(x).reshape(B, L, H, 2).float()
+    wq, wk, wg, bg = qk or (params.wq.kernel, params.wk.kernel,
+                            params.w_gates.kernel, params.w_gates.bias)
+    q = dense(x, wq).reshape(B, L, H, hd)
+    k = dense(x, wk).reshape(B, L, H, hd) / _root(hd, x.dtype)
+    v = params.wv(x).reshape(B, L, H, -1)
+    gates = dense(x, wg, bg).reshape(B, L, H, 2).float()
     log_i = _log_sigmoid(gates[..., 0])
     log_f = _log_sigmoid(gates[..., 1])
     return q, k, v, log_i, log_f
@@ -175,7 +202,10 @@ class NormaliserSides:
     the same layers, takes those sides instead of its own.  In a sharded
     step on a ``("data", "model")`` ``mesh`` each readout sees a slice of
     the whole record: its data rank's sequences and, where the model
-    axis splits the heads, its model rank's heads.  A recomputation
+    axis splits the heads, its model rank's heads (its one head where the
+    axis is a multiple of them: every rank of a head group records the
+    same head, each from a scan of its own part of v's channels and the
+    ones channel).  A recomputation
     (``models.remat``, which runs inside the backward pass) takes the
     side its forward took: that of the recorded layer whose ``|den|`` is
     nearest its own."""
@@ -206,10 +236,13 @@ class NormaliserSides:
             return self.seen[i].to(den.device)
         side = self.pinned[i]
         if self.mesh is not None:
-            b, h = den.shape[0], den.shape[2]
+            b, h, n = den.shape[0], den.shape[2], side.shape[2]
             di = self.mesh.index("data")
-            hi = self.mesh.index("model") if h < side.shape[2] else 0
-            side = side[di * b:(di + 1) * b, :, hi * h:(hi + 1) * h]
+            # the rank's first head: index * H / tp, also where the axis
+            # is a multiple of the heads (one head on each group)
+            hi = self.mesh.index("model") * n // self.mesh.axis_size(
+                "model") if h < n else 0
+            side = side[di * b:(di + 1) * b, :, hi:hi + h]
         return side.to(den.device)
 
 
@@ -223,42 +256,57 @@ def _normalise(num, den):
     return num / torch.where(sides.side(den), mag, torch.ones_like(mag))
 
 
-def _mlstm_local(params: MLstm, cfg, axis) -> int:
-    """This rank's head count, after checking that the mLSTM's leaves are
-    its model shards (module docstring)."""
+def _mlstm_local(params: MLstm, cfg, axis):
+    """``(heads, qk)``: this rank's head count and, where it runs one head
+    of a head group, that head's ``(wq, wk, w_gates, bias)`` selected from
+    the whole leaves (None where it runs ``H / tp`` heads on its own
+    columns), after checking that the other leaves are its model shards
+    (module docstring)."""
     H, hd = cfg.n_heads, cfg.head_dim_
-    for t, dim, whole, what in (
-            (params.wq.kernel, 1, H * hd, "wq"),
-            (params.wk.kernel, 1, H * hd, "wk"),
-            (params.wv.kernel, 1, H * hd, "wv"),
-            (params.wz.kernel, 1, H * hd, "wz"),
-            (params.w_gates.kernel, 1, 2 * H, "w_gates"),
-            (params.w_gates.bias, 0, 2 * H, "w_gates bias"),
-            (params.norm.scale, 0, H * hd, "norm"),
-            (params.wo.kernel, 0, H * hd, "wo")):
+    heads = ((params.wq.kernel, 1, H * hd, "wq"),
+             (params.wk.kernel, 1, H * hd, "wk"),
+             (params.w_gates.kernel, 1, 2 * H, "w_gates"),
+             (params.w_gates.bias, 0, 2 * H, "w_gates bias"))
+    channels = ((params.wv.kernel, 1, H * hd, "wv"),
+                (params.wz.kernel, 1, H * hd, "wz"),
+                (params.norm.scale, 0, H * hd, "norm"),
+                (params.wo.kernel, 0, H * hd, "wo"))
+    if H % axis.size == 0:
+        for t, dim, whole, what in heads + channels:
+            _tp.check_local(t, dim, whole, axis, f"mlstm {what}")
+        return axis.part(H), None
+    group = axis.head_group(H)
+    group.channels(hd, "mlstm")
+    for t, dim, whole, what in channels:
         _tp.check_local(t, dim, whole, axis, f"mlstm {what}")
-    return axis.part(H)
+    cols, gates = ((group.head * hd, hd),), ((2 * group.head, 2),)
+    return 1, tuple(
+        _tp.select(t, spans, dim, whole, axis, f"mlstm {what}")
+        for (t, dim, whole, what), spans in zip(heads, (cols, cols, gates,
+                                                        gates)))
 
 
 def mlstm_apply(params: MLstm, x, cfg, axis=None):
     """Full-sequence mLSTM via the SSD chunked scan (per-head decays).
-    With a model ``axis`` this rank runs its ``H / tp`` heads (module
-    docstring): ``x`` enters by ``copy``, the output leaves by
-    ``reduce``."""
+    With a model ``axis`` this rank runs its ``H / tp`` heads, or its
+    part of one head's v channels where the axis is a multiple of the
+    heads (module docstring): ``x`` enters by ``copy``, the output
+    leaves by ``reduce``."""
     B, L, _ = x.shape
-    H, hd = cfg.n_heads, cfg.head_dim_
+    H, qk = cfg.n_heads, None
     if axis is not None:
-        H = _mlstm_local(params, cfg, axis)
+        H, qk = _mlstm_local(params, cfg, axis)
         x = _tp.copy(x, axis)
-    q, k, v, log_i, log_f = _mlstm_qkv(params, x, cfg, H)
-    # augment v with ones so the normaliser n rides along as channel hd
+    q, k, v, log_i, log_f = _mlstm_qkv(params, x, cfg, H, qk)
+    # augment v with ones so the normaliser n rides along as the last
+    # channel
     v_aug = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
     # input weighting: i_t enters multiplicatively (like dt in SSD)
     xs = v_aug * torch.exp(log_i)[..., None].to(v.dtype)
-    y = _per_head_scan(xs, log_f, k, q)                       # (B,L,H,hd+1)
+    y = _per_head_scan(xs, log_f, k, q)                       # (B,L,H,P+1)
     y = _normalise(y[..., :-1], y[..., -1:])
     z = params.wz(x)
-    y = y.reshape(B, L, H * hd) * F.silu(z)
+    y = y.reshape(B, L, -1) * F.silu(z)
     if axis is None:
         y = rms_norm(y, params.norm.scale, cfg.norm_eps)
         return params.wo(y)
@@ -388,20 +436,33 @@ class SLstm(nn.Module):
         self.wo.init_(gen)
 
 
+def _slstm_heads(cfg, index: int, size: int):
+    """``(first, count)``: the sLSTM heads model rank ``index`` of ``size``
+    runs: ``H / size`` of them, or where ``size`` is a multiple of the
+    ``H`` heads, the one head of its group of ``size / H`` ranks."""
+    H = cfg.n_heads
+    if H % size == 0:
+        return index * (H // size), H // size
+    if size % H:
+        raise ValueError(f"sLSTM: {H} heads neither split over nor divide "
+                         f"{size} model ranks")
+    return index // (size // H), 1
+
+
 def slstm_wx_spans(cfg, index: int, size: int):
     """The column spans of ``wx`` (and its bias), the reference's ``z|i|f|o``
     blocks of ``d`` each, that model rank ``index`` of ``size`` computes
     with: its heads' channels of each block, in block order."""
     d = cfg.d_model
-    c = d // size
-    return tuple((g * d + index * c, c) for g in range(4))
+    hb = d // cfg.n_heads
+    first, n = _slstm_heads(cfg, index, size)
+    return tuple((g * d + first * hb, n * hb) for g in range(4))
 
 
 def slstm_r_spans(cfg, index: int, size: int):
     """The span of ``r``'s head dimension that model rank ``index`` of
     ``size`` computes with: its heads' recurrent blocks."""
-    h = cfg.n_heads // size
-    return ((index * h, h),)
+    return (_slstm_heads(cfg, index, size),)
 
 
 def _slstm_rec(r, h):
@@ -443,32 +504,74 @@ def _slstm_step(r, carry, xw):
 
 
 def _slstm_local(params: SLstm, cfg, axis):
-    """``(wx kernel, wx bias, r)`` of this rank's heads: its columns of the
-    whole ``wx`` and blocks of the whole ``r``, after checking that the
-    norm's gain and ``wo`` are its model shards."""
+    """``(wx kernel, wx bias, r, part)`` of this rank's heads: its columns
+    of the whole ``wx`` and blocks of the whole ``r``, after checking that
+    the norm's gain and ``wo`` are its model shards; ``part``, the
+    ``(start, length)`` of its channels of its head where it runs one head
+    of a head group, else None."""
     d, H = cfg.d_model, cfg.n_heads
     _tp.check_local(params.norm.scale, 0, d, axis, "slstm norm")
     _tp.check_local(params.wo.kernel, 0, d, axis, "slstm wo")
+    part = None if H % axis.size == 0 else axis.head_group(H).channels(
+        d // H, "slstm")
     spans = slstm_wx_spans(cfg, axis.index, axis.size)
     return (_tp.select(params.wx.kernel, spans, 1, 4 * d, axis,
                        "slstm wx"),
             _tp.select(params.wx.bias, spans, 0, 4 * d, axis,
                        "slstm wx bias"),
             _tp.select(params.r, slstm_r_spans(cfg, axis.index, axis.size),
-                       0, H, axis, "slstm r"))
+                       0, H, axis, "slstm r"),
+            part)
+
+
+_FOLD = contextvars.ContextVar("slstm_fold", default=False)
+_FOLD_KEEP = 2          # the last steps a folded loop runs whole
+
+
+@contextlib.contextmanager
+def folded_loop():
+    """Inside the block, an sLSTM loop over time that autograd does not
+    record (the serving steps) runs only its last ``_FOLD_KEEP`` steps
+    whole (``launch.dryrun``, whose fake tensors carry no values).  Each
+    step before them dispatches its one product, the recurrent ``bmm``,
+    and allocates its output ``h``; the carry keeps its first ``c``,
+    ``n``, ``m`` and takes the last ``h``.  Every step makes the same
+    product and keeps one more ``h``, so the FLOPs, the storage alive
+    between steps and, in the steps run whole, the most alive within a
+    step are the whole loop's (``tests/test_torch_dryrun.py`` holds the
+    records equal); the loop dispatches 2 ops a step where it dispatched
+    about 35."""
+    token = _FOLD.set(True)
+    try:
+        yield
+    finally:
+        _FOLD.reset(token)
+
+
+def _folded_steps(r, carry, n: int):
+    """``(hs, carry)`` after ``n`` steps of :func:`folded_loop`."""
+    c, nn_, h, m = carry
+    hs = []
+    for _ in range(n):
+        torch.bmm(h.reshape(h.shape[0], r.shape[0], r.shape[1]).transpose(
+            0, 1), cast(r, h.dtype))
+        hs.append(torch.empty_like(c))
+    return hs, (c, nn_, hs[-1].to(h.dtype), m)
 
 
 def slstm_apply(params: SLstm, x, cfg, axis=None):
     """Strictly recurrent sLSTM over the sequence (a loop over time).  With
-    a model ``axis`` this rank runs its heads (module docstring): ``x``
-    enters by ``copy``, the output leaves by ``reduce``, and the loop
-    runs no collective."""
+    a model ``axis`` this rank runs its heads, or its head of a head group
+    whole and keeps its part of the head's channels (module docstring):
+    ``x`` enters by ``copy``, the output leaves by ``reduce``, and the
+    loop runs no collective."""
     B, L, _ = x.shape
+    part = None
     if axis is None:
         wx, bx, r = params.wx.kernel, params.wx.bias, params.r
     else:
         x = _tp.copy(x, axis)
-        wx, bx, r = _slstm_local(params, cfg, axis)
+        wx, bx, r, part = _slstm_local(params, cfg, axis)
     d = r.shape[0] * r.shape[1]
     xw = dense(x, wx, bx).float()                                # (B, L, 4d)
     dev = x.device
@@ -476,14 +579,19 @@ def slstm_apply(params: SLstm, x, cfg, axis=None):
              torch.zeros((B, d), device=dev),
              torch.zeros((B, d), dtype=x.dtype, device=dev),
              torch.full((B, d), -1e9, device=dev))
-    hs = []
-    for t in range(L):
+    hs, start = [], 0
+    if _FOLD.get() and not torch.is_grad_enabled() and L > _FOLD_KEEP:
+        start = L - _FOLD_KEEP
+        hs, carry = _folded_steps(r, carry, start)
+    for t in range(start, L):
         carry, h = _slstm_step(r, carry, xw[:, t])
         hs.append(h)
     y = torch.stack(hs, dim=1).to(x.dtype)                       # (B, L, d)
     if axis is None:
         y = rms_norm(y, params.norm.scale, cfg.norm_eps)
         return params.wo(y)
+    if part is not None:                # this rank's channels of its head
+        y = y.narrow(-1, *part)
     y = _tp.rms_norm(y, params.norm.scale, cfg.norm_eps, axis)
     return _tp.reduce(params.wo(y), axis)
 

@@ -34,7 +34,9 @@ tp`` experts of an MoE layer; the Mamba2, mLSTM and sLSTM mixers on
 this rank's ``H / tp`` heads where their head count divides the axis
 (the head-aligned leaves this rank's model shards, the packed
 projections gathered whole and its heads' columns selected:
-``sharding.compute_split``'s ``SELECT``), else whole; the embedding and
+``sharding.compute_split``'s ``SELECT``), the xLSTM's on head groups
+where the axis is a multiple of its heads (``models.xlstm``), else
+whole; the embedding and
 the tied logits vocab-parallel, the loss a vocab-parallel log-softmax
 (:func:`_vocab_parallel_nll`).  The batch splits over the data axes by
 ``batch_shardings`` (where the rules shard the sequence instead, the

@@ -262,22 +262,28 @@ def recording_gathers(seen):
 def recording_heads(seen):
     """``seen[mixer]``: the head counts each Mamba2 ``ssd_chunked``, mLSTM
     ``_per_head_scan`` and sLSTM step (``"mamba"``, ``"mlstm"``,
-    ``"slstm"``) ran on inside the block."""
+    ``"slstm"``) ran on inside the block, and ``seen["mlstm v"]`` the v
+    channels a head of each mLSTM scan (its inputs but the normaliser's
+    ones channel)."""
     from repro_torch.models import ssm, xlstm
 
     def spy(module, name, mixer, heads):
         inner = getattr(module, name)
 
         def record(*args):
-            seen.setdefault(mixer, set()).add(heads(*args))
+            for key, n in heads(*args).items():
+                seen.setdefault(key, set()).add(n)
             return inner(*args)
 
         return module, name, inner, record
 
-    spies = [spy(ssm, "ssd_chunked", "mamba", lambda x, *_: x.shape[2]),
+    spies = [spy(ssm, "ssd_chunked", "mamba",
+                 lambda x, *_: {"mamba": x.shape[2]}),
              spy(xlstm, "_per_head_scan", "mlstm",
-                 lambda xs, log_f, *_: log_f.shape[2]),
-             spy(xlstm, "_slstm_step", "slstm", lambda r, *_: r.shape[0])]
+                 lambda xs, log_f, *_: {"mlstm": log_f.shape[2],
+                                        "mlstm v": xs.shape[3] - 1}),
+             spy(xlstm, "_slstm_step", "slstm",
+                 lambda r, *_: {"slstm": r.shape[0]})]
     for module, name, _, record in spies:
         setattr(module, name, record)
     try:
@@ -811,9 +817,10 @@ def serve_one_rank(archs, ckpt_root, ref_npz):
 
 
 @job
-def dryrun_twin(cells):
+def dryrun_twin(cells, shape=(2, 2)):
     """Each cell ``(arch, kind, B, S)`` of tests/test_torch_dryrun.py on a
-    live (2, 2) mesh: one call of the reduced config's step, built by
+    live (data, model) mesh of ``shape``: one call of the reduced
+    config's step, built by
     ``launch.dryrun.build_cell`` from real weights (seed 0), with
     ``compat``'s counts of it as the dry-run keeps them
     (``dryrun.step_counts``), its FLOPs under ``FlopCounterMode`` and the
@@ -827,7 +834,7 @@ def dryrun_twin(cells):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh_compat
 
-    mesh = make_mesh_compat((2, 2), ("data", "model"), device="cpu")
+    mesh = make_mesh_compat(shape, ("data", "model"), device="cpu")
     out = {}
     for arch, kind, B, S in cells:
         cfg = reduced(get_config(arch))
@@ -1024,6 +1031,91 @@ def mixer_split(shapes, seq_lens, B=2, L=32):
         res["calls"] = calls
         res["coords"] = mesh.coords
         out[mesh_name(shape)] = res
+    return out
+
+
+@job
+def head_group(shape, B=2, L=32):
+    """Reduced xlstm's mLSTM, its sLSTM (the first of each in the first
+    super-block) and that whole super-block (``"block"``), weights from
+    seed 0 moved off their init by numpy-seeded noise, on a live (data,
+    model) mesh of ``shape`` whose model axis is a multiple of the 4
+    heads: one process's forward and gradients of ``sum(y * ct)`` on
+    numpy-seeded ``x`` and ``ct`` (B, L, d), in f64 (``f64``) and in f32
+    (``want``), and the same on this rank's head group (``got``: its
+    ``SPLIT`` leaves' model shards under ``compute_split``, its
+    ``SELECT`` leaves whole; the split leaves' gradients gathered whole
+    over "model"), every mLSTM readout of the f32 runs on the f64 run's
+    sides of the normaliser's kink; and each f32 side's forward matmul
+    FLOPs (``FlopCounterMode``, no autograd)."""
+    import copy
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.distributed import param_shardings, tp
+    from repro_torch.distributed.sharding import (SPLIT, compute_split,
+                                                  local_slice, only_model,
+                                                  unshard)
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import build, xlstm
+    from repro_torch.models.transformer import _apply_super
+
+    rng = np.random.default_rng(0)
+    mesh = make_mesh_compat(shape, ("data", "model"), device="cpu")
+    axis = tp.ModelAxis.of(mesh)
+    cfg = reduced(get_config("xlstm-1.3b"))
+    whole = build(cfg, device="cpu").init(0)
+    with torch.no_grad():
+        for p in whole.parameters():
+            p.add_(torch.from_numpy(0.1 * rng.standard_normal(
+                p.shape).astype(np.float32)))
+    specs = param_shardings(whole, mesh, cfg.n_experts)
+    split = compute_split(specs, cfg, mesh)
+    positions = torch.arange(L)[None].expand(B, L)
+
+    def block(m, x, c, *_):
+        return _apply_super("xlstm_super", m, x, positions, c)[0]
+
+    units = {"mlstm": ("segments.0.0.mlstms.0.core", xlstm.mlstm_apply),
+             "slstm": ("segments.0.0.slstm.core", xlstm.slstm_apply),
+             "block": ("segments.0.0", block)}
+    out = {"coords": mesh.coords}
+    for unit, (prefix, apply) in units.items():
+        module = whole.get_submodule(prefix)
+        leaves = {n: f"{prefix}.{n}" for n, _ in module.named_parameters()}
+        x = torch.from_numpy(rng.standard_normal(
+            (B, L, cfg.d_model)).astype(np.float32))
+        ct = torch.from_numpy(rng.standard_normal(
+            (B, L, cfg.d_model)).astype(np.float32))
+        with xlstm.NormaliserSides() as sides:
+            want64 = _mixer_run(apply, copy.deepcopy(module).double(),
+                                x.double(), ct.double(), cfg)
+        with xlstm.NormaliserSides(sides.seen):
+            want = _mixer_run(apply, module, x, ct, cfg)
+        mine = _with_leaves(module, {
+            n: local_slice(p, only_model(specs[leaves[n]]), mesh)
+            for n, p in module.named_parameters()
+            if split[leaves[n]] == SPLIT})
+        with xlstm.NormaliserSides(sides.seen, mesh):
+            got = _mixer_run(apply, mine, x, ct, cfg, axis)
+        gathered = {n: unshard(g.contiguous(), only_model(specs[leaves[n]]),
+                               mesh) if split[leaves[n]] == SPLIT else g
+                    for n, g in got[2].items()}
+        flops = []
+        for m, ax in ((module, None), (mine, axis)):
+            counter = FlopCounterMode(display=False)
+            with torch.no_grad(), tp.split_model(ax), counter:
+                apply(m, x, cfg) if ax is None else apply(m, x, cfg, ax)
+            flops.append(counter.get_total_flops())
+        out[unit] = dict(
+            split={n: split[leaves[n]] for n in leaves},
+            local={n: tuple(p.shape) for n, p in mine.named_parameters()},
+            whole={n: tuple(p.shape) for n, p in module.named_parameters()},
+            want=[want[0].numpy(), want[1].numpy(), _np(want[2])],
+            got=[got[0].numpy(), got[1].numpy(), _np(gathered)],
+            f64=[want64[0].numpy(), want64[1].numpy(), _np(want64[2])],
+            flops_one=flops[0], flops_rank=flops[1])
     return out
 
 

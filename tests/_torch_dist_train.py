@@ -160,7 +160,9 @@ def hold_split(ref, ranks, arch, name):
     vocabulary over tp; in a MoE config each ``torch.bmm`` of the loss
     (the experts') sees ``E / tp`` experts; each Mamba2 SSD scan, mLSTM
     scan and sLSTM step runs on ``H / tp`` heads where tp divides the
-    mixers' ``H``, else on all ``H``."""
+    mixers' ``H``, on one head where tp is a multiple of the xLSTM's
+    ``H`` (the mLSTM scan on ``hd / g`` of its v channels, ``g = tp /
+    H``), else on all ``H``."""
     from repro_torch.configs import get_config, reduced
     from repro_torch.distributed.sharding import mixer_heads
 
@@ -187,10 +189,16 @@ def hold_split(ref, ranks, arch, name):
         if cfg.n_experts:
             assert r["experts"] and set(r["experts"]) == {
                 cfg.n_experts // tp}, r["experts"]
-        assert sorted(r["heads"]) == mixers, r["heads"]
+        assert sorted(k for k in r["heads"] if " " not in k) == mixers, \
+            r["heads"]
+        group = "mlstm" in mixers and tp % H == 0 and H % tp != 0
         for mixer in mixers:
-            assert r["heads"][mixer] == [H // tp if H % tp == 0 else H], \
-                (mixer, r["heads"])
+            want = H // tp if H % tp == 0 else 1 if group else H
+            assert r["heads"][mixer] == [want], (mixer, r["heads"])
+        if "mlstm" in mixers:
+            hd = cfg.head_dim_
+            assert r["heads"]["mlstm v"] == [hd // (tp // H) if group
+                                             else hd], r["heads"]
     assert split_leaves > 0
 
 

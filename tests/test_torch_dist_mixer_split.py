@@ -8,23 +8,30 @@
   (``src/repro/models/ssm.py:48``: ``[z | x | B | C | dt]``;
   ``src/repro/models/xlstm.py:150-169``: ``z|i|f|o`` blocks of ``d``,
   ``r`` ``(H, hb, 4 hb)``), at full width and reduced, for every tp that
-  divides the heads;
+  divides the heads, and for xlstm's tp = 8 and 16 (each head on a group
+  of tp / 4 ranks, which all select its columns);
 * ``compute_split`` marks the head-aligned leaves ``SPLIT`` and the
   packed ones ``SELECT`` at full width (zamba2-2.7b on (2, 4) and 16 x
-  16, xlstm-1.3b on (2, 4)), keeps every mixer whole where tp does not
-  divide the heads (xlstm-1.3b's 4 on 16 x 16, reduced xlstm's 4 on
-  (1, 8)), in the decode keeps each mixer leaf at its stored model shard
-  (zamba2-2.7b and xlstm-1.3b on (2, 4) and 16 x 16), and raises for a
-  leaf stored otherwise than it computes; a mixer handed whole weights
-  under a model axis raises;
+  16, xlstm-1.3b on (2, 4)); where tp is a multiple of the xLSTM's 4
+  heads (xlstm-1.3b on 16 x 16, reduced xlstm on (1, 8)) the leaves a
+  rank owns by its part of its head's channels (mLSTM ``wv`` / ``wz`` /
+  norm / ``wo``, sLSTM norm / ``wo``) ``SPLIT`` and the others
+  ``SELECT``; it keeps every mixer whole where tp neither divides nor is
+  a multiple of the heads (reduced xlstm on (1, 6) and (2, 3)), raises
+  where a head's channels do not split over its group, in the decode
+  keeps each mixer leaf at its stored model shard (zamba2-2.7b and
+  xlstm-1.3b on (2, 4) and 16 x 16), and raises for a leaf stored
+  otherwise than it computes; a mixer handed whole weights under a
+  model axis raises;
 * on gloo ranks (two on (1, 2), four on (2, 2) and (1, 4)): the split
   RMS norm equals the whole norm within 1e-6, forward and gradients;
   each mixer's forward (within 1e-5 of its scale) and gradients (within
   the train-step tests' 1e-4 of each leaf's max) equal the one-process
   mixer's; a reduced sharded train step makes as many model-axis
   collective calls at 64 tokens as at 32 (the sLSTM loop runs none);
-* reduced xlstm's super-block under a model axis of 8 computes whole,
-  bit for bit the one-process block, on all 4 heads.
+* reduced xlstm's super-block under a model axis of 6 (neither a
+  divisor nor a multiple of its 4 heads) computes whole, bit for bit the
+  one-process block, on all 4 heads.
 
 One spawn of two ranks and one of four: near 40 s alone.
 """
@@ -59,7 +66,7 @@ def _cases():
             cfg = _cfg(arch, full)
             H = cfg.n_ssm_heads if arch == "zamba2-2.7b" else cfg.n_heads
             for t in (2, 4, 8, 16):
-                if H % t == 0:
+                if H % t == 0 or (arch == "xlstm-1.3b" and t % H == 0):
                     yield arch, full, t
 
 
@@ -86,17 +93,26 @@ def _ref_conv(cfg, rank, size):
     return np.flatnonzero((head == -1) | (head // (H // size) == rank))
 
 
+def _mine(head, H, rank, size):
+    """Whether heads ``head`` are rank ``rank``'s of ``size``: its ``H /
+    size`` heads, or where ``size`` is a multiple of ``H``, the head of
+    its group of ``size / H`` ranks."""
+    if H % size == 0:
+        return head // (H // size) == rank
+    return head == rank // (size // H)
+
+
 def _ref_wx(cfg, rank, size):
     """``wx``'s columns, four ``z|i|f|o`` blocks of ``d`` channels, channel
     ``c`` of a block in head ``c // hb``."""
     d, H = cfg.d_model, cfg.n_heads
     head = (np.arange(4 * d) % d) // (d // H)
-    return np.flatnonzero(head // (H // size) == rank)
+    return np.flatnonzero(_mine(head, H, rank, size))
 
 
 def _ref_r(cfg, rank, size):
     H = cfg.n_heads
-    return np.flatnonzero(np.arange(H) // (H // size) == rank)
+    return np.flatnonzero(_mine(np.arange(H), H, rank, size))
 
 
 def _selected(n, spans, size, rank):
@@ -168,13 +184,59 @@ def test_full_width_mixers_split_by_head(arch, shape):
         if arch == "zamba2-2.7b" else {"wq.kernel", "wx.kernel", "r"})
 
 
+_CHANNELS = {"mlstms": {"wv.kernel", "wz.kernel", "norm.scale",
+                        "wo.kernel"},
+             "slstm": {"norm.scale", "wo.kernel"}}
+
+
 @pytest.mark.parametrize("arch,full,shape", [("xlstm-1.3b", True, (16, 16)),
                                              ("xlstm-1.3b", False, (1, 8))])
-def test_mixers_stay_whole_where_tp_does_not_divide_the_heads(arch, full,
-                                                              shape):
-    _, _, _, split = _split_of(arch, full, shape)
+def test_xlstm_mixers_split_over_head_groups(arch, full, shape):
+    """tp a multiple of the 4 heads: the leaves a rank owns by its part of
+    its head's channels are its model shards (1/tp of their whole, each
+    inside its head), every other mixer leaf is gathered and its head's
+    parts selected."""
+    specs, cfg, mesh, split = _split_of(arch, full, shape)
+    leaves = _mixer_leaves(split)
+    assert leaves
+    tp, hd = shape[1], cfg.head_dim_
+    for name, (leaf, how) in leaves.items():
+        kind = "mlstms" if ".mlstms." in name else "slstm"
+        if leaf in _CHANNELS[kind]:
+            assert how == SPLIT, name
+            dim = [d for d, axes in enumerate(specs[name])
+                   if axes and "model" in axes]
+            assert len(dim) == 1, name
+            # each rank's stored slice: hd / g channels inside its head
+            width = cfg.n_heads * hd // tp
+            assert width * tp == cfg.n_heads * hd, name
+            for rank in range(tp):
+                first, last = rank * width, (rank + 1) * width - 1
+                assert first // hd == last // hd \
+                    == rank // (tp // cfg.n_heads), (name, rank)
+        else:
+            assert how == SELECT, (name, how)
+    assert {leaf for leaf, _ in leaves.values()} >= {
+        "wq.kernel", "wv.kernel", "wx.kernel", "r", "wo.kernel"}
+
+
+@pytest.mark.parametrize("shape", [(1, 6), (2, 3)])
+def test_mixers_stay_whole_where_tp_neither_divides_nor_is_a_multiple_of_the_heads(  # noqa: E501
+        shape):
+    _, _, _, split = _split_of("xlstm-1.3b", False, shape)
     for name, (_, how) in _mixer_leaves(split).items():
         assert how in (GATHER, REPLICATED), name
+
+
+def test_a_head_whose_channels_do_not_split_over_its_group_raises():
+    """Reduced xlstm's heads of 16 channels on 128 model ranks: groups of
+    32 ranks a head."""
+    cfg = _cfg("xlstm-1.3b", False)
+    module = Decoder(cfg, device="meta")
+    mesh = Mesh({"data": 1, "model": 128})
+    specs = param_shardings(module, mesh, cfg.n_experts)
+    with pytest.raises(ValueError, match="do not split over its 32"):
+        compute_split(specs, cfg, mesh)
 
 
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-1.3b"])
@@ -221,7 +283,7 @@ def test_whole_weights_under_a_model_axis_raise():
                   "in_proj")
 
 
-def test_reduced_xlstm_at_tp8_computes_whole():
+def test_reduced_xlstm_at_tp6_computes_whole():
     cfg = reduced(get_config("xlstm-1.3b"))
     block = init_decoder(0, cfg, "cpu").segments[0][0]
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
@@ -230,11 +292,12 @@ def test_reduced_xlstm_at_tp8_computes_whole():
     with torch.no_grad():
         want, _ = _apply_super("xlstm_super", block, x, positions, cfg)
         heads = {}
-        with tp.split_model(tp.ModelAxis(8, 3, None)), \
+        with tp.split_model(tp.ModelAxis(6, 3, None)), \
                 recording_heads(heads):
             got, _ = _apply_super("xlstm_super", block, x, positions, cfg)
     assert torch.equal(got, want)
-    assert heads == {"mlstm": {cfg.n_heads}, "slstm": {cfg.n_heads}}
+    assert heads == {"mlstm": {cfg.n_heads}, "slstm": {cfg.n_heads},
+                     "mlstm v": {cfg.head_dim_}}
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ under its shardings on 8 fake devices, on (2, 4) and (1, 8), at the LM
 serving tests' f32 bound (tests/_torch_dist_serve.py).  The mesh
 prefill splits the Mamba2, mLSTM and sLSTM mixers by head over the model
 axis where their heads divide it (zamba2's 8 on both meshes, xlstm's 4
-on (2, 4); whole on (1, 8)), as the train step does.  The decode keeps
+on (2, 4)), and xlstm's over groups of two model ranks a head on (1,
+8) (each rank its head's q / k / gates and sLSTM recurrence whole, its
+half of the head's v / z / output channels), as the train step does.  The decode keeps
 the Mamba2 conv windows and states and the mLSTM / sLSTM states where
 the rules shard them (the last dimension the model axis divides, not the
 heads): each rank updates its slice and the readouts are reduced over

@@ -8,8 +8,12 @@ head where tp divides their 4 heads (2 and 4): ``wq`` / ``wk`` / ``wv``
 / ``wz`` / ``w_gates`` column-, ``wo`` row-parallel, the norms over the
 ranks' parts, sLSTM's ``wx`` and ``r`` gathered whole and each rank's
 heads selected; each rank's mLSTM scan and sLSTM step run on ``4 / tp``
-heads.  On (1, 8) the cells compute whole on every model rank, on all 4
-heads (``hold_split``)."""
+heads.  On (1, 8) each head runs on a group of two model ranks: each
+computes its head's ``q`` / ``k`` / gates from the gathered ``wq`` /
+``wk`` / ``w_gates`` and its sLSTM recurrence whole, and its half of
+the head's ``v`` / ``z`` channels, norm and ``wo`` rows from its own
+shards: one head a rank, the mLSTM scan on 8 of the head's 16 v
+channels (``hold_split``)."""
 
 import _torch_dist_train as T
 from _torch_train import torch_one_thread  # noqa: F401  (autouse)

@@ -11,6 +11,14 @@
   working module's parameter bytes (``held_bytes``): equal, not within a
   bound, since both sides count shapes.  The record's peak is the step's
   device's alone, ``MemTracker``'s kinds at it summing to it.
+* The same for reduced xlstm's train and prefill cells (4 x 32) on a
+  fake world of 8 on a (1, 8) mesh against eight real gloo ranks: its 4
+  heads on groups of two model ranks, whose redundant work the record
+  names (``differs_from_reference``).  The dry-run's shortcuts (the
+  fake tensors' device queries answered above the counters; the
+  prefill's sLSTM loop folded to its last two steps) change no number of
+  either cell's record: FLOPs, calls and bytes by op, peak and every
+  memory figure.
 * ``model_flops_global`` equals ``repro.models.model_flops`` for every
   applicable (arch, shape) cell (exactly: both are integer arithmetic in
   floats).
@@ -50,13 +58,71 @@ def live(tmp_path_factory):
                      CELLS)
 
 
-def _dry(arch, kind):
+def _dry(arch, kind, mesh_shape=(2, 2), **kw):
     rec = dryrun.lower_cell(arch, "t", False, device="cpu",
                             cfg=reduced(get_config(arch)),
                             shape=ShapeSpec("t", S, B, kind),
-                            mesh_shape=(2, 2))
+                            mesh_shape=mesh_shape, **kw)
     assert not dist.is_initialized()
     return rec
+
+
+GROUP_MESH = (1, 8)
+GROUP_CELLS = [("xlstm-1.3b", k, B, S) for k in ("train", "prefill")]
+
+
+@pytest.fixture(scope="module")
+def live_group(tmp_path_factory):
+    return run_ranks("dryrun_twin", 8, tmp_path_factory.mktemp("dry_group"),
+                     GROUP_CELLS, GROUP_MESH)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_fake_world_counts_what_live_ranks_count_on_head_groups(live_group,
+                                                                kind):
+    rec = _dry("xlstm-1.3b", kind, GROUP_MESH)
+    real = live_group[0][f"xlstm-1.3b/{kind}"]
+    coll = rec["collectives"]
+    for key in ("ops", "by_axes", "bytes", "counts", "total_bytes"):
+        assert coll[key] == real["counts"][key], key
+    for part in ("working_gather", "recompute", "recurrent"):
+        assert coll[part] == real["counts"][part], part
+    assert rec["cost"]["flops"] == real["flops"]
+    assert rec["memory"]["held_bytes"] == real["held"]
+    assert any("groups of 2 model ranks" in d
+               for d in rec["differs_from_reference"])
+    assert not any("computed whole" in d
+                   for d in rec["differs_from_reference"])
+    for rank in live_group[1:]:
+        assert rank[f"xlstm-1.3b/{kind}"]["flops"] == real["flops"]
+
+
+@pytest.mark.parametrize("shape,kind,g", [((16, 16), "train_4k", 4),
+                                           ((16, 16), "prefill_32k", 4),
+                                           ((2, 8), "train_4k", 2),
+                                           ((2, 6), "train_4k", None)])
+def test_the_record_names_the_head_groups(shape, kind, g):
+    """xlstm-1.3b on a model axis of 8 or 16: the record names each head
+    computed on its group of ``g`` ranks, not the mixers computed whole;
+    on 6 (neither a divisor nor a multiple of 4) they still compute
+    whole."""
+    from repro_torch.launch.mesh import Mesh
+
+    got = dryrun.differs_from_reference(
+        get_config("xlstm-1.3b"), SHAPES[kind], SHAPES[kind].kind,
+        Mesh(dict(zip(("data", "model"), shape))))
+    assert any(f"groups of {g} model ranks" in d for d in got) == bool(g)
+    assert any("computed whole on every model rank" in d
+               for d in got) == (g is None), got
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_the_shortcuts_change_no_record(kind):
+    fast = _dry("xlstm-1.3b", kind, GROUP_MESH)
+    slow = _dry("xlstm-1.3b", kind, GROUP_MESH, shortcuts=False)
+    for rec in (fast, slow):
+        rec.pop("trace_s")
+    assert fast == slow
 
 
 @pytest.mark.parametrize("arch,kind", [c[:2] for c in CELLS])
