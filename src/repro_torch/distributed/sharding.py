@@ -48,6 +48,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from . import compat
+from .tp import HeadGroup
 
 __all__ = [
     "param_spec",
@@ -396,10 +397,9 @@ def _split_of(name: str, cfg, tp: int, mixers: bool, stored: bool):
         return None, None
     if rest not in _HEAD_GROUP_SPLIT[kind]:
         return SELECT, None
-    g = tp // heads
-    if cfg.head_dim_ % g or (cfg.d_model // heads) % g:
-        raise ValueError(f"{name}: a head's channels do not split over its "
-                         f"{g} model ranks (tp = {tp}, {heads} heads)")
+    group = HeadGroup.of(0, tp, heads)
+    group.channels(cfg.head_dim_, name)
+    group.channels(cfg.d_model // heads, name)
     return SPLIT, dims[rest]
 
 

@@ -60,7 +60,7 @@ import torch
 
 from . import compat
 
-__all__ = ["ModelAxis", "HeadGroup", "split_model", "current", "axis_for",
+__all__ = ["ModelAxis", "HeadGroup", "heads_of", "split_model", "current", "axis_for",
            "axis_for_heads", "check_local",
            "copy", "reduce", "gather", "scatter", "select", "rms_norm",
            "state_dims", "is_split", "gather_parts", "AXIS"]
@@ -91,11 +91,7 @@ class ModelAxis(NamedTuple):
         """Where the axis is ``g`` times the ``heads``: this rank's head
         and its part of that head's channels (:class:`HeadGroup`); raises
         where ``heads`` does not divide the axis."""
-        if self.size % heads:
-            raise ValueError(f"{heads} heads do not divide {self.size} "
-                             "model ranks")
-        g = self.size // heads
-        return HeadGroup(self.index // g, self.index % g, g)
+        return HeadGroup.of(self.index, self.size, heads)
 
 
 class HeadGroup(NamedTuple):
@@ -108,6 +104,17 @@ class HeadGroup(NamedTuple):
     part: int
     g: int
 
+    @classmethod
+    def of(cls, index: int, size: int, heads: int) -> "HeadGroup":
+        """Model rank ``index``'s place on an axis of ``size`` ranks, ``g =
+        size / heads`` a head; raises where ``heads`` does not divide
+        ``size``."""
+        if size % heads:
+            raise ValueError(f"{heads} heads do not divide {size} model "
+                             "ranks")
+        g = size // heads
+        return cls(index // g, index % g, g)
+
     def channels(self, n: int, what: str) -> Tuple[int, int]:
         """``(start, length)`` of this rank's part of a head's ``n``
         channels; raises, naming ``what``, where ``g`` does not divide
@@ -117,6 +124,19 @@ class HeadGroup(NamedTuple):
                              f"over its {self.g} model ranks")
         c = n // self.g
         return self.part * c, c
+
+
+def heads_of(index: int, size: int, heads: int) -> Tuple[int, int]:
+    """``(first, count)``: the heads model rank ``index`` of ``size`` runs:
+    ``heads / size`` of them, or where ``size`` is a multiple of the
+    ``heads``, the one head of its :class:`HeadGroup`; raises where the
+    heads neither split over nor divide the ranks."""
+    if heads % size == 0:
+        return index * (heads // size), heads // size
+    if size % heads:
+        raise ValueError(f"{heads} heads neither split over nor divide "
+                         f"{size} model ranks")
+    return HeadGroup.of(index, size, heads).head, 1
 
 
 _AXIS: contextvars.ContextVar = contextvars.ContextVar("model_axis",

@@ -29,9 +29,9 @@ process, on nothing:
   and two shortcuts that change no number of the record: the device
   queries of the fake tensors answered above the counters
   (:class:`_DeviceQueries`), and the sLSTM's loop over time folded where
-  autograd does not record it (``models.xlstm.folded_loop``: the serving
-  steps; the prefill of xlstm-1.3b's 32,768 positions, 8 layers of them,
-  would dispatch some 9 million ops).
+  autograd does not record it (:func:`_folded_loop`: the serving steps;
+  the prefill of xlstm-1.3b's 32,768 positions, 8 layers of them, would
+  dispatch some 9 million ops).
 
 Each record (``experiments/torch_dryrun/<arch>__<shape>__<mesh>.json``,
 or under the directory a caller passes) holds the reference's keys where
@@ -97,7 +97,8 @@ from ..distributed.sharding import (axis_size, batch_shardings, dp_axes,
 from ..models import decode_input_specs, input_specs, model_flops
 from ..models.encdec import EncDec
 from ..models.transformer import Decoder
-from ..models.xlstm import folded_loop
+from ..models import xlstm
+from ..models.layers import cast
 from ..train.optim import init_opt
 from ..train.step import (_main_input, make_prefill_step, make_serve_step,
                           make_train_step)
@@ -183,6 +184,49 @@ def collective_bytes(ops: Dict[str, dict]) -> dict:
 def _by_axes(stats: compat.CollectiveStats) -> Dict[str, dict]:
     return {f"{k.rpartition(':')[0]}:{_KIND_OF[k.rpartition(':')[2]]}": v
             for k, v in sorted(stats.by_axes().items())}
+
+
+_FOLD_KEEP = 2          # the last steps a folded loop runs whole
+
+
+def _folded_slstm_loop(r, carry, xw):
+    """``models.xlstm``'s sLSTM loop over time, folded where autograd does
+    not record it: only its last ``_FOLD_KEEP`` steps run whole.  Each
+    step before them dispatches its one product, the recurrent ``bmm``,
+    and allocates its output ``h``; the carry keeps its first ``c``,
+    ``n``, ``m`` and takes the last ``h``.  Every step makes the same
+    product and keeps one more ``h``, so the FLOPs, the storage alive
+    between steps and, in the steps run whole, the most alive within a
+    step are the whole loop's (``tests/test_torch_dryrun.py`` holds the
+    records equal); the loop dispatches 2 ops a step where it dispatched
+    about 35.  The folded steps compute no values, so this raises for
+    any tensor that is not fake."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    L = xw.shape[1]
+    if torch.is_grad_enabled() or L <= _FOLD_KEEP:
+        return xlstm._slstm_loop(r, carry, xw)
+    if not all(isinstance(t, FakeTensor) for t in (r, xw, *carry)):
+        raise RuntimeError("the folded sLSTM loop runs on fake tensors "
+                           "only: its steps compute no values")
+    c, n, h, m = carry
+    hs = []
+    for _ in range(L - _FOLD_KEEP):
+        torch.bmm(h.reshape(h.shape[0], r.shape[0], r.shape[1]).transpose(
+            0, 1), cast(r, h.dtype))
+        hs.append(torch.empty_like(c))
+    carry = (c, n, hs[-1].to(h.dtype), m)
+    return hs + xlstm._slstm_loop(r, carry, xw[:, L - _FOLD_KEEP:])
+
+
+@contextlib.contextmanager
+def _folded_loop():
+    """The counted step's sLSTM loops folded (:func:`_folded_slstm_loop`)."""
+    token = xlstm._LOOP.set(_folded_slstm_loop)
+    try:
+        yield
+    finally:
+        xlstm._LOOP.reset(token)
 
 
 class _DeviceQueries(torch.utils._python_dispatch.TorchDispatchMode):
@@ -351,17 +395,13 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
                cfg: Optional[ModelConfig] = None,
                shape: Optional[ShapeSpec] = None,
                mesh_shape: Optional[Sequence[int]] = None,
-               cache_dtype=torch.bfloat16,
-               shortcuts: bool = True) -> dict:
+               cache_dtype=torch.bfloat16) -> dict:
     """One rank of the cell's step on a fake world; returns the record
     (module docstring).  ``cfg`` (a reduced or changed config of
     ``arch``), ``shape`` (a smaller ShapeSpec than ``SHAPES[shape_name]``),
     ``mesh_shape`` (another mesh than the production one, its last axes
     named ("pod",) "data", "model") and ``cache_dtype`` (the decode
-    cache's) are for tests and comparisons with live ranks;
-    ``shortcuts`` False counts without the two shortcuts that change no
-    number of the record (:class:`_DeviceQueries`,
-    ``models.xlstm.folded_loop``), to hold that they change none."""
+    cache's) are for tests and comparisons with live ranks."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
@@ -387,9 +427,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool,
         collecting = gc.isenabled()
         gc.disable()
         try:
-            plain = contextlib.nullcontext()
-            with (folded_loop() if shortcuts else plain), tracker, flops, \
-                    (_DeviceQueries() if shortcuts else plain):
+            with _folded_loop(), tracker, flops, _DeviceQueries():
                 out = run()
             rec["collectives"] = step_counts(kind)
         finally:

@@ -77,7 +77,6 @@ rank but ``m`` and the sLSTM's ``h``.
 
 from __future__ import annotations
 
-import contextlib
 import contextvars
 import math
 from typing import NamedTuple, Tuple
@@ -238,10 +237,8 @@ class NormaliserSides:
         if self.mesh is not None:
             b, h, n = den.shape[0], den.shape[2], side.shape[2]
             di = self.mesh.index("data")
-            # the rank's first head: index * H / tp, also where the axis
-            # is a multiple of the heads (one head on each group)
-            hi = self.mesh.index("model") * n // self.mesh.axis_size(
-                "model") if h < n else 0
+            hi = 0 if h == n else _tp.heads_of(
+                self.mesh.index("model"), self.mesh.axis_size("model"), n)[0]
             side = side[di * b:(di + 1) * b, :, hi:hi + h]
         return side.to(den.device)
 
@@ -436,33 +433,20 @@ class SLstm(nn.Module):
         self.wo.init_(gen)
 
 
-def _slstm_heads(cfg, index: int, size: int):
-    """``(first, count)``: the sLSTM heads model rank ``index`` of ``size``
-    runs: ``H / size`` of them, or where ``size`` is a multiple of the
-    ``H`` heads, the one head of its group of ``size / H`` ranks."""
-    H = cfg.n_heads
-    if H % size == 0:
-        return index * (H // size), H // size
-    if size % H:
-        raise ValueError(f"sLSTM: {H} heads neither split over nor divide "
-                         f"{size} model ranks")
-    return index // (size // H), 1
-
-
 def slstm_wx_spans(cfg, index: int, size: int):
     """The column spans of ``wx`` (and its bias), the reference's ``z|i|f|o``
     blocks of ``d`` each, that model rank ``index`` of ``size`` computes
     with: its heads' channels of each block, in block order."""
     d = cfg.d_model
     hb = d // cfg.n_heads
-    first, n = _slstm_heads(cfg, index, size)
+    first, n = _tp.heads_of(index, size, cfg.n_heads)
     return tuple((g * d + first * hb, n * hb) for g in range(4))
 
 
 def slstm_r_spans(cfg, index: int, size: int):
     """The span of ``r``'s head dimension that model rank ``index`` of
     ``size`` computes with: its heads' recurrent blocks."""
-    return (_slstm_heads(cfg, index, size),)
+    return (_tp.heads_of(index, size, cfg.n_heads),)
 
 
 def _slstm_rec(r, h):
@@ -524,39 +508,20 @@ def _slstm_local(params: SLstm, cfg, axis):
             part)
 
 
-_FOLD = contextvars.ContextVar("slstm_fold", default=False)
-_FOLD_KEEP = 2          # the last steps a folded loop runs whole
-
-
-@contextlib.contextmanager
-def folded_loop():
-    """Inside the block, an sLSTM loop over time that autograd does not
-    record (the serving steps) runs only its last ``_FOLD_KEEP`` steps
-    whole (``launch.dryrun``, whose fake tensors carry no values).  Each
-    step before them dispatches its one product, the recurrent ``bmm``,
-    and allocates its output ``h``; the carry keeps its first ``c``,
-    ``n``, ``m`` and takes the last ``h``.  Every step makes the same
-    product and keeps one more ``h``, so the FLOPs, the storage alive
-    between steps and, in the steps run whole, the most alive within a
-    step are the whole loop's (``tests/test_torch_dryrun.py`` holds the
-    records equal); the loop dispatches 2 ops a step where it dispatched
-    about 35."""
-    token = _FOLD.set(True)
-    try:
-        yield
-    finally:
-        _FOLD.reset(token)
-
-
-def _folded_steps(r, carry, n: int):
-    """``(hs, carry)`` after ``n`` steps of :func:`folded_loop`."""
-    c, nn_, h, m = carry
+def _slstm_loop(r, carry, xw):
+    """The outputs ``h`` of the loop over the time axis of ``xw`` ``(B, L,
+    4 H hb)``, the pre-activations of the heads of the recurrent blocks
+    ``r`` ``(H, hb, 4 hb)``, from ``carry``."""
     hs = []
-    for _ in range(n):
-        torch.bmm(h.reshape(h.shape[0], r.shape[0], r.shape[1]).transpose(
-            0, 1), cast(r, h.dtype))
-        hs.append(torch.empty_like(c))
-    return hs, (c, nn_, hs[-1].to(h.dtype), m)
+    for t in range(xw.shape[1]):
+        carry, h = _slstm_step(r, carry, xw[:, t])
+        hs.append(h)
+    return hs
+
+
+# the loop :func:`slstm_apply` runs (``launch.dryrun`` sets its own for
+# the counted step)
+_LOOP = contextvars.ContextVar("slstm_loop", default=_slstm_loop)
 
 
 def slstm_apply(params: SLstm, x, cfg, axis=None):
@@ -565,7 +530,7 @@ def slstm_apply(params: SLstm, x, cfg, axis=None):
     whole and keeps its part of the head's channels (module docstring):
     ``x`` enters by ``copy``, the output leaves by ``reduce``, and the
     loop runs no collective."""
-    B, L, _ = x.shape
+    B = x.shape[0]
     part = None
     if axis is None:
         wx, bx, r = params.wx.kernel, params.wx.bias, params.r
@@ -579,13 +544,7 @@ def slstm_apply(params: SLstm, x, cfg, axis=None):
              torch.zeros((B, d), device=dev),
              torch.zeros((B, d), dtype=x.dtype, device=dev),
              torch.full((B, d), -1e9, device=dev))
-    hs, start = [], 0
-    if _FOLD.get() and not torch.is_grad_enabled() and L > _FOLD_KEEP:
-        start = L - _FOLD_KEEP
-        hs, carry = _folded_steps(r, carry, start)
-    for t in range(start, L):
-        carry, h = _slstm_step(r, carry, xw[:, t])
-        hs.append(h)
+    hs = _LOOP.get()(r, carry, xw)
     y = torch.stack(hs, dim=1).to(x.dtype)                       # (B, L, d)
     if axis is None:
         y = rms_norm(y, params.norm.scale, cfg.norm_eps)

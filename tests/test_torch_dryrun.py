@@ -29,9 +29,11 @@
   that fails.
 """
 
+import contextlib
 import json
 
 import pytest
+import torch
 import torch.distributed as dist
 
 from _torch_dist import run_ranks
@@ -117,12 +119,34 @@ def test_the_record_names_the_head_groups(shape, kind, g):
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill"])
-def test_the_shortcuts_change_no_record(kind):
+def test_the_shortcuts_change_no_record(kind, monkeypatch):
     fast = _dry("xlstm-1.3b", kind, GROUP_MESH)
-    slow = _dry("xlstm-1.3b", kind, GROUP_MESH, shortcuts=False)
+    monkeypatch.setattr(dryrun, "_folded_loop", contextlib.nullcontext)
+    monkeypatch.setattr(dryrun, "_DeviceQueries", contextlib.nullcontext)
+    slow = _dry("xlstm-1.3b", kind, GROUP_MESH)
     for rec in (fast, slow):
         rec.pop("trace_s")
     assert fast == slow
+
+
+def test_the_folded_loop_refuses_real_tensors():
+    """The fold computes no values: where autograd does not record it
+    raises on real tensors, and where autograd records it runs the whole
+    loop, the same as ``models.xlstm``'s."""
+    from repro_torch.models import xlstm
+
+    gen = torch.Generator().manual_seed(0)
+    r = torch.randn(2, 4, 16, generator=gen)
+    carry = (torch.zeros(3, 8), torch.zeros(3, 8), torch.zeros(3, 8),
+             torch.full((3, 8), -1e9))
+    xw = torch.randn(3, 6, 32, generator=gen)
+    with torch.no_grad(), pytest.raises(RuntimeError, match="fake tensors"):
+        dryrun._folded_slstm_loop(r, carry, xw)
+    got = dryrun._folded_slstm_loop(r, carry, xw)
+    want = xlstm._slstm_loop(r, carry, xw)
+    assert len(got) == 6
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch,kind", [c[:2] for c in CELLS])

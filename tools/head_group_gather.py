@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
 """The selected xLSTM leaves' gathers on head groups, two ways, over gloo.
 
-    PYTHONPATH=src python3 tools/head_group_gather.py [--reps 5] [--device cpu]
+    PYTHONPATH=src python3 tools/head_group_gather.py [--reps 5] [--device cuda|cpu]
 
 Where the model axis is ``g`` times xlstm's 4 heads, each model rank
 computes with one head's parts of ``wq``, ``wk``, ``w_gates`` (and its
 bias), ``wx`` (and its bias) and ``r`` (``sharding.compute_split``'s
-``SELECT``).  Eight gloo ranks on a (1, 8) mesh (``--device cuda``: all
-on cuda:0) move xlstm-1.3b's super-block's selected leaves (5 mLSTM, 1
-sLSTM, at full width, f32) as a train step does, each way, and count
-the calls and bytes (``compat.STATS``, this rank's input) and the host
-ms of a step:
+``SELECT``).  Eight gloo ranks on a (1, 8) mesh (all on cuda:0 by
+default, which raises without a card; ``--device cpu`` on the host)
+move xlstm-1.3b's super-block's selected leaves (5 mLSTM, 1 sLSTM, at
+full width, f32) as a train step does, each way, and count the calls
+and bytes (``compat.STATS``, this rank's input) and the host ms of a
+step:
 
 * ``whole`` (what the port does): each leaf's model shard gathered
   whole over "model" (``distributed.fsdp``, once in the forward and once
@@ -73,6 +74,7 @@ def _rank(rank, init, device, reps, out):
 
     from repro_torch.configs import get_config
     from repro_torch.distributed import compat
+    from repro_torch.distributed.tp import HeadGroup
     from repro_torch.launch.mesh import make_mesh_compat
 
     compat.init_distributed(device=device, backend="gloo",
@@ -82,7 +84,7 @@ def _rank(rank, init, device, reps, out):
     cfg = get_config("xlstm-1.3b")
     mesh = make_mesh_compat(MESH, ("data", "model"), device=dev)
     tp, idx = mesh.axis_size("model"), mesh.index("model")
-    head = idx // (tp // cfg.n_heads)
+    head = HeadGroup.of(idx, tp, cfg.n_heads).head
     model = mesh.group("model")
     leaves = _leaves(cfg)
     # every head's group of holders of each leaf, made on every rank alike
@@ -144,9 +146,13 @@ def _rank(rank, init, device, reps, out):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--device", default="cpu", choices=("cpu", "cuda"))
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
     import torch
+
+    from repro_torch.device import resolve_device
+
+    resolve_device(args.device)     # raises for "cuda" without a card
 
     with tempfile.TemporaryDirectory() as tmp:
         out = f"{tmp}/rank0.pt"
